@@ -1,0 +1,96 @@
+"""Model registry (counterpart of ``mridc_tpu/models/registry.py``):
+name -> constructor, plus the names of the JAX registry that are not ported yet,
+each with the ROADMAP item that ports it.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from mridc_tpu_torch.models.recon.cirim import CIRIM
+from mridc_tpu_torch.utils.typecheck import resolve_device
+
+__all__ = ["MODEL_REGISTRY", "PENDING_MODELS", "build_model", "available_models"]
+
+MODEL_REGISTRY: Dict[str, Callable] = {"CIRIM": CIRIM.from_config, "RIM": CIRIM.from_config}
+
+_M8, _M9, _M10, _M11, _M12 = "M8 (E2EVN)", "M9 (reconstruction zoo)", "M10 (quantitative)", "M11 (segmentation)", "M12 (multitask)"
+PENDING_MODELS: Dict[str, str] = {
+    **dict.fromkeys(("VN", "VARNET", "E2EVN"), _M8),
+    **dict.fromkeys(
+        (
+            "ZF", "UNET", "CASCADENET", "CCNN", "CRNNET", "CRNN", "CS", "PICS", "JOINTICNET", "PROXIMALGRADIENT",
+            "PG", "RESNET", "RVN", "RECURRENTVARNET", "KIKINET", "LPDNET", "LPD", "MULTIDOMAINNET", "MULTIDOMAIN",
+            "XPDNET", "VSNET", "DUNET",
+        ),
+        _M9,
+    ),
+    **dict.fromkeys(("QCIRIM", "QRIM", "QVN", "QVARNET"), _M10),
+    **dict.fromkeys(
+        (
+            "SEGMENTATIONUNET", "SEGMENTATION2DUNET", "SEGMENTATION3DUNET", "SEGMENTATIONATTENTIONUNET",
+            "SEGMENTATIONLAMBDAUNET", "SEGMENTATIONVNET", "SEGMENTATIONDYNUNET", "SEGMENTATIONUNETR",
+        ),
+        _M11,
+    ),
+    **dict.fromkeys(
+        ("MTLRS", "JRSCIRIM", "IDSLR", "IDSLRUNET", "SEGNET", "RECSEGNET", "RECSEGUNET", "SERANET"), _M12
+    ),
+}
+
+
+# Perf knobs with model-specific support, as in the JAX package: a knob key in
+# the config of a model outside its support set is a user error.
+_TPU_KNOB_SUPPORT = {
+    "scan_iterations": {"XPDNET", "KIKINET", "LPDNET", "LPD"},
+    "dc_mode": {"CIRIM", "RIM", "MTLRS", "JRSCIRIM", "VN", "E2EVN", "VARNET"},
+    "dc_dtype": {"VN", "E2EVN", "VARNET"},
+    "remat_mode": {"CIRIM", "RIM", "QCIRIM"},
+    "remat_save_dc": {"CIRIM", "RIM"},
+    "lane_fold": {"CIRIM", "RIM", "MTLRS", "JRSCIRIM"},
+    "train_dc_dtype": {"CIRIM", "RIM", "MTLRS", "JRSCIRIM"},
+    "infer_dc_dtype": {"CIRIM", "RIM", "MTLRS", "JRSCIRIM"},
+    "train_eta_dtype": {"CIRIM", "RIM"},
+    "scan_unroll": {"CIRIM", "RIM"},
+    "train_pointwise_matmul": {"CIRIM", "RIM"},
+    "stack_intermediates": {"CIRIM", "RIM"},
+    "train_batch_stats": {
+        "CASCADENET", "CCNN", "KIKINET", "LPDNET", "LPD", "XPDNET", "VSNET",
+        "SEGMENTATIONVNET", "SEGMENTATIONLAMBDAUNET",
+        "MTLRS", "JRSCIRIM",
+    },
+}
+
+
+def _check_knob_support(name: str, cfg: Dict[str, Any]) -> None:
+    for key, supported in _TPU_KNOB_SUPPORT.items():
+        if key in cfg and cfg[key] is not None and name not in supported:
+            raise ValueError(
+                f"{key!r} is not supported by model {name!r} (supported: "
+                f"{sorted(supported)}); remove it from the model config"
+            )
+
+
+def build_model(cfg: Dict[str, Any], device=None, generator: Optional[torch.Generator] = None):
+    """Build a model from a config dict with a ``model_name`` key, on ``device``:
+    the CUDA device when None (raising if there is none), the CPU only when the
+    caller asks for it. Weights are drawn from ``generator`` (CPU generator)."""
+    name = str(cfg.get("model_name", "")).upper()
+    if name in PENDING_MODELS and name not in MODEL_REGISTRY:
+        raise NotImplementedError(
+            f"model {name!r} is not ported to mridc_tpu_torch yet: ROADMAP {PENDING_MODELS[name]}"
+        )
+    if name not in MODEL_REGISTRY:
+        raise ValueError(f"Unknown model_name {name!r}. Available: {sorted(MODEL_REGISTRY)}")
+    if cfg.get("use_sens_net", False):
+        raise NotImplementedError("use_sens_net (learned sensitivity maps) is not ported yet: ROADMAP M8")
+    _check_knob_support(name, cfg)
+    dev = resolve_device(device)
+    return MODEL_REGISTRY[name](cfg, generator=generator).to(dev)
+
+
+def available_models():
+    """Names that build in this package (the rest: :data:`PENDING_MODELS`)."""
+    return sorted(MODEL_REGISTRY)

@@ -7,7 +7,9 @@ setup(
     name="mridc_tpu",
     version="0.1.0",
     description="TPU-native AI MRI analysis: reconstruction, quantitative mapping, segmentation, multitask",
-    packages=find_packages(include=["mridc_tpu", "mridc_tpu.*"]),
+    packages=find_packages(include=["mridc_tpu", "mridc_tpu.*", "mridc_tpu_torch", "mridc_tpu_torch.*"]),
+    # the PyTorch/CUDA port builds its kernels from these sources at first use
+    package_data={"mridc_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
@@ -20,5 +22,6 @@ setup(
         "pyyaml",
         "einops",
     ],
+    extras_require={"torch": ["torch", "numpy"]},
     entry_points={"console_scripts": ["mridc_tpu=mridc_tpu.cli:main"]},
 )
