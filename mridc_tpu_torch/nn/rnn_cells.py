@@ -6,9 +6,11 @@ gates are (r, z, n) with ``h' = n*(1-z) + z*h``; MGU uses ``h' = c + f*(h-c)``;
 IndRNN uses a per-channel scalar recurrence ``relu(Wx + u*h)``. Parameter names
 follow the reference torch modules (``ih.weight``, ``ih.bias``, ``hh``).
 
-The IndRNN cell with a 1x1 input kernel (the flagship's) runs through K3
-(:func:`mridc_tpu_torch.kernels.indrnn`); GRU, MGU and IndRNN with a larger
-kernel are plain PyTorch on every device.
+The IndRNN cell with a 1x1 input kernel (the flagship's, and that of every
+IndRNN config in ``projects/``) runs through K3
+(:func:`mridc_tpu_torch.kernels.indrnn`). An IndRNN cell with a larger input
+kernel runs plain on the CPU and raises on the card (ROADMAP.md, K3: input
+kernels larger than 1x1). GRU and MGU are plain PyTorch on every device.
 """
 
 from __future__ import annotations
@@ -86,17 +88,25 @@ class IndRNNCell(nn.Module):
             nn.init.zeros_(self.ih.bias)
         nn.init.normal_(self.hh, std=std, generator=generator)
 
-    def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    def kernel_args(self, x: torch.Tensor, h: torch.Tensor) -> tuple:
+        """K3's operands for a call on ``x`` and ``h`` (1x1 input kernel):
+        ``(x, h, weight, bias, hh)`` in the compute dtype, activations
+        channels_last."""
         dt = self.ih.compute_dtype or torch.promote_types(x.dtype, self.ih.weight.dtype)
-        hh = self.hh.to(dt) if self.ih.compute_dtype is not None else self.hh
-        if self.kernel_size != 1:
-            return torch.relu(self.ih(x) + hh * h)
         bias = None if self.ih.bias is None else self.ih.bias.to(dt)
         cl = torch.channels_last
-        return indrnn(
-            x.to(dt).contiguous(memory_format=cl), h.to(dt).contiguous(memory_format=cl),
-            self.ih.weight.to(dt), bias, hh.to(dt),
-        )
+        return (x.to(dt).contiguous(memory_format=cl), h.to(dt).contiguous(memory_format=cl),
+                self.ih.weight.to(dt), bias, self.hh.to(dt))
+
+    def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        if self.kernel_size == 1:
+            return indrnn(*self.kernel_args(x, h))
+        if x.device.type != "cpu":
+            raise NotImplementedError(
+                f"IndRNNCell: K3 takes a 1x1 input kernel only, got {self.kernel_size}x{self.kernel_size} on "
+                f"{x.device}; larger input kernels on the card are ROADMAP.md's K3 item")
+        hh = self.hh.to(self.ih.compute_dtype) if self.ih.compute_dtype is not None else self.hh
+        return torch.relu(self.ih(x) + hh * h)
 
 
 _CELLS = {"GRU": ConvGRUCell, "MGU": ConvMGUCell, "INDRNN": IndRNNCell}

@@ -127,6 +127,15 @@ def test_cells_match_flax(kind, k, d):
     _close(got, want)
 
 
+def test_indrnn_larger_input_kernel_runs_plain_only_on_the_cpu():
+    """K3 takes a 1x1 input kernel: a 3x3 IndRNN cell is plain on CPU tensors
+    (checked against flax above) and raises on any other device."""
+    cell = tcells.make_cell("IndRNN", 6, 8, 3, 1, True).to("meta")
+    x, h = torch.empty(1, 6, 5, 5, device="meta"), torch.empty(1, 8, 5, 5, device="meta")
+    with pytest.raises(NotImplementedError, match="K3"):
+        cell(x, h)
+
+
 def test_indrnn_bf16_cell_casts_like_flax():
     x, h = _nhwc(8, 4), np.abs(_nhwc(8, 5))
     jmod = jcells.IndRNNCell(8, dtype="bfloat16")

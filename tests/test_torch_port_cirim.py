@@ -173,8 +173,8 @@ def test_chip_smoke_weights_have_the_flax_layout():
     cfg = chip_smoke.flagship_cfg(num_cascades=2, time_steps=2, conv_filters=[F, F, 2], recurrent_filters=[F, F, 0])
     y, sens, mask = _data(16, 16)
     want = jax.eval_shape(jax_build_model(cfg).init, jax.random.PRNGKey(0), *map(jnp.asarray, (y, sens, mask)))
-    for active in (False, True):
-        got = chip_smoke.jax_layout_tree(cfg, seed=0, active=active)
+    for gain in (None, chip_smoke.MAIN_GAIN, 1.0):
+        got = chip_smoke.jax_layout_tree(cfg, seed=0, gain=gain)
         assert jax.tree_util.tree_structure(got) == jax.tree_util.tree_structure(want)
         assert jax.tree_util.tree_leaves(jax.tree_util.tree_map(lambda a, b: a.shape == b.shape, got, want))
 
