@@ -10,7 +10,9 @@ Phases (any failure raises; no phase catches its own):
   1. the card: ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``;
   2. build the kernels of ``mridc_tpu_torch/csrc`` (one nvcc per source, in parallel);
   3. each kernel against its plain version on the card, at the flagship shapes
-     (B=2, 15 coils, 320x320, 64 filters) and at an odd size;
+     (B=2, 15 coils, 320x320, 64 filters) and at an odd size; K3-f32 also at
+     64 -> 128 and 128 -> 128 channels, at in-channels that are not a multiple
+     of 8, and over a pixel count that no tile divides;
   4. a small CIRIM (15 coils, 64x64, 2 cascades x 3 steps, 64 filters) on the
      card against the same weights on the CPU, in both dc_modes;
   5. the main path: flagship CIRIM inference (bench.py's flagship_cfg: 5 x 8,
@@ -356,6 +358,20 @@ def main() -> int:
                 args = [a.to(dt) for a in (x, hprev, wt, bias, hh)]
                 errors.setdefault(sym, []).append(
                     check(f"{sym}[{label}]", kernels.indrnn(*args), rounded_once(kernels.indrnn_plain, *args), *tol))
+
+        # K3-f32 at the other widths projects/ uses (64 -> 128, 128 -> 128: the
+        # latter takes a narrower pixel tile to fit shared memory), at
+        # in-channels that are not a multiple of 8 (36: 16-byte copies and a
+        # zero-padded k step; 6: 4-byte copies, and 12 out-channels, a
+        # zero-padded n tile, without bias), over 2 x 33 x 35 pixels, a count
+        # that no pixel tile divides
+        sym = K3[torch.float32]
+        for ci, fo, use_bias in ((64, 128, True), (128, 128, True), (36, 64, True), (6, 12, False)):
+            x, hprev = cl(rand(2, ci, 33, 35)), cl(rand(2, fo, 33, 35, positive=True))
+            wt, hh = rand(fo, ci, 1, 1) / np.sqrt(ci), rand(1, fo, 1, 1, positive=True)
+            args = (x, hprev, wt, rand(fo) * 0.1 if use_bias else None, hh)
+            errors[sym].append(check(f"{sym}[{ci}->{fo}/2x33x35{'' if use_bias else '/no_bias'}]",
+                                     kernels.indrnn(*args), kernels.indrnn_plain(*args), *F32))
         torch.cuda.synchronize()
 
     # 4. small model: kernels on the card against the plain path on the CPU

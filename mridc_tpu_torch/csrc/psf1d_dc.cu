@@ -56,40 +56,6 @@ constexpr int TK = 16;        // v per staged tile (two k8 steps)
 constexpr int LDS = TK + 4;   // smem row stride in floats: fragment loads hit 32 banks
 constexpr int THREADS = 128;  // 4 warps: 2 (h) x 2 (u), 16 x 32 outputs each
 
-// a float as hi + lo, both TF32: their products keep float32 accuracy
-struct Split {
-  uint32_t hi, lo;
-};
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ Split split(float x) {
-  const uint32_t hi = to_tf32(x);
-  return {hi, to_tf32(x - __uint_as_float(hi))};
-}
-
-__device__ __forceinline__ Split neg(Split s) { return {s.hi ^ 0x80000000u, s.lo ^ 0x80000000u}; }
-
-__device__ __forceinline__ void mma(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// d += a*b as hi*lo + lo*hi + hi*hi (the small terms first)
-__device__ __forceinline__ void mma3(float (&d)[4], const Split (&a)[4], Split b0, Split b1) {
-  mma(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b0.lo, b1.lo);
-  mma(d, a[0].lo, a[1].lo, a[2].lo, a[3].lo, b0.hi, b1.hi);
-  mma(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b0.hi, b1.hi);
-}
-
 // 4 consecutive floats from global memory, the first n valid (zeros after);
 // one 16-byte load when the row layout keeps it aligned
 __device__ __forceinline__ float4 load4(const float* p, int n, bool vec) {

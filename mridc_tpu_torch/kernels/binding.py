@@ -52,9 +52,9 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
         "k2_reduce": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F),
     },
     "indrnn": {
-        # x, h, w, bias (or null), u, out, P, CI, F
-        "k3_indrnn_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I),
-        "k3_indrnn_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I),
+        # x, h, w, bias (or null), u, out, P, CI, F, device index (keys the cached launch setup)
+        "k3_indrnn_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I),
+        "k3_indrnn_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I),
     },
 }
 

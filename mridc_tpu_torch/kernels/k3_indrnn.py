@@ -60,6 +60,6 @@ def indrnn(x, h, weight, bias: Optional[torch.Tensor], hh) -> torch.Tensor:
     launch(
         "indrnn", SYMBOLS[x.dtype], dev,
         x.data_ptr(), h.data_ptr(), w32.data_ptr(), None if b32 is None else b32.data_ptr(), u32.data_ptr(),
-        out.data_ptr(), b * hgt * wid, ci, f,
+        out.data_ptr(), b * hgt * wid, ci, f, dev.index,
     )
     return out
