@@ -1,10 +1,16 @@
-// K1: the psf1d likelihood gradient of one RIM step, forward.
+// K1: the psf1d likelihood gradient of one RIM step, forward and backward.
 //
 // Stands for mridc_tpu/nn/dc.py:162-179 log_likelihood_gradient_psf1d (with
 // apply_psf1d :144-159), a chain that XLA fuses on the TPU:
-//   out[b, h, u] = [eta, (sum_c conj(s_c[h, u]) * sum_v C[b, u, v] s_c[h, v] eta[h, v] - z0[h, u]) / sigma^2]
+//   out[b, h, u] = [eta, (A(eta)[h, u] - z0[h, u]) / sigma^2]
+//   A(eta)[h, u] = sum_c conj(s_c[h, u]) * sum_v C[b, u, v] s_c[h, v] eta[h, v]
 // as [B, H, W, 4], where C is the per-example complex [W, W] operator of
-// psf1d_gauss_mats.
+// psf1d_gauss_mats. A is Hermitian in every normalisation and centering mode
+// (C = F^-1 diag(m) F with real m, the shifts are permutations), so the
+// gradient for an upstream g [B, H, W, 4] (what jax.grad takes through the
+// same chain) is d_eta = g[..., :2] + A(g[..., 2:]) / sigma^2: the same tiles
+// with g's channels 2:4 read as eta and an epilogue that adds g[..., :2]
+// ([B, H, W, 2] out). Both passes are one template (BWD).
 //
 // What bounds it on an H100: operations. The product costs 8*C*H*W^2 flops per
 // slice (3.9 GFLOP at 15 coils and 320x320) against about (C+3)*H*W*2 values
@@ -44,6 +50,13 @@ __device__ __forceinline__ void write_out(const T* eta_b, const T* z0_b, T* out_
   st(o + 3, (gi - ld(z0_b + p * 2 + 1)) * inv_sigma2);
 }
 
+// backward epilogue: d_eta = g[..., :2] + A(g[..., 2:]) / sigma^2
+template <typename T>
+__device__ __forceinline__ void write_bwd(const T* g_b, T* out_b, size_t p, float gr, float gi, float inv_sigma2) {
+  st(out_b + p * 2, ld(g_b + p * 4) + gr * inv_sigma2);
+  st(out_b + p * 2 + 1, ld(g_b + p * 4 + 1) + gi * inv_sigma2);
+}
+
 __device__ __forceinline__ int clamp_n(int n, int cap) { return n < 0 ? 0 : (n > cap ? cap : n); }
 
 // ---- float32: tensor cores, three TF32 products per real product -----------
@@ -63,6 +76,17 @@ __device__ __forceinline__ float4 load4(const float* p, int n, bool vec) {
   return make_float4(n > 0 ? p[0] : 0.f, n > 1 ? p[1] : 0.f, n > 2 ? p[2] : 0.f, n > 3 ? p[3] : 0.f);
 }
 
+// eta at pixels pix and pix + 1 (the first n / 2 valid): 16 bytes of a
+// [.., 2] eta, or (backward) channels 2:4 of g [.., 4], two 8-byte loads
+template <bool BWD>
+__device__ __forceinline__ float4 load_eta(const float* e, size_t pix, int n, bool vec) {
+  if (!BWD) return load4(e + pix * 2, n, vec);
+  const float* p = e + pix * 4 + 2;
+  const float2 a = n > 0 ? *reinterpret_cast<const float2*>(p) : make_float2(0.f, 0.f);
+  const float2 c = n > 2 ? *reinterpret_cast<const float2*>(p + 4) : make_float2(0.f, 0.f);
+  return make_float4(a.x, a.y, c.x, c.y);
+}
+
 // One v-tile's global data in registers, loaded one tile ahead: each thread
 // owns two 2-value chunks of the x tile (eta and s_c, complex) and two 4-value
 // chunks of each C tile.
@@ -70,6 +94,7 @@ struct Stage {
   float4 eta[2], sens[2], cr[2], cs[2];
 };
 
+template <bool BWD>
 __global__ void __launch_bounds__(THREADS) psf1d_dc_f32_kernel(
     const float* __restrict__ eta, const float* __restrict__ sens, const float* __restrict__ mats,
     const float* __restrict__ z0, float* __restrict__ out, int C, int H, int W, float inv_sigma2) {
@@ -83,7 +108,7 @@ __global__ void __launch_bounds__(THREADS) psf1d_dc_f32_kernel(
   const int wm = (warp >> 1) * 16, wn = (warp & 1) * 32;
   const size_t HW = (size_t)H * W;
   const bool vec = W % 4 == 0;  // 16-byte loads stay aligned on every row
-  const float* eta_b = eta + (size_t)b * HW * 2;
+  const float* eta_b = eta + (size_t)b * HW * (BWD ? 4 : 2);  // backward: g
   const float* cr_g = mats + (size_t)b * 3 * W * W;
   const float* cs_g = cr_g + (size_t)W * W;
   const int nv = (W + TK - 1) / TK, iters = C * nv;
@@ -96,9 +121,9 @@ __global__ void __launch_bounds__(THREADS) psf1d_dc_f32_kernel(
       const int q = tid + THREADS * k;
       const int h = h0 + (q >> 3), v = v0 + 2 * (q & 7);
       const int n = h < H ? 2 * clamp_n(W - v, 2) : 0;
-      const size_t o = ((size_t)(h < H ? h : 0) * W + v) * 2;
-      st.eta[k] = load4(eta_b + o, n, vec);
-      st.sens[k] = load4(s_bc + o, n, vec);
+      const size_t pix = (size_t)(h < H ? h : 0) * W + v;
+      st.eta[k] = load_eta<BWD>(eta_b, pix, n, vec);
+      st.sens[k] = load4(s_bc + pix * 2, n, vec);
       const int u = u0 + (q >> 2), vc = v0 + 4 * (q & 3);
       const int m = u < W ? clamp_n(W - vc, 4) : 0;
       const size_t oc = (size_t)(u < W ? u : 0) * W + vc;
@@ -181,8 +206,11 @@ __global__ void __launch_bounds__(THREADS) psf1d_dc_f32_kernel(
     for (int j = 0; j < 4; ++j) {
       const int h = h0 + wm + g + (j >= 2 ? 8 : 0), u = u0 + wn + 8 * n + 2 * t4 + (j & 1);
       if (h >= H || u >= W) continue;
-      write_out(eta_b, z0 + (size_t)b * HW * 2, out + (size_t)b * HW * 4, (size_t)h * W + u, gr[n][j], gi[n][j],
-                inv_sigma2);
+      if (BWD)
+        write_bwd(eta_b, out + (size_t)b * HW * 2, (size_t)h * W + u, gr[n][j], gi[n][j], inv_sigma2);
+      else
+        write_out(eta_b, z0 + (size_t)b * HW * 2, out + (size_t)b * HW * 4, (size_t)h * W + u, gr[n][j],
+                  gi[n][j], inv_sigma2);
     }
 }
 
@@ -230,6 +258,17 @@ __device__ __forceinline__ uint4 load8(const bf16* p, int n, bool vec) {
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
+// eta at pixels pix .. pix + 3 (the first n / 2 valid): 16 bytes of a
+// [.., 2] eta, or (backward) channels 2:4 of g [.., 4], four 4-byte loads
+template <bool BWD>
+__device__ __forceinline__ uint4 load_eta(const bf16* e, size_t pix, int n, bool vec) {
+  if (!BWD) return load8(e + pix * 2, n, vec);
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) w[i] = 2 * i < n ? ld32(e + (pix + i) * 4 + 2) : 0u;
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 // One v-tile's global data, held in registers from its load (issued before
 // the previous tile's MMAs) to its conversion into shared memory. Each thread
 // owns two 4-value chunks of the x tile (eta and s_c) and two 8-value chunks of
@@ -238,6 +277,7 @@ struct Stage {
   uint4 eta[2], sens[2], cr[2], cs[2];
 };
 
+template <bool BWD>
 __global__ void __launch_bounds__(THREADS) psf1d_dc_bf16_kernel(
     const bf16* __restrict__ eta, const bf16* __restrict__ sens, const bf16* __restrict__ mats,
     const bf16* __restrict__ z0, bf16* __restrict__ out, int C, int H, int W, float inv_sigma2) {
@@ -251,7 +291,7 @@ __global__ void __launch_bounds__(THREADS) psf1d_dc_bf16_kernel(
   const int wm = (warp >> 1) * 16, wn = (warp & 1) * 32;
   const size_t HW = (size_t)H * W;
   const bool vec = W % 8 == 0;  // 16-byte loads stay aligned on every row
-  const bf16* eta_b = eta + (size_t)b * HW * 2;
+  const bf16* eta_b = eta + (size_t)b * HW * (BWD ? 4 : 2);  // backward: g
   const bf16* cr_g = mats + (size_t)b * 3 * W * W;
   const bf16* cs_g = cr_g + (size_t)W * W;
   const int nv = (W + TK - 1) / TK, iters = C * nv;
@@ -264,9 +304,9 @@ __global__ void __launch_bounds__(THREADS) psf1d_dc_bf16_kernel(
       const int q = tid + THREADS * k;
       const int h = h0 + (q >> 3), v = v0 + 4 * (q & 7);
       const int n = h < H ? 2 * clamp_n(W - v, 4) : 0;
-      const size_t o = ((size_t)(h < H ? h : 0) * W + v) * 2;
-      st.eta[k] = load8(eta_b + o, n, vec);
-      st.sens[k] = load8(s_bc + o, n, vec);
+      const size_t pix = (size_t)(h < H ? h : 0) * W + v;
+      st.eta[k] = load_eta<BWD>(eta_b, pix, n, vec);
+      st.sens[k] = load8(s_bc + pix * 2, n, vec);
       const int u = u0 + (q >> 2), vc = v0 + 8 * (q & 3);
       const int m = u < W ? clamp_n(W - vc, 8) : 0;
       const size_t oc = (size_t)(u < W ? u : 0) * W + vc;
@@ -358,8 +398,11 @@ __global__ void __launch_bounds__(THREADS) psf1d_dc_bf16_kernel(
     for (int j = 0; j < 4; ++j) {
       const int h = h0 + wm + g + (j >= 2 ? 8 : 0), u = u0 + wn + 8 * n + 2 * t4 + (j & 1);
       if (h >= H || u >= W) continue;
-      write_out(eta_b, z0 + (size_t)b * HW * 2, out + (size_t)b * HW * 4, (size_t)h * W + u, gr[n][j], gi[n][j],
-                inv_sigma2);
+      if (BWD)
+        write_bwd(eta_b, out + (size_t)b * HW * 2, (size_t)h * W + u, gr[n][j], gi[n][j], inv_sigma2);
+      else
+        write_out(eta_b, z0 + (size_t)b * HW * 2, out + (size_t)b * HW * 4, (size_t)h * W + u, gr[n][j],
+                  gi[n][j], inv_sigma2);
     }
 }
 
@@ -367,23 +410,46 @@ __global__ void __launch_bounds__(THREADS) psf1d_dc_bf16_kernel(
 
 bool bad(int B, int C, int H, int W) { return B <= 0 || C <= 0 || H <= 0 || W <= 0 || B > 65535; }
 
-}  // namespace
-
-extern "C" int k1_psf1d_dc_f32(const void* eta, const void* sens, const void* mats, const void* z0, void* out,
-                               int B, int C, int H, int W, float inv_sigma2, void* stream) {
+template <bool BWD>
+int launch_f32(const void* eta, const void* sens, const void* mats, const void* z0, void* out, int B, int C, int H,
+               int W, float inv_sigma2, void* stream) {
   if (bad(B, C, H, W)) return (int)cudaErrorInvalidValue;
   const dim3 grid((W + tf32::TN - 1) / tf32::TN, (H + tf32::TM - 1) / tf32::TM, B);
-  tf32::psf1d_dc_f32_kernel<<<grid, tf32::THREADS, 0, (cudaStream_t)stream>>>(
+  tf32::psf1d_dc_f32_kernel<BWD><<<grid, tf32::THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)eta, (const float*)sens, (const float*)mats, (const float*)z0, (float*)out, C, H, W, inv_sigma2);
   return (int)cudaGetLastError();
 }
 
-extern "C" int k1_psf1d_dc_bf16(const void* eta, const void* sens, const void* mats, const void* z0, void* out,
-                                int B, int C, int H, int W, float inv_sigma2, void* stream) {
+template <bool BWD>
+int launch_bf16(const void* eta, const void* sens, const void* mats, const void* z0, void* out, int B, int C, int H,
+                int W, float inv_sigma2, void* stream) {
   if (bad(B, C, H, W)) return (int)cudaErrorInvalidValue;
   using tc::bf16;
   const dim3 grid((W + tc::TN - 1) / tc::TN, (H + tc::TM - 1) / tc::TM, B);
-  tc::psf1d_dc_bf16_kernel<<<grid, tc::THREADS, 0, (cudaStream_t)stream>>>(
+  tc::psf1d_dc_bf16_kernel<BWD><<<grid, tc::THREADS, 0, (cudaStream_t)stream>>>(
       (const bf16*)eta, (const bf16*)sens, (const bf16*)mats, (const bf16*)z0, (bf16*)out, C, H, W, inv_sigma2);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int k1_psf1d_dc_f32(const void* eta, const void* sens, const void* mats, const void* z0, void* out,
+                               int B, int C, int H, int W, float inv_sigma2, void* stream) {
+  return launch_f32<false>(eta, sens, mats, z0, out, B, C, H, W, inv_sigma2, stream);
+}
+
+extern "C" int k1_psf1d_dc_bf16(const void* eta, const void* sens, const void* mats, const void* z0, void* out,
+                                int B, int C, int H, int W, float inv_sigma2, void* stream) {
+  return launch_bf16<false>(eta, sens, mats, z0, out, B, C, H, W, inv_sigma2, stream);
+}
+
+// backward: g [B, H, W, 4] -> d_eta [B, H, W, 2]
+extern "C" int k1_psf1d_dc_bwd_f32(const void* g, const void* sens, const void* mats, void* out, int B, int C, int H,
+                                   int W, float inv_sigma2, void* stream) {
+  return launch_f32<true>(g, sens, mats, nullptr, out, B, C, H, W, inv_sigma2, stream);
+}
+
+extern "C" int k1_psf1d_dc_bwd_bf16(const void* g, const void* sens, const void* mats, void* out, int B, int C,
+                                    int H, int W, float inv_sigma2, void* stream) {
+  return launch_bf16<true>(g, sens, mats, nullptr, out, B, C, H, W, inv_sigma2, stream);
 }

@@ -2,9 +2,11 @@
 
 K1 ``psf1d_dc`` (psf1d DC), K2 ``full_dc``/``sens_reduce`` (full-mask DC and
 SENSE reduction: stages ``expand``, ``residual``, ``load`` and ``reduce``
-around cuFFT, in :mod:`.full_dc`), K3 ``indrnn`` (IndRNN cell). Each wrapper takes
-its plain PyTorch version for CPU tensors and launches its CUDA kernel for
-CUDA tensors; :data:`LAUNCHES` counts the kernel launches per entry point.
+around cuFFT, and the backward's ``mask`` and ``reduce_acc``, in
+:mod:`.k2_full_dc`), K3 ``indrnn`` (IndRNN cell). Each wrapper is a
+``torch.autograd.Function`` that takes its plain PyTorch versions (forward and
+backward) for CPU tensors and launches its CUDA kernels for CUDA tensors;
+:data:`LAUNCHES` counts the kernel launches per entry point.
 """
 
 from mridc_tpu_torch.kernels.binding import LAUNCHES, build, reset_launch_counts

@@ -40,21 +40,33 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
         # eta, sens, mats, z0, out, B, C, H, W, inv_sigma2
         "k1_psf1d_dc_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F),
         "k1_psf1d_dc_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F),
+        # g, sens, mats, out, B, C, H, W, inv_sigma2
+        "k1_psf1d_dc_bwd_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _F),
+        "k1_psf1d_dc_bwd_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _F),
     },
     "full_dc": {
-        # eta, sens, X, B, C, H, W, shift_h, shift_w
-        "k2_expand": (_P, _P, _P, _I, _I, _I, _I, _I, _I),
+        # eta, sens, X, B, C, H, W, shift_h, shift_w, eta_stride (float2s a pixel)
+        "k2_expand": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I),
         # K, y, mask, B, C, H, W, shift_h, shift_w
         "k2_residual": (_P, _P, _P, _I, _I, _I, _I, _I, _I),
         # y, mask (or null), Q, B, C, H, W, shift_h, shift_w
         "k2_load": (_P, _P, _P, _I, _I, _I, _I, _I, _I),
         # P, sens, eta (or null), out, B, C, H, W, shift_h, shift_w, inv_sigma2
         "k2_reduce": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F),
+        # K, mask, B, C, H, W, shift_h, shift_w
+        "k2_mask": (_P, _P, _I, _I, _I, _I, _I, _I),
+        # P, sens, g, out, B, C, H, W, shift_h, shift_w, inv_sigma2
+        "k2_reduce_acc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F),
     },
     "indrnn": {
         # x, h, w, bias (or null), u, out, P, CI, F, device index (keys the cached launch setup)
         "k3_indrnn_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I),
         "k3_indrnn_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I),
+    },
+    "indrnn_bwd": {
+        # x, h, h', g, w, u, dx (or null), dh (or null), partials, sums, P, CI, F, blocks
+        "k3_indrnn_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I),
+        "k3_indrnn_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I),
     },
 }
 

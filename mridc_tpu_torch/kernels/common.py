@@ -1,17 +1,25 @@
-"""Argument checks shared by the kernel wrappers.
+"""Argument checks shared by the kernel wrappers, and the rules of their
+gradients.
 
 A wrapper takes its plain PyTorch version for tensors that lie on the CPU and
 launches its kernel for tensors on a CUDA device; on any other device, or for
-CUDA tensors the kernel does not take, it raises. It never falls back.
+CUDA tensors the kernel does not take, it raises. It never falls back. Each
+wrapper is a ``torch.autograd.Function``: on the card its backward launches
+the backward kernel, on the CPU it runs the backward kernel's plain version.
+An input whose gradient a backward does not compute raises when autograd asks
+for it (:func:`refuse_grads`), never gets None or zeros.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Optional, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import torch
 
-__all__ = ["device_of", "check_forward_only", "check_operand"]
+__all__ = ["device_of", "check_operand", "refuse_grads", "dense", "GRAD_COPIES"]
+
+# layout copies the backward wrappers made of incoming gradients, by wrapper
+GRAD_COPIES: Dict[str, int] = {}
 
 
 def device_of(name: str, *tensors: Optional[torch.Tensor]) -> torch.device:
@@ -25,12 +33,22 @@ def device_of(name: str, *tensors: Optional[torch.Tensor]) -> torch.device:
     return dev
 
 
-def check_forward_only(name: str, tensors: Iterable[Optional[torch.Tensor]]) -> None:
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel is forward only; run under torch.inference_mode() or torch.no_grad(). "
-            "Backward kernels come with the training step (ROADMAP M5)."
-        )
+def refuse_grads(name: str, needs_input_grad: Sequence[bool], unported: Mapping[int, str]) -> None:
+    """Raise if autograd asks for the gradient of an input (position: what)
+    that the backward does not compute."""
+    asked = [what for i, what in unported.items() if needs_input_grad[i]]
+    if asked:
+        raise NotImplementedError(f"{name}: the gradient with respect to {', '.join(asked)} is not ported")
+
+
+def dense(name: str, g: torch.Tensor, channels_last: bool = False) -> torch.Tensor:
+    """``g`` contiguous (or channels_last) and 16-byte aligned, as a kernel
+    reads it; a copy, when one is needed, is counted in :data:`GRAD_COPIES`."""
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    if g.is_contiguous(memory_format=fmt) and g.data_ptr() % 16 == 0:
+        return g
+    GRAD_COPIES[name] = GRAD_COPIES.get(name, 0) + 1
+    return g.clone(memory_format=fmt)
 
 
 def check_operand(

@@ -1,8 +1,12 @@
-"""K1: the psf1d likelihood gradient (``csrc/psf1d_dc.cu``) and its plain
-version.
+"""K1: the psf1d likelihood gradient (``csrc/psf1d_dc.cu``), forward and
+backward, and their plain versions.
 
 Stands for ``mridc_tpu/nn/dc.py:162-179`` ``log_likelihood_gradient_psf1d``:
-``[eta, (sum_c conj(s_c) C_w (s_c eta) - z0) / sigma^2]`` as [B, H, W, 4].
+``[eta, (A(eta) - z0) / sigma^2]`` as [B, H, W, 4] with
+``A(eta) = sum_c conj(s_c) C_w (s_c eta)``. A is Hermitian, so the gradient
+for an upstream g is ``d_eta = g[..., :2] + A(g[..., 2:]) / sigma^2`` and
+``d_z0 = -g[..., 2:] / sigma^2``; the gradients with respect to ``sens``
+(needed only by learned sensitivity maps) and the operator are not ported.
 """
 
 from __future__ import annotations
@@ -10,12 +14,13 @@ from __future__ import annotations
 import torch
 
 from mridc_tpu_torch.kernels.binding import launch
-from mridc_tpu_torch.kernels.common import check_forward_only, check_operand, device_of
+from mridc_tpu_torch.kernels.common import check_operand, dense, device_of, refuse_grads
 from mridc_tpu_torch.nn.dc import log_likelihood_gradient_psf1d
 
-__all__ = ["psf1d_dc", "psf1d_dc_plain", "SYMBOLS"]
+__all__ = ["psf1d_dc", "psf1d_dc_plain", "psf1d_dc_bwd", "psf1d_dc_bwd_plain", "SYMBOLS", "BWD_SYMBOLS"]
 
 SYMBOLS = {torch.float32: "k1_psf1d_dc_f32", torch.bfloat16: "k1_psf1d_dc_bf16"}
+BWD_SYMBOLS = {torch.float32: "k1_psf1d_dc_bwd_f32", torch.bfloat16: "k1_psf1d_dc_bwd_bf16"}
 
 
 def psf1d_dc_plain(eta, sens, mats, z0, sigma: float = 1.0) -> torch.Tensor:
@@ -23,18 +28,21 @@ def psf1d_dc_plain(eta, sens, mats, z0, sigma: float = 1.0) -> torch.Tensor:
     return log_likelihood_gradient_psf1d(eta, sens, mats, z0, sigma=sigma)
 
 
-def psf1d_dc(eta, sens, mats, z0, sigma: float = 1.0) -> torch.Tensor:
-    """``eta`` [B, H, W, 2], ``sens`` [B, C, H, W, 2], ``mats`` [B, 3, W, W]
-    (``psf1d_gauss_mats``), ``z0`` [B, H, W, 2], all of one dtype (float32 or
-    bfloat16 on the card) -> [B, H, W, 4] in that dtype."""
-    dev = device_of("psf1d_dc", eta, sens, mats, z0)
-    if dev.type == "cpu":
-        return psf1d_dc_plain(eta, sens, mats, z0, sigma)
-    check_forward_only("psf1d_dc", (eta, sens, mats, z0))
+def psf1d_dc_bwd_plain(g, sens, mats, sigma: float = 1.0) -> torch.Tensor:
+    """Plain version of the backward kernel: ``g`` [B, H, W, 4] ->
+    ``g[..., :2] + A(g[..., 2:]) / sigma^2`` [B, H, W, 2]."""
+    v = g[..., 2:]
+    return g[..., :2] + log_likelihood_gradient_psf1d(v, sens, mats, torch.zeros_like(v), sigma=sigma)[..., 2:]
+
+
+def _shape(name, sens, dtype):
     if sens.ndim != 5:
-        raise ValueError(f"psf1d_dc: sens must be [B, C, H, W, 2], got {tuple(sens.shape)}")
-    b, c, h, w, _ = sens.shape
-    dts = (sens.dtype,) if sens.dtype in SYMBOLS else tuple(SYMBOLS)
+        raise ValueError(f"{name}: sens must be [B, C, H, W, 2], got {tuple(sens.shape)}")
+    return sens.shape[:4], ((dtype,) if dtype in SYMBOLS else tuple(SYMBOLS))
+
+
+def _forward_kernel(eta, sens, mats, z0, sigma, dev) -> torch.Tensor:
+    (b, c, h, w), dts = _shape("psf1d_dc", sens, sens.dtype)
     check_operand("psf1d_dc.sens", sens, (b, c, h, w, 2), dts)
     check_operand("psf1d_dc.eta", eta, (b, h, w, 2), dts)
     check_operand("psf1d_dc.mats", mats, (b, 3, w, w), dts)
@@ -46,3 +54,47 @@ def psf1d_dc(eta, sens, mats, z0, sigma: float = 1.0) -> torch.Tensor:
         b, c, h, w, 1.0 / sigma**2,
     )
     return out
+
+
+def psf1d_dc_bwd(g, sens, mats, sigma: float = 1.0) -> torch.Tensor:
+    """The backward kernel's wrapper: ``g`` [B, H, W, 4] -> d_eta [B, H, W, 2]
+    (plain version for CPU tensors)."""
+    dev = device_of("psf1d_dc_bwd", g, sens, mats)
+    if dev.type == "cpu":
+        return psf1d_dc_bwd_plain(g, sens, mats, sigma)
+    (b, c, h, w), dts = _shape("psf1d_dc_bwd", sens, sens.dtype)
+    g = dense("psf1d_dc_bwd", g.to(sens.dtype))
+    check_operand("psf1d_dc_bwd.sens", sens, (b, c, h, w, 2), dts)
+    check_operand("psf1d_dc_bwd.g", g, (b, h, w, 4), dts)
+    check_operand("psf1d_dc_bwd.mats", mats, (b, 3, w, w), dts)
+    out = torch.empty((b, h, w, 2), dtype=sens.dtype, device=dev)
+    launch("psf1d_dc", BWD_SYMBOLS[sens.dtype], dev, g.data_ptr(), sens.data_ptr(), mats.data_ptr(), out.data_ptr(),
+           b, c, h, w, 1.0 / sigma**2)
+    return out
+
+
+class _Psf1dDC(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, eta, sens, mats, z0, sigma):
+        ctx.save_for_backward(sens, mats)
+        ctx.sigma = sigma
+        if eta.device.type == "cpu":
+            return psf1d_dc_plain(eta, sens, mats, z0, sigma)
+        return _forward_kernel(eta, sens, mats, z0, sigma, eta.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        refuse_grads("psf1d_dc", ctx.needs_input_grad, {1: "sens", 2: "mats"})
+        sens, mats = ctx.saved_tensors
+        d_eta = psf1d_dc_bwd(g, sens, mats, ctx.sigma) if ctx.needs_input_grad[0] else None
+        d_z0 = -g[..., 2:] / ctx.sigma**2 if ctx.needs_input_grad[3] else None
+        return d_eta, None, None, d_z0, None
+
+
+def psf1d_dc(eta, sens, mats, z0, sigma: float = 1.0) -> torch.Tensor:
+    """``eta`` [B, H, W, 2], ``sens`` [B, C, H, W, 2], ``mats`` [B, 3, W, W]
+    (``psf1d_gauss_mats``), ``z0`` [B, H, W, 2], all of one dtype (float32 or
+    bfloat16 on the card) -> [B, H, W, 4] in that dtype; differentiable in
+    ``eta`` and ``z0``."""
+    device_of("psf1d_dc", eta, sens, mats, z0)
+    return _Psf1dDC.apply(eta, sens, mats, z0, sigma)

@@ -1,8 +1,10 @@
-"""K3: the IndRNN cell with a 1x1 input kernel (``csrc/indrnn.cu``) and its
-plain version.
+"""K3: the IndRNN cell with a 1x1 input kernel (``csrc/indrnn.cu``, backward
+``csrc/indrnn_bwd.cu``) and their plain versions.
 
 Stands for ``mridc_tpu/nn/rnn_cells.py:88-109``
-``IndRNNCell.__call__``: ``relu(conv1x1(x, W) + b + u * h)``.
+``IndRNNCell.__call__``: ``h' = relu(conv1x1(x, W) + b + u * h)``. With
+``g' = g * [h' > 0]`` the backward is ``dx = g' W``, ``dh = u * g'``,
+``dW = sum_p g'^T x``, ``db = sum_p g'`` and ``du = sum_p h * g'``.
 """
 
 from __future__ import annotations
@@ -13,11 +15,14 @@ import torch
 import torch.nn.functional as F
 
 from mridc_tpu_torch.kernels.binding import launch
-from mridc_tpu_torch.kernels.common import check_forward_only, check_operand, device_of
+from mridc_tpu_torch.kernels.common import check_operand, dense, device_of
 
-__all__ = ["indrnn", "indrnn_plain", "SYMBOLS"]
+__all__ = ["indrnn", "indrnn_plain", "indrnn_bwd", "indrnn_bwd_plain", "SYMBOLS", "BWD_SYMBOLS"]
 
 SYMBOLS = {torch.float32: "k3_indrnn_f32", torch.bfloat16: "k3_indrnn_bf16"}
+BWD_SYMBOLS = {torch.float32: "k3_indrnn_bwd_f32", torch.bfloat16: "k3_indrnn_bwd_bf16"}
+
+_BWD_THREADS, _BWD_MAX_TILES = 256, 8  # csrc/indrnn_bwd.cu: THREADS, MAX_NMT
 
 
 def indrnn_plain(x, h, weight, bias: Optional[torch.Tensor], hh) -> torch.Tensor:
@@ -25,15 +30,31 @@ def indrnn_plain(x, h, weight, bias: Optional[torch.Tensor], hh) -> torch.Tensor
     return F.relu(F.conv2d(x, weight, bias) + hh * h)
 
 
-def indrnn(x, h, weight, bias: Optional[torch.Tensor], hh) -> torch.Tensor:
-    """``x`` [B, CI, H, W], ``h`` [B, F, H, W] (channels_last on the card),
-    ``weight`` [F, CI, 1, 1], ``bias`` [F] or None, ``hh`` [1, F, 1, 1]; all
-    already in the compute dtype (float32 or bfloat16 on the card).
-    Returns h' [B, F, H, W] in that dtype."""
-    dev = device_of("indrnn", x, h, weight, bias, hh)
-    if dev.type == "cpu":
-        return indrnn_plain(x, h, weight, bias, hh)
-    check_forward_only("indrnn", (x, h, weight, bias, hh))
+def indrnn_bwd_plain(g, x, h, out, weight, hh):
+    """Plain version of the backward kernel: ``(dx, dh, dW [F, CI], db [F],
+    du [F])`` for the upstream ``g`` of h' = ``out``; dx and dh in the
+    operands' dtype, the sums over pixels in float32 (float64 operands:
+    float64), as the kernel sums them."""
+    gp = torch.where(out > 0, g, torch.zeros((), dtype=g.dtype))
+    f, ci = weight.shape[0], weight.shape[1]
+    dx = F.conv2d(gp, weight.reshape(f, ci).t().reshape(ci, f, 1, 1))
+    dh = hh * gp
+    acc = torch.promote_types(g.dtype, torch.float32)
+    gs = gp.to(acc)
+    dw = torch.einsum("bohw,bihw->oi", gs, x.to(acc))
+    return dx, dh, dw, gs.sum((0, 2, 3)), (h.to(acc) * gs).sum((0, 2, 3))
+
+
+def _check_widths(name, dtype, ci, f):
+    if dtype == torch.bfloat16 and (ci % 16 or f % 8 or f > 128):
+        raise ValueError(f"{name}: the bf16 kernel needs in-channels % 16 == 0 and out-channels % 8 == 0, <= 128; "
+                         f"got {ci} -> {f}")
+    if dtype == torch.float32 and (f % 4 or f > 256):
+        raise ValueError(f"{name}: the float32 kernel needs out-channels % 4 == 0, <= 256; got {f}")
+
+
+def _forward_kernel(x, h, weight, bias, hh) -> torch.Tensor:
+    dev = x.device
     if x.ndim != 4 or h.ndim != 4:
         raise ValueError(f"indrnn: x and h must be [B, C, H, W], got {tuple(x.shape)} and {tuple(h.shape)}")
     b, ci, hgt, wid = x.shape
@@ -41,11 +62,7 @@ def indrnn(x, h, weight, bias: Optional[torch.Tensor], hh) -> torch.Tensor:
     if weight.shape != (f, ci, 1, 1):
         raise ValueError(f"indrnn: the kernel takes a 1x1 weight [{f}, {ci}, 1, 1], got {tuple(weight.shape)}")
     dts = (x.dtype,) if x.dtype in SYMBOLS else tuple(SYMBOLS)
-    if x.dtype == torch.bfloat16 and (ci % 16 or f % 8 or f > 128):
-        raise ValueError(f"indrnn: the bf16 kernel needs in-channels % 16 == 0 and out-channels % 8 == 0, <= 128; "
-                         f"got {ci} -> {f}")
-    if x.dtype == torch.float32 and (f % 4 or f > 256):
-        raise ValueError(f"indrnn: the float32 kernel needs out-channels % 4 == 0, <= 256; got {f}")
+    _check_widths("indrnn", x.dtype, ci, f)
     check_operand("indrnn.x", x, (b, ci, hgt, wid), dts, channels_last=True)
     check_operand("indrnn.h", h, (b, f, hgt, wid), dts, channels_last=True)
     for name, p in (("weight", weight), ("bias", bias), ("hh", hh)):
@@ -63,3 +80,71 @@ def indrnn(x, h, weight, bias: Optional[torch.Tensor], hh) -> torch.Tensor:
         out.data_ptr(), b * hgt * wid, ci, f, dev.index,
     )
     return out
+
+
+def indrnn_bwd(g, x, h, out, weight, hh, need_dx: bool = True, need_dh: bool = True):
+    """The backward kernel's wrapper: ``(dx, dh, dW [F, CI], db [F], du [F])``,
+    dx/dh in the activations' dtype (None where not needed), the sums in
+    float32 (plain version for CPU tensors)."""
+    dev = device_of("indrnn_bwd", g, x, h, out, weight, hh)
+    if dev.type == "cpu":
+        dx, dh, dw, db, du = indrnn_bwd_plain(g, x, h, out, weight, hh)
+        return (dx if need_dx else None), (dh if need_dh else None), dw, db, du
+    b, ci, hgt, wid = x.shape
+    f = h.shape[1]
+    _check_widths("indrnn_bwd", x.dtype, ci, f)
+    if f * -(-ci // 4) * 4 > 16 * _BWD_THREADS * _BWD_MAX_TILES:
+        raise ValueError(f"indrnn_bwd: the kernel holds dW in registers for out-channels x in-channels (rounded "
+                         f"up to 4) <= 32768; got {f} x {ci}")
+    dts = (x.dtype,)
+    g = dense("indrnn_bwd", g.to(x.dtype), channels_last=True)
+    for name, t, c in (("x", x, ci), ("h", h, f), ("out", out, f), ("g", g, f)):
+        check_operand(f"indrnn_bwd.{name}", t, (b, c, hgt, wid), dts, channels_last=True)
+    p = b * hgt * wid
+    w32 = weight.reshape(f, ci).float().contiguous()
+    u32 = hh.reshape(f).float().contiguous()
+    dx = torch.empty_like(x, memory_format=torch.channels_last) if need_dx else None
+    dh = torch.empty_like(h, memory_format=torch.channels_last) if need_dh else None
+    # the persistent grid: two blocks per SM at most, one 16-pixel tile each at least
+    blocks = max(1, min(-(-p // 16), 2 * torch.cuda.get_device_properties(dev).multi_processor_count))
+    n = f * ci + 2 * f
+    part = torch.empty((blocks, n), dtype=torch.float32, device=dev)
+    sums = torch.empty((n,), dtype=torch.float32, device=dev)
+    launch(
+        "indrnn_bwd", BWD_SYMBOLS[x.dtype], dev,
+        x.data_ptr(), h.data_ptr(), out.data_ptr(), g.data_ptr(), w32.data_ptr(), u32.data_ptr(),
+        None if dx is None else dx.data_ptr(), None if dh is None else dh.data_ptr(), part.data_ptr(),
+        sums.data_ptr(), p, ci, f, blocks,
+    )
+    return dx, dh, sums[: f * ci].view(f, ci), sums[f * ci : f * ci + f], sums[f * ci + f :]
+
+
+class _IndRNN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, h, weight, bias, hh):
+        out = indrnn_plain(x, h, weight, bias, hh) if x.device.type == "cpu" else _forward_kernel(
+            x, h, weight, bias, hh)
+        ctx.save_for_backward(x, h, out, weight, hh)
+        ctx.has_bias = bias is not None
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, h, out, weight, hh = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dx, dh, dw, db, du = indrnn_bwd(g, x, h, out, weight, hh, need[0], need[1])
+        return (
+            dx, dh,
+            dw.reshape(weight.shape).to(weight.dtype) if need[2] else None,
+            db.to(weight.dtype) if need[3] and ctx.has_bias else None,
+            du.reshape(hh.shape).to(hh.dtype) if need[4] else None,
+        )
+
+
+def indrnn(x, h, weight, bias: Optional[torch.Tensor], hh) -> torch.Tensor:
+    """``x`` [B, CI, H, W], ``h`` [B, F, H, W] (channels_last on the card),
+    ``weight`` [F, CI, 1, 1], ``bias`` [F] or None, ``hh`` [1, F, 1, 1]; all
+    already in the compute dtype (float32 or bfloat16 on the card).
+    Returns h' [B, F, H, W] in that dtype; differentiable in every input."""
+    device_of("indrnn", x, h, weight, bias, hh)
+    return _IndRNN.apply(x, h, weight, bias, hh)

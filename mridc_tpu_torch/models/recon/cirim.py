@@ -1,5 +1,6 @@
 """Cascades of Independently Recurrent Inference Machines — the flagship model
-(counterpart of ``mridc_tpu/models/recon/cirim.py``), inference forward.
+(counterpart of ``mridc_tpu/models/recon/cirim.py``), inference and training
+forward.
 
 Cascades are separate-weight :class:`RIMBlock` s in a ``ModuleList`` named
 ``cirim``, so the state-dict keys are the reference torch ones
@@ -9,12 +10,15 @@ reads them as they are. Hidden states reset per cascade.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mridc_tpu_torch.models.base import BaseReconModel, ModelOutput, check_dc_mode, expand_mask
+from mridc_tpu_torch.nn.layers import as_torch_dtype
 from mridc_tpu_torch.nn.rim import RIMBlock
 
 __all__ = ["CIRIM"]
@@ -23,11 +27,20 @@ _REMAT_MODES = ("step+cascade", "cascade", "step", "none")
 
 
 class CIRIM(BaseReconModel):
-    """Config fields and defaults as in the JAX package. ``remat_mode``,
-    ``remat_save_dc``, ``scan_unroll``, ``lane_fold``, ``depth`` and the
-    ``train_*`` knobs shape the TPU training step or layout and change nothing
-    at inference; they are accepted (``remat_mode`` validated) and ignored
-    until the training step is ported."""
+    """Config fields and defaults as in the JAX package.
+
+    ``forward(..., train=True)`` runs the DC in ``train_dc_dtype`` and carries
+    the estimate in ``train_eta_dtype``; otherwise the DC runs in
+    ``infer_dc_dtype``. ``remat_mode`` maps to ``torch.utils.checkpoint`` when
+    autograd records: "step" checkpoints each time step's conv/RNN stack (the
+    DC stays outside, as the JAX policy saves ``dc_grad``), "cascade" each
+    cascade, "step+cascade" both, "none" neither. ``remat_save_dc`` (keep the
+    DC outputs across the cascade recompute) changes memory only and is
+    ignored: the cascade recompute runs the DC again. ``scan_unroll``,
+    ``lane_fold``, ``depth`` and ``train_pointwise_matmul`` shape the TPU
+    layout and are accepted and ignored. The soft-DC tail (``no_dc=False``)
+    trains on the CPU only: its SENSE reduction has no backward on the card
+    yet (ROADMAP.md, K2: the sens_reduce backward)."""
 
     def __init__(
         self,
@@ -66,9 +79,14 @@ class CIRIM(BaseReconModel):
         super().__init__(fft_centered, fft_normalization, spatial_dims, coil_dim, coil_combination_method)
         if remat_mode not in _REMAT_MODES:
             raise ValueError(f"remat_mode must be one of {' | '.join(map(repr, _REMAT_MODES))}, got {remat_mode!r}")
-        del depth, lane_fold, train_pointwise_matmul, train_dc_dtype, train_eta_dtype, scan_unroll, remat_save_dc
+        del depth, lane_fold, train_pointwise_matmul, scan_unroll, remat_save_dc
         self.keep_prediction = keep_prediction
         self.stack_intermediates = stack_intermediates
+        self.no_dc = no_dc
+        self.train_dc_dtype = as_torch_dtype(train_dc_dtype)
+        self.train_eta_dtype = as_torch_dtype(train_eta_dtype)
+        self.infer_dc_dtype = as_torch_dtype(infer_dc_dtype)
+        self.remat_cascade = "cascade" in remat_mode
         block_cfg = dict(
             recurrent_layer=recurrent_layer,
             conv_filters=tuple(conv_filters),
@@ -88,7 +106,7 @@ class CIRIM(BaseReconModel):
             compute_dtype=compute_dtype,
             stack_etas=stack_intermediates,
             dc_psf1d=check_dc_mode(dc_mode) == "psf1d",
-            dc_dtype=infer_dc_dtype,
+            remat="step" if "step" in remat_mode else "none",
         )
         # built on the meta device and initialised from `generator` alone, so
         # construction draws nothing from the global random state
@@ -137,14 +155,16 @@ class CIRIM(BaseReconModel):
         )
 
     def forward(self, y, sens, mask, init_pred=None, train: bool = False) -> ModelOutput:
-        if train:
+        if train and not self.no_dc and y.device.type != "cpu":
             raise NotImplementedError(
-                "CIRIM's training forward (train_dc_dtype, train_eta_dtype, remat) is not ported yet: ROADMAP M5"
-            )
+                "CIRIM: training the soft-DC tail (no_dc=False) needs the sens_reduce backward, not ported to the "
+                "card yet (ROADMAP.md, K2: the sens_reduce backward); it trains on the CPU")
         y, sens = y.contiguous(), sens.contiguous()
         mask = expand_mask(mask)
         b, _, h, w, _ = y.shape
         mask = torch.broadcast_to(mask, (b, 1, h, w)).to(y.dtype).contiguous()
+        dtypes = dict(dc_dtype=self.train_dc_dtype if train else self.infer_dc_dtype,
+                      eta_dtype=self.train_eta_dtype if train else None)
 
         # chaining (reference rim_block.py / cirim.py): a given init_pred is the
         # start of EVERY cascade; otherwise cascade 0 starts from the SENSE init
@@ -152,10 +172,17 @@ class CIRIM(BaseReconModel):
         # keep_prediction=False, which restarts each from the SENSE init
         have_init = init_pred is not None and init_pred.ndim >= 4
         eta0 = init_pred if have_init else self.sense_init(y, sens)
+        if dtypes["eta_dtype"] is not None:
+            eta0 = eta0.to(dtypes["eta_dtype"])
         keep = self.keep_prediction
+        remat = self.remat_cascade and torch.is_grad_enabled()
         eta, intermediates, finals = eta0, [], []
         for block in self.cirim:
-            etas, eta_final = block(y, sens, mask, eta=eta)
+            run = functools.partial(block, y, sens, mask, **dtypes)
+            if remat:
+                etas, eta_final = checkpoint(run, eta, use_reentrant=False, preserve_rng_state=False)
+            else:
+                etas, eta_final = run(eta)
             intermediates.append(etas)
             finals.append(eta_final)
             if not (have_init or not keep):

@@ -10,6 +10,12 @@ used as the NCHW channels_last tensor it already is physically, so the conv/RNN
 stack runs channels-last with no transposes. Hidden states are NCHW
 channels_last inside and NHWC ``[B, H, W, F]`` at the public boundary
 (``hx``/``return_hx``), as in the JAX package.
+
+Step rematerialisation (``remat`` True or "step", when autograd records): each
+step's conv/RNN stack runs under ``torch.utils.checkpoint`` with the DC output
+as an input, computed outside the checkpointed region, so the backward's
+recompute skips the DC as the JAX package's ``save_only_these_names("dc_grad")``
+policy does.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mridc_tpu_torch.kernels.k2_full_dc import full_dc, sens_reduce
 from mridc_tpu_torch.kernels.k1_psf1d_dc import psf1d_dc
@@ -28,6 +35,7 @@ from mridc_tpu_torch.nn.rnn_cells import make_cell
 __all__ = ["RIMBlock", "ConvRNNStack"]
 
 _NONLINEARS = ("relu", "relu", None)
+_OWN = object()  # RIMBlock.forward's dtype arguments: the block's own setting
 
 
 class ConvRNNStack(nn.Module):
@@ -43,9 +51,10 @@ class ConvRNNStack(nn.Module):
 class RIMBlock(nn.Module):
     """Cascade block: ``time_steps`` RIM updates, optional soft DC.
 
-    ``remat``, ``scan_unroll`` and ``lane_fold`` are memory and TPU-layout
-    settings of the JAX package; they change nothing at inference and are
-    accepted and ignored.
+    ``remat`` (True or "step": checkpoint each step's conv/RNN stack when
+    autograd records) changes memory, not values. ``scan_unroll`` and
+    ``lane_fold`` are TPU-layout settings of the JAX package, accepted and
+    ignored.
     """
 
     def __init__(
@@ -70,12 +79,14 @@ class RIMBlock(nn.Module):
         stack_etas: bool = True,
         dc_psf1d: bool = False,
         dc_dtype=None,
+        eta_dtype=None,
         pointwise_matmul: bool = False,
         scan_unroll: int = 1,
         lane_fold: str = "never",
     ):
         super().__init__()
-        del remat, scan_unroll, lane_fold
+        del scan_unroll, lane_fold
+        self.remat_step = remat is True or remat == "step"
         self.time_steps = time_steps
         self.no_dc = no_dc
         self.fft_centered = fft_centered
@@ -86,6 +97,7 @@ class RIMBlock(nn.Module):
         self.stack_etas = stack_etas
         self.dc_psf1d = dc_psf1d
         self.dc_dtype = as_torch_dtype(dc_dtype)
+        self.eta_dtype = as_torch_dtype(eta_dtype)
         self.recurrent_filters = [f for f in recurrent_filters if f != 0]
 
         layers, final, in_ch = [], None, 4
@@ -118,6 +130,19 @@ class RIMBlock(nn.Module):
         return sens_reduce(kspace, sens, mask, self.fft_centered, self.fft_normalization,
                            self.spatial_dims, self.coil_dim)
 
+    def _step(self, x, eta, *hx):
+        """One time step's conv/RNN stack on the DC output ``x`` [B, H, W, 4]:
+        returns (eta + dx, new hidden states...)."""
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        x = x.permute(0, 3, 1, 2)  # [B, H, W, 4] -> NCHW channels_last view
+        new_hx = []
+        for layer, h_ in zip(self.layers, hx):
+            x = layer.rnn(layer.convs(x), h_).to(h_.dtype)
+            new_hx.append(x)
+        dx = self.final_layer[0](x)
+        return (eta + dx.permute(0, 2, 3, 1).to(eta.dtype), *new_hx)
+
     def forward(
         self,
         y: torch.Tensor,
@@ -127,11 +152,19 @@ class RIMBlock(nn.Module):
         sigma: float = 1.0,
         hx: Optional[Tuple[torch.Tensor, ...]] = None,
         return_hx: bool = False,
+        dc_dtype=_OWN,
+        eta_dtype=_OWN,
     ):
         """Returns (etas [T, B, H, W, 2] or None, final eta [B, H, W, 2]), plus
-        the final hidden states (NHWC) when ``return_hx``."""
+        the final hidden states (NHWC) when ``return_hx``. ``dc_dtype`` and
+        ``eta_dtype`` override the block's own (CIRIM passes its train or
+        inference settings)."""
+        dc_dtype = self.dc_dtype if dc_dtype is _OWN else as_torch_dtype(dc_dtype)
+        eta_dtype = self.eta_dtype if eta_dtype is _OWN else as_torch_dtype(eta_dtype)
         if eta is None:
             eta = self._sens_reduce(y, sens)
+        if eta_dtype is not None:
+            eta = eta.to(eta_dtype)
         b, h, w = eta.shape[0], eta.shape[1], eta.shape[2]
         hx_dtype = self.compute_dtype or torch.float32
         if hx is None:
@@ -146,25 +179,23 @@ class RIMBlock(nn.Module):
             mats = psf1d_gauss_mats(mask[:, 0, 0, :], self.fft_centered, self.fft_normalization)
             z0 = self._sens_reduce(y, sens, mask)
             sens_dc = sens
-            if self.dc_dtype is not None:
-                sens_dc, mats, z0 = sens.to(self.dc_dtype), mats.to(self.dc_dtype), z0.to(self.dc_dtype)
+            if dc_dtype is not None:
+                sens_dc, mats, z0 = sens.to(dc_dtype), mats.to(dc_dtype), z0.to(dc_dtype)
 
+        remat = self.remat_step and torch.is_grad_enabled()
         etas = []
         for _ in range(self.time_steps):
+            # the DC kernels take one dtype: eta in the DC's (the JAX package
+            # promotes a bf16 eta to the float32 of the maps)
             if self.dc_psf1d:
-                e = eta if self.dc_dtype is None else eta.to(self.dc_dtype)
-                x = psf1d_dc(e, sens_dc, mats, z0, sigma)
+                x = psf1d_dc(eta.to(dc_dtype or torch.float32), sens_dc, mats, z0, sigma)
             else:
-                x = full_dc(eta, y, sens, mask, sigma, self.fft_centered, self.fft_normalization,
+                x = full_dc(eta.float(), y, sens, mask, sigma, self.fft_centered, self.fft_normalization,
                             self.spatial_dims, self.coil_dim)
-            if self.compute_dtype is not None:
-                x = x.to(self.compute_dtype)
-            x = x.permute(0, 3, 1, 2)  # [B, H, W, 4] -> NCHW channels_last view
-            for i, layer in enumerate(self.layers):
-                x = layer.rnn(layer.convs(x), hx[i]).to(hx[i].dtype)
-                hx[i] = x
-            dx = self.final_layer[0](x)
-            eta = eta + dx.permute(0, 2, 3, 1).to(eta.dtype)
+            if remat:
+                eta, *hx = checkpoint(self._step, x, eta, *hx, use_reentrant=False, preserve_rng_state=False)
+            else:
+                eta, *hx = self._step(x, eta, *hx)
             if self.stack_etas:
                 etas.append(eta)
         etas = torch.stack(etas) if self.stack_etas else None
