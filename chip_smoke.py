@@ -12,7 +12,8 @@ Phases (any failure raises; no phase catches its own):
   3. each kernel against its plain version on the card, at the flagship shapes
      (B=2, 15 coils, 320x320, 64 filters) and at an odd size; K3-f32 also at
      64 -> 128 and 128 -> 128 channels, at in-channels that are not a multiple
-     of 8, and over a pixel count that no tile divides;
+     of 8, and over a pixel count that no tile divides; K3-bwd (both dtypes)
+     at 64 -> 64, 64 -> 128, 128 -> 128 and 16 -> 8 channels over that count;
   4. a small CIRIM (15 coils, 64x64, 2 cascades x 3 steps, 64 filters) on the
      card against the same weights on the CPU, in both dc_modes;
   5. the main path: flagship CIRIM inference (bench.py's flagship_cfg: 5 x 8,
@@ -400,6 +401,25 @@ def main() -> int:
         # 7.09 (flagship, B=2) and 0.016 at 7.44 (main path, B=8); K3 0.016 at
         # 6.72 and 0.0039 at 1.82 (one bf16 ulp at each).
         F32, K1_BF16, K3_BF16 = (1e-4, 1e-4), (1e-2, 1e-2), (1e-2, 1e-3)
+
+        def check_k3_bwd(tag, args):
+            """K3-bwd on ``args`` = (g, x, h, h', W, u) against its plain version:
+            dx, dh against the plain version in float32 on the same operands,
+            rounded once (F32, or K3_BF16 in bf16); the sums over all pixels
+            against the plain version in float64 at rtol 1e-4 (float32) or 1e-3
+            (bf16), atol 1e-4 x max."""
+            dt = args[1].dtype
+            sym = K3_BWD[dt]
+            got = k3mod.indrnn_bwd(*args)
+            plain32 = k3mod.indrnn_bwd_plain(*(a.float() for a in args))
+            plain64 = k3mod.indrnn_bwd_plain(*(a.double() for a in args))
+            tol = F32 if dt == torch.float32 else K3_BF16
+            tol_sums = (1e-4, 1e-4) if dt == torch.float32 else (1e-3, 1e-4)
+            for i, part in enumerate(("dx", "dh", "dW", "db", "du")):
+                want = plain32[i].to(dt) if i < 2 else plain64[i].reshape(got[i].shape)
+                errors.setdefault(sym, []).append(
+                    check(f"{sym}[{part}/{tag}]", got[i], want, *(tol if i < 2 else tol_sums)))
+
         for label, (b, c, h, w) in {"flagship_b2": (2, COILS, H, W), "odd": (2, 3, 37, 45)}.items():
             y, sens, mask = (t(a) for a in bench_data(b, c, h, w, seed=3))
             if label == "odd":
@@ -462,6 +482,18 @@ def main() -> int:
             args = (x, hprev, wt, rand(fo) * 0.1 if use_bias else None, hh)
             errors[sym].append(check(f"{sym}[{ci}->{fo}/2x33x35{'' if use_bias else '/no_bias'}]",
                                      kernels.indrnn(*args), kernels.indrnn_plain(*args), *F32))
+
+        # K3-bwd, both dtypes, at the widths projects/ uses (64 -> 64, 64 ->
+        # 128, 128 -> 128) and at the narrowest the bf16 kernel takes (16 -> 8:
+        # out-channels padded to the MMA's 16), over 2 x 33 x 35 pixels, a count
+        # that no pixel tile divides; h' with about half its entries at 0
+        for ci, fo in ((64, 64), (64, 128), (128, 128), (16, 8)):
+            shape = (2, fo, 33, 35)
+            x, hprev = cl(rand(2, ci, 33, 35)), cl(rand(*shape, positive=True))
+            out, g = cl(torch.relu(rand(*shape))), cl(rand(*shape))
+            wt, hh = rand(fo, ci, 1, 1) / np.sqrt(ci), rand(1, fo, 1, 1, positive=True)
+            for dt in (torch.float32, torch.bfloat16):
+                check_k3_bwd(f"{ci}->{fo}/2x33x35", tuple(a.to(dt) for a in (g, x, hprev, out, wt, hh)))
         torch.cuda.synchronize()
 
     # 4. small model: kernels on the card against the plain path on the CPU
@@ -821,26 +853,18 @@ def main() -> int:
             2 * coil + b * hw * 16 + b * hw * 8, {"float32": 8 * b * c * hw + 2 * b * hw}, F32, train_counts, "step")
         del k_c, p_c
 
-        for dt, dname, es, tol in ((torch.float32, "float32", 4, F32), (torch.bfloat16, "bfloat16", 2, K3_BF16)):
+        for dt, dname, es in ((torch.float32, "float32", 4), (torch.bfloat16, "bfloat16", 2)):
             sym = K3_BWD[dt]
             g, x, hprev, out, wt, hh, need_dx, need_dh = captured[sym]
             g = g.contiguous(memory_format=torch.channels_last)
             args = (g, x, hprev, out, wt, hh)
-            got = k3mod.indrnn_bwd(*args)
-            # dx, dh: the plain version in float32 on the same operands, rounded
-            # once; the sums over all pixels: the plain version in float64
-            plain32 = k3mod.indrnn_bwd_plain(*(a.float() for a in args))
-            plain64 = k3mod.indrnn_bwd_plain(*(a.double() for a in args))
-            tol_sums = (1e-4, 1e-4) if dt == torch.float32 else (1e-3, 1e-4)
-            for i, part in enumerate(("dx", "dh", "dW", "db", "du")):
-                want = plain32[i].to(dt) if i < 2 else plain64[i].reshape(got[i].shape)
-                errors.setdefault(sym, []).append(
-                    check(f"{sym}[{part}/main_b{x.shape[0]}]", got[i], want, *(tol if i < 2 else tol_sums)))
+            check_k3_bwd(f"main_b{x.shape[0]}", args)
             p, fi, fo = x.shape[0] * x.shape[2] * x.shape[3], x.shape[1], hprev.shape[1]
-            # bytes: x, h, h' and g in, dx and dh out (activations), W and u in
-            # and the sums out (float32); flops: the two [P, F] x [F, CI]
-            # products, and per output channel and pixel the relu mask, dh, db, du
-            nbytes = es * (2 * p * fi + 4 * p * fo) + 4 * (2 * fo * fi + 3 * fo)
+            # bytes: x, h, h' and g in, dx and dh out, W in (the activations'
+            # dtype), u in and the sums out (float32); flops: the two [P, F] x
+            # [F, CI] products, and per output channel and pixel the relu
+            # mask, dh, db, du
+            nbytes = es * (2 * p * fi + 4 * p * fo + fo * fi) + 4 * (fo * fi + 3 * fo)
             flops = {PRODUCTS[dname]: 4 * p * fi * fo, "float32": 5 * p * fo}
             row(sym, "mridc_tpu_torch/csrc/indrnn_bwd.cu", "mridc_tpu/nn/rnn_cells.py:88 (IndRNNCell.__call__, "
                 "backward)", k3mod.indrnn_bwd, k3mod.indrnn_bwd_plain, args, nbytes, flops, None, train_counts, "step")

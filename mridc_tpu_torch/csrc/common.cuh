@@ -1,14 +1,51 @@
 // Shared helpers of the port's kernels: storage-type loads and stores (every
 // kernel computes in float32 whatever it stores), products at float32
-// accuracy on the TF32 tensor cores (3xTF32), and the error string that the
-// Python wrappers print when a launch returns a nonzero cudaError_t.
+// accuracy on the TF32 tensor cores (3xTF32), the cached one-wave launch setup
+// of the persistent kernels, and the error string that the Python wrappers
+// print when a launch returns a nonzero cudaError_t.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
 namespace mridc {
+
+// ---- launch setup -----------------------------------------------------------
+
+constexpr int MAX_DYNAMIC_SMEM = 232448;  // shared memory a block can opt in to on Hopper
+
+// blocks of one full wave of ``kernel`` at ``smem`` bytes of dynamic shared
+// memory (as many as fit on every SM); queried once per (kernel, smem, device)
+// and cached, so a launch costs no host query. The kernel's dynamic
+// shared-memory limit is set to the most a block can have, not to ``smem``:
+// one kernel runs at several sizes, and a later, smaller setup must not lower
+// the limit that a cached, larger one launches with.
+inline cudaError_t wave(const void* kernel, int threads, size_t smem, int device, int* cap) {
+  using Key = std::tuple<const void*, size_t, int>;
+  static std::mutex mu;
+  static std::map<Key, int> cache;
+  const Key key{kernel, smem, device};
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *cap = it->second;
+    return cudaSuccess;
+  }
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_DYNAMIC_SMEM);
+  if (err != cudaSuccess) return err;
+  int sms = 0, per_sm = 0;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) != cudaSuccess)
+    return err;
+  *cap = sms * (per_sm > 0 ? per_sm : 1);
+  cache.emplace(key, *cap);
+  return cudaSuccess;
+}
 
 // ---- 3xTF32: float32 accuracy from TF32 mma.sync --------------------------
 // Each operand is split into a TF32 hi part and a TF32 lo part (x - hi,

@@ -40,10 +40,6 @@
 // the storage type, as the JAX package casts them to compute_dtype. The launch
 // setup (shared-memory attribute, blocks of one wave) is computed once per
 // kernel, shared-memory size and device, and cached.
-#include <map>
-#include <mutex>
-#include <tuple>
-
 #include "common.cuh"
 
 using namespace mridc;
@@ -51,34 +47,6 @@ using namespace mridc;
 namespace {
 
 constexpr size_t MAX_SMEM = 232448;  // shared memory a block can opt in to on Hopper
-
-// blocks of one full wave of ``kernel`` at ``smem`` bytes of dynamic shared
-// memory (as many as fit on every SM); queried once per (kernel, smem, device)
-// and cached, so a launch costs no host query. The kernel's dynamic
-// shared-memory limit is set to the most a block can have, not to ``smem``:
-// one kernel runs at several sizes, and a later, smaller setup must not lower
-// the limit that a cached, larger one launches with.
-cudaError_t wave(const void* kernel, int threads, size_t smem, int device, int* cap) {
-  using Key = std::tuple<const void*, size_t, int>;
-  static std::mutex mu;
-  static std::map<Key, int> cache;
-  const Key key{kernel, smem, device};
-  std::lock_guard<std::mutex> lock(mu);
-  const auto it = cache.find(key);
-  if (it != cache.end()) {
-    *cap = it->second;
-    return cudaSuccess;
-  }
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM);
-  if (err != cudaSuccess) return err;
-  int sms = 0, per_sm = 0;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) != cudaSuccess)
-    return err;
-  *cap = sms * (per_sm > 0 ? per_sm : 1);
-  cache.emplace(key, *cap);
-  return cudaSuccess;
-}
 
 // ---- float32: 3xTF32 tensor cores, cp.async ring ---------------------------
 

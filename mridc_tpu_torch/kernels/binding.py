@@ -23,7 +23,8 @@ from typing import Dict, Iterable, Optional
 
 import torch
 
-__all__ = ["CSRC", "BUILD_DIR", "SOURCES", "LAUNCHES", "build", "library", "launch", "reset_launch_counts"]
+__all__ = ["CSRC", "BUILD_DIR", "SOURCES", "QUERIES", "LAUNCHES", "build", "library", "launch", "query",
+           "reset_launch_counts"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -64,9 +65,19 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
         "k3_indrnn_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I),
     },
     "indrnn_bwd": {
-        # x, h, h', g, w, u, dx (or null), dh (or null), partials, sums, P, CI, F, blocks
-        "k3_indrnn_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I),
-        "k3_indrnn_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I),
+        # x, h, h', g, w, u, dx (or null), dh (or null), partials, sums, P, CI, F, blocks (from
+        # k3_indrnn_bwd_blocks), device index
+        "k3_indrnn_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I),
+        "k3_indrnn_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I),
+    },
+}
+
+# library -> {launch-setup query: argtypes}; a query launches nothing, takes no
+# stream and is not counted
+QUERIES: Dict[str, Dict[str, tuple]] = {
+    "indrnn_bwd": {
+        # bf16 (0 or 1), P, CI, F, device index, out: blocks of the grid (0: widths not taken)
+        "k3_indrnn_bwd_blocks": (_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)),
     },
 }
 
@@ -138,6 +149,10 @@ def library(name: str) -> ctypes.CDLL:
             fn = getattr(lib, sym)
             fn.argtypes = [*argtypes, ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        for sym, argtypes in QUERIES.get(name, {}).items():
+            fn = getattr(lib, sym)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
         lib.mridc_error_string.argtypes = [ctypes.c_int]
         lib.mridc_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
@@ -154,3 +169,13 @@ def launch(name: str, symbol: str, device: torch.device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{symbol}: CUDA error {err} ({lib.mridc_error_string(err).decode()})")
     LAUNCHES[symbol] += 1
+
+
+def query(name: str, symbol: str, device: torch.device, *args) -> None:
+    """Call the launch-setup query ``symbol`` of library ``name`` with
+    ``device`` current; raise on a nonzero error."""
+    lib = library(name)
+    with torch.cuda.device(device):
+        err = getattr(lib, symbol)(*args)
+    if err != 0:
+        raise RuntimeError(f"{symbol}: CUDA error {err} ({lib.mridc_error_string(err).decode()})")

@@ -9,20 +9,19 @@ Stands for ``mridc_tpu/nn/rnn_cells.py:88-109``
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from mridc_tpu_torch.kernels.binding import launch
+from mridc_tpu_torch.kernels.binding import launch, query
 from mridc_tpu_torch.kernels.common import check_operand, dense, device_of
 
 __all__ = ["indrnn", "indrnn_plain", "indrnn_bwd", "indrnn_bwd_plain", "SYMBOLS", "BWD_SYMBOLS"]
 
 SYMBOLS = {torch.float32: "k3_indrnn_f32", torch.bfloat16: "k3_indrnn_bf16"}
 BWD_SYMBOLS = {torch.float32: "k3_indrnn_bwd_f32", torch.bfloat16: "k3_indrnn_bwd_bf16"}
-
-_BWD_THREADS, _BWD_MAX_TILES = 256, 8  # csrc/indrnn_bwd.cu: THREADS, MAX_NMT
 
 
 def indrnn_plain(x, h, weight, bias: Optional[torch.Tensor], hh) -> torch.Tensor:
@@ -93,28 +92,36 @@ def indrnn_bwd(g, x, h, out, weight, hh, need_dx: bool = True, need_dh: bool = T
     b, ci, hgt, wid = x.shape
     f = h.shape[1]
     _check_widths("indrnn_bwd", x.dtype, ci, f)
-    if f * -(-ci // 4) * 4 > 16 * _BWD_THREADS * _BWD_MAX_TILES:
-        raise ValueError(f"indrnn_bwd: the kernel holds dW in registers for out-channels x in-channels (rounded "
-                         f"up to 4) <= 32768; got {f} x {ci}")
+    if x.dtype not in BWD_SYMBOLS:
+        raise TypeError(f"indrnn_bwd: expected dtype in {[str(d) for d in BWD_SYMBOLS]}, got {x.dtype}")
+    p = b * hgt * wid
+    # the persistent grid (one wave), for the rows of partials
+    blocks = ctypes.c_int(0)
+    query("indrnn_bwd", "k3_indrnn_bwd_blocks", dev, int(x.dtype == torch.bfloat16), p, ci, f, dev.index,
+          ctypes.byref(blocks))
+    if blocks.value == 0:
+        raise ValueError(f"indrnn_bwd: the {x.dtype} kernel does not take {ci} -> {f} channels: it holds dW in "
+                         "registers (bf16: in-channels <= 256 at out-channels <= 64, <= 128 above; float32: "
+                         "out-channels x in-channels rounded up to 4 <= 32768)")
     dts = (x.dtype,)
     g = dense("indrnn_bwd", g.to(x.dtype), channels_last=True)
     for name, t, c in (("x", x, ci), ("h", h, f), ("out", out, f), ("g", g, f)):
         check_operand(f"indrnn_bwd.{name}", t, (b, c, hgt, wid), dts, channels_last=True)
-    p = b * hgt * wid
-    w32 = weight.reshape(f, ci).float().contiguous()
-    u32 = hh.reshape(f).float().contiguous()
+    # W and u in the activations' dtype, as the kernel reads them: views of the
+    # parameters' casts, no copies
+    w, u = weight.reshape(f, ci).contiguous(), hh.reshape(f).contiguous()
+    check_operand("indrnn_bwd.weight", w, (f, ci), dts)
+    check_operand("indrnn_bwd.hh", u, (f,), dts)
     dx = torch.empty_like(x, memory_format=torch.channels_last) if need_dx else None
     dh = torch.empty_like(h, memory_format=torch.channels_last) if need_dh else None
-    # the persistent grid: two blocks per SM at most, one 16-pixel tile each at least
-    blocks = max(1, min(-(-p // 16), 2 * torch.cuda.get_device_properties(dev).multi_processor_count))
     n = f * ci + 2 * f
-    part = torch.empty((blocks, n), dtype=torch.float32, device=dev)
+    part = torch.empty((blocks.value, n), dtype=torch.float32, device=dev)
     sums = torch.empty((n,), dtype=torch.float32, device=dev)
     launch(
         "indrnn_bwd", BWD_SYMBOLS[x.dtype], dev,
-        x.data_ptr(), h.data_ptr(), out.data_ptr(), g.data_ptr(), w32.data_ptr(), u32.data_ptr(),
+        x.data_ptr(), h.data_ptr(), out.data_ptr(), g.data_ptr(), w.data_ptr(), u.data_ptr(),
         None if dx is None else dx.data_ptr(), None if dh is None else dh.data_ptr(), part.data_ptr(),
-        sums.data_ptr(), p, ci, f, blocks,
+        sums.data_ptr(), p, ci, f, blocks.value, dev.index,
     )
     return dx, dh, sums[: f * ci].view(f, ci), sums[f * ci : f * ci + f], sums[f * ci + f :]
 

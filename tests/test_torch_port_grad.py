@@ -174,7 +174,7 @@ def _cell_pair(cin, f, seed):
     return x, hid, jmod, params, tmod
 
 
-@pytest.mark.parametrize("cin,f", [(4, 8), (16, 8), (64, 64)])
+@pytest.mark.parametrize("cin,f", [(4, 8), (16, 8), (64, 64), (64, 128), (128, 128)])
 def test_k3_backward_matches_jax_vjp(cin, f):
     x, hid, jmod, params, tmod = _cell_pair(cin, f, seed=cin + f)
     out, vjp = jax.vjp(lambda p, a, h: jmod.apply({"params": p}, a, h), params, jnp.asarray(x), jnp.asarray(hid))

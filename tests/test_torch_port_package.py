@@ -7,12 +7,15 @@ check cannot work in a process where JAX is already imported.
 """
 
 import ast
+import ctypes
+import re
 from pathlib import Path
 
 import pytest
 import torch
 
 import mridc_tpu_torch
+from mridc_tpu_torch.kernels import binding
 from mridc_tpu.models import available_models as jax_models
 from mridc_tpu_torch.models import PENDING_MODELS, available_models, build_model
 
@@ -22,7 +25,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mridc_tpu")
 
 def _sources():
     files = sorted(Path(mridc_tpu_torch.__file__).parent.rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("torch_*.py"))
 
 
 def _imported_modules(path):
@@ -46,6 +49,26 @@ def test_port_imports_no_jax(path):
     assert path.exists()
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("name", sorted(binding.SOURCES))
+def test_bound_entry_points_match_their_c_declarations(name):
+    """ctypes passes what ``argtypes`` says, whatever the C function takes: each
+    entry point of ``binding.SOURCES`` (plus the trailing stream) and
+    ``binding.QUERIES`` takes as many arguments, pointers where pointers, as its
+    ``extern "C"`` declaration in ``csrc/<name>.cu``."""
+    src = (binding.CSRC / f"{name}.cu").read_text()
+    decls = {m.group(1): [a.strip() for a in m.group(2).split(",")]
+             for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src)}
+    symbols = {**{s: (*a, ctypes.c_void_p) for s, a in binding.SOURCES[name].items()},
+               **binding.QUERIES.get(name, {})}
+    for sym, argtypes in symbols.items():
+        assert sym in decls, f"{sym} is not declared in {name}.cu"
+        params = decls[sym]
+        assert len(params) == len(argtypes), f"{sym}: {len(params)} C parameters, {len(argtypes)} argtypes"
+        for p, a in zip(params, argtypes):
+            pointer = a is ctypes.c_void_p or issubclass(a, ctypes._Pointer)
+            assert ("*" in p) == pointer, f"{sym}: {p!r} bound as {a.__name__}"
 
 
 def test_build_model_without_device_needs_cuda(monkeypatch):
