@@ -8,12 +8,15 @@ Run from the repository root, on a machine with a CUDA device:
 
 Phases (any failure raises; no phase catches its own):
   1. the card: ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``;
-  2. build the kernels of ``mridc_tpu_torch/csrc`` (one nvcc per source, in parallel);
+  2. build the kernels of ``mridc_tpu_torch/csrc`` (one nvcc per source, in
+     parallel) and print each kernel's registers and spills;
   3. each kernel against its plain version on the card, at the flagship shapes
-     (B=2, 15 coils, 320x320, 64 filters) and at an odd size; K3-f32 also at
-     64 -> 128 and 128 -> 128 channels, at in-channels that are not a multiple
-     of 8, and over a pixel count that no tile divides; K3-bwd (both dtypes)
-     at 64 -> 64, 64 -> 128, 128 -> 128 and 16 -> 8 channels over that count;
+     (B=2, 15 coils, 320x320, 64 filters) and at an odd size; K1-bf16 forward
+     and backward also at one coil, W=200, H=40, W=368 and W=396 (the edges
+     of its tiles); K3-f32 also at 64 -> 128 and 128 -> 128 channels, at in-channels
+     that are not a multiple of 8, and over a pixel count that no tile
+     divides; K3-bwd (both dtypes) at 64 -> 64, 64 -> 128, 128 -> 128 and
+     16 -> 8 channels over that count;
   4. a small CIRIM (15 coils, 64x64, 2 cascades x 3 steps, 64 filters) on the
      card against the same weights on the CPU, in both dc_modes;
   5. the main path: flagship CIRIM inference (bench.py's flagship_cfg: 5 x 8,
@@ -23,7 +26,9 @@ Phases (any failure raises; no phase catches its own):
      predictions must agree, and one K3 call's operands are kept;
   6. each kernel against its plain version again on the main path's operands
      (B=8: the f32 prediction as eta, the captured K3 call), then its time
-     beside its bound and its plain version's time;
+     beside its bound and its plain version's time; K1-bf16's launch (grid,
+     shared memory, blocks per SM, tile) and the L2-to-SM bytes its tiles
+     imply beside the first version's;
   7. a small CIRIM training step (phase 4's model, f32, remat "step+cascade")
      on the card against the CPU path, in both dc_modes: loss, every
      parameter gradient, and the parameters after one Adam step under
@@ -38,7 +43,8 @@ Phases (any failure raises; no phase catches its own):
      layer;
   9. each backward kernel against its plain version on the operands of one of
      its calls in a training step, then its time beside its bound and its
-     plain version's time.
+     plain version's time; K1-bf16's forward is also checked and timed at the
+     B=24 operands (a line of its own, not a kernels row).
 
 Output: JSON lines per check, run and kernel; then the ``{"kernels": [...]}``
 line, the card's name and power limit, and last
@@ -271,12 +277,40 @@ def bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def ptxas_by_kernel(log: str) -> dict:
+    """``nvcc -Xptxas -v`` output -> {kernel (mangled name, shortened): its
+    registers and spills}."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            name = name[name.find("kernel") - 24 :] if "kernel" in name else name
+        elif name and ("spill" in ln or "Used" in ln):
+            out[name] = (out.get(name, "") + " " + ln.replace("ptxas info    :", "").strip()).strip()
+    return out
+
+
+def k1_l2_bytes(setup: dict, b: int, c: int, h: int, w: int, bwd: bool) -> dict:
+    """Bytes that one call of the bf16 K1 kernel moves between L2 and the SMs
+    at [b, c, h, w], from its launch setup: per tile, its operator rows for
+    every v (the two planes it reads, Cr and Cr+Ci), eta's rows (4 bytes a pixel; the backward's g channels 2:4 fetch
+    whole 8-byte pixels), every coil's s_c rows, and its output with z0
+    (forward) or g (backward); beside the first version's (one 32 x 64 tile a
+    block, re-staging 8 KB of operator and 8 KB of eta and s_c for every coil
+    and 32 columns of v)."""
+    tm, tn = setup["tile_h"], setup["tile_u"]
+    tiles = b * -(-h // tm) * -(-w // tn)
+    per_tile = 2 * tn * w * 2 + tm * w * (8 if bwd else 4) + c * tm * w * 4 + tm * tn * 12
+    first = b * -(-h // 32) * -(-w // 64) * c * -(-w // 32) * 16384
+    return {"tiles": tiles, "l2_bytes": tiles * per_tile, "l2_bytes_first_version": first}
+
+
 def kernel_category(name: str) -> str:
     """Which layer a CUDA kernel of a forward or training step belongs to, by
     its name."""
     n = name.lower()
     if "psf1d_dc" in n:
-        return "K1 psf1d_dc backward" if "<true>" in n else "K1 psf1d_dc"
+        return "K1 psf1d_dc backward" if "<true" in n else "K1 psf1d_dc"
     if "indrnn_bwd" in n or "reduce_partials" in n:
         return "K3 indrnn backward"
     if "indrnn" in n:
@@ -370,7 +404,7 @@ def main() -> int:
     for name in binding.SOURCES:
         log = binding.BUILD_DIR / f"{name}.log"
         if log.exists():
-            ptxas[name] = [ln.strip() for ln in log.read_text().splitlines() if "Used" in ln or "spill" in ln]
+            ptxas[name] = ptxas_by_kernel(log.read_text())
     emit({"phase": "build", "seconds": build_s, "per_library_s": per_lib, "ptxas": ptxas})
 
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
@@ -420,6 +454,16 @@ def main() -> int:
                 errors.setdefault(sym, []).append(
                     check(f"{sym}[{part}/{tag}]", got[i], want, *(tol if i < 2 else tol_sums)))
 
+        def check_k1_bwd_bf16(label, b, c, h, w):
+            """K1-bwd-bf16 on an upstream g drawn at [b, h, w, 4], against its
+            plain version rounded once, at K1_BF16."""
+            _, sens_b, mask_b = (t(a) for a in bench_data(b, c, h, w, seed=4))
+            args = (rand(b, h, w, 4).to(torch.bfloat16), sens_b.to(torch.bfloat16),
+                    psf1d_gauss_mats(mask_b[:, 0, 0, :], True, "ortho").to(torch.bfloat16), 0.7)
+            sym = K1_BWD[torch.bfloat16]
+            errors.setdefault(sym, []).append(check(f"{sym}[{label}]", k1mod.psf1d_dc_bwd(*args),
+                                                    rounded_once(k1mod.psf1d_dc_bwd_plain, *args), *K1_BF16))
+
         for label, (b, c, h, w) in {"flagship_b2": (2, COILS, H, W), "odd": (2, 3, 37, 45)}.items():
             y, sens, mask = (t(a) for a in bench_data(b, c, h, w, seed=3))
             if label == "odd":
@@ -459,6 +503,7 @@ def main() -> int:
                 errors.setdefault(sym, []).append(check(
                     f"{sym}[{label}]", kernels.psf1d_dc(*args, 0.7),
                     rounded_once(kernels.psf1d_dc_plain, *args, 0.7), *tol))
+            check_k1_bwd_bf16(label, b, c, h, w)
 
             ci, fo = (FILTERS, FILTERS) if label != "odd" else (32, 24)  # odd: 3 n-tiles, a ragged pixel tile
             x, hprev = cl(rand(b, ci, h, w)), cl(rand(b, fo, h, w, positive=True))
@@ -468,6 +513,24 @@ def main() -> int:
                 args = [a.to(dt) for a in (x, hprev, wt, bias, hh)]
                 errors.setdefault(sym, []).append(
                     check(f"{sym}[{label}]", kernels.indrnn(*args), rounded_once(kernels.indrnn_plain, *args), *tol))
+
+        # K1-bf16 forward and backward at the edges of its tiles (64 rows by 64
+        # columns, 64 by 32 where W > 320): one coil; a width that no column
+        # tile divides (200); a height that no row tile divides (40); the
+        # fastMRI widths on the narrower tiles: 368 (16-byte copies) and 396
+        # (W % 8 != 0: 4-byte copies of s_c and eta, plain operator loads);
+        # bench.py's 1D mask
+        for label, (b, c, h, w) in {"one_coil": (2, 1, 64, 64), "w200": (2, COILS, 64, 200),
+                                    "h40": (2, COILS, 40, 64), "w368": (1, 4, 48, 368),
+                                    "w396": (1, 4, 48, 396)}.items():
+            y_e, sens_e, mask_e = (t(a) for a in bench_data(b, c, h, w, seed=6))
+            args = [a.to(torch.bfloat16) for a in (rand(b, h, w, 2), sens_e,
+                                                   psf1d_gauss_mats(mask_e[:, 0, 0, :], True, "ortho"),
+                                                   k2.sens_reduce_plain(y_e, sens_e, mask_e, True, "ortho"))]
+            sym = K1[torch.bfloat16]
+            errors[sym].append(check(f"{sym}[{label}]", kernels.psf1d_dc(*args, 0.7),
+                                     rounded_once(kernels.psf1d_dc_plain, *args, 0.7), *K1_BF16))
+            check_k1_bwd_bf16(label, b, c, h, w)
 
         # K3-f32 at the other widths projects/ uses (64 -> 128, 128 -> 128: the
         # latter takes a narrower pixel tile to fit shared memory), at
@@ -633,6 +696,9 @@ def main() -> int:
             flops = {PRODUCTS[dname]: 6 * b * c * H * W * W, "float32": 17 * b * c * hw + 4 * b * hw}
             row(K1[dt], "mridc_tpu_torch/csrc/psf1d_dc.cu", "mridc_tpu/nn/dc.py:162 (log_likelihood_gradient_psf1d)",
                 kernels.psf1d_dc, kernels.psf1d_dc_plain, args, nbytes, flops, tol)
+        setup = k1mod.bf16_setup(b, H, W, dev)
+        emit({"k1_bf16_launch": "forward", "batch": b, **setup, **k1_l2_bytes(setup, b, c, H, W, False),
+              "card": card})
 
         x_c = k2.expand(eta, sens, True)
         k_c = torch.fft.fft2(x_c, norm="ortho")
@@ -836,6 +902,22 @@ def main() -> int:
             # flops: those of the forward (the same operator)
             nbytes = es * (b * hw * 4 + b * c * hw * 2 + b * 3 * W * W + b * hw * 2)
             flops = {PRODUCTS[dname]: 6 * b * c * H * W * W, "float32": 17 * b * c * hw + 4 * b * hw}
+            if dt == torch.bfloat16:
+                # the forward at the training step's operands (g's channels 2:4 as
+                # eta, 0:2 as z0), checked and timed here; not a kernels row
+                fargs = [g[..., 2:].contiguous(), sk, mk, g[..., :2].contiguous(), sigma]
+                check(f"{K1[dt]}[train_b{b}]", kernels.psf1d_dc(*fargs), rounded_once(kernels.psf1d_dc_plain, *fargs),
+                      *tol)
+                fwd_bytes = es * (b * hw * 2 + b * c * hw * 2 + b * 3 * W * W + b * hw * 2 + b * hw * 4)
+                fwd_bound, fwd_by = bound(fwd_bytes, flops)
+                emit({"kernel": K1[dt], "shape": tuple(fargs[0].shape), "dtype": str(dt),
+                      "ms": time_ms(lambda: kernels.psf1d_dc(*fargs)),
+                      "plain_ms": time_ms(lambda: kernels.psf1d_dc_plain(*fargs)), "bound_ms": fwd_bound,
+                      "bound_by": fwd_by, "note": "forward at the training step's operands", "card": card})
+                for bwd in (False, True):
+                    setup = k1mod.bf16_setup(b, H, W, dev, bwd)
+                    emit({"k1_bf16_launch": "backward" if bwd else "forward", "batch": b, **setup,
+                          **k1_l2_bytes(setup, b, c, H, W, bwd), "card": card})
             row(K1_BWD[dt], "mridc_tpu_torch/csrc/psf1d_dc.cu", "mridc_tpu/nn/dc.py:162 (log_likelihood_gradient_psf1d, "
                 "backward)", k1mod.psf1d_dc_bwd, k1mod.psf1d_dc_bwd_plain, args, nbytes, flops, tol,
                 train_counts, "step")

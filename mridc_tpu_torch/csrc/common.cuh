@@ -1,5 +1,6 @@
 // Shared helpers of the port's kernels: storage-type loads and stores (every
-// kernel computes in float32 whatever it stores), products at float32
+// kernel computes in float32 whatever it stores), cp.async copies into shared
+// memory, ldmatrix and the bf16 mma.sync product, products at float32
 // accuracy on the TF32 tensor cores (3xTF32), the cached one-wave launch setup
 // of the persistent kernels, and the error string that the Python wrappers
 // print when a launch returns a nonzero cudaError_t.
@@ -45,6 +46,57 @@ inline cudaError_t wave(const void* kernel, int threads, size_t smem, int device
   *cap = sms * (per_sm > 0 ? per_sm : 1);
   cache.emplace(key, *cap);
   return cudaSuccess;
+}
+
+// ---- asynchronous copies into shared memory --------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
+
+// 16 (or 4) bytes from device to shared memory, asynchronously; zeros when
+// ``valid`` is false (nothing is read then)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- bf16 tensor cores -------------------------------------------------------
+
+// four 8x8 b16 matrices; lanes 8j..8j+7 give the row addresses of matrix j,
+// which lands in r[j] in the mma fragment layout (``trans``: transposed)
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a*b, one m16n8k16 bf16 product with float32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---- 3xTF32: float32 accuracy from TF32 mma.sync --------------------------

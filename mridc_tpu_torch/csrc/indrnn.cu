@@ -88,29 +88,6 @@ struct Layout {
   }
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
-
-// 16 (or 4) bytes from device to shared memory, asynchronously; zeros when
-// ``valid`` is false (nothing is read then)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // (row, column) of the element e = start, start + step, ... of a row-major
 // [rows, n] walk, without a division per step
 struct Walk {
@@ -311,14 +288,6 @@ using bf16 = __nv_bfloat16;
 constexpr int THREADS = 128;  // 4 warps x 16 pixels = one 64-pixel tile
 constexpr int MAX_NT = 16;    // F <= 128: n tiles of 8 output channels
 
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t ld32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
 
 // smem: W as bf16 [F][CI+8] (B = W^T column-major), x tile as bf16 [64][CI+8]
@@ -371,7 +340,7 @@ __global__ void __launch_bounds__(THREADS) indrnn_bf16_kernel(const bf16* __rest
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         const bf16* pb = ws + (8 * n + g) * lds + kk + 2 * t4;
-        mma(acc[n], a, ld32(pb), ld32(pb + 8));
+        mma_bf16(acc[n], a, ld32(pb), ld32(pb + 8));
       }
     }
     // accumulator register j of n tile n: pixel warp*16+g (+8 for j >= 2),

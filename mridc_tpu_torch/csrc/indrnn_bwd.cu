@@ -265,43 +265,6 @@ struct Layout {
   }
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
-
-// 16 bytes from device to shared memory, asynchronously; zeros when ``valid``
-// is false (nothing is read then)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
-
-// four 8x8 bf16 matrices; lanes 8j..8j+7 give the row addresses of matrix j,
-// which lands in r[j] in the mma fragment layout (``trans``: transposed)
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a*b, one m16n8k16 bf16 product with float32 accumulate
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // the TP rows of ``rows`` valid ones at ``src`` (n 16-byte vectors each,
 // contiguous) into rows of stride ``ld`` at ``dst``; rows past ``rows`` zero
 __device__ __forceinline__ void copy_rows(bf16* dst, int ld, const bf16* src, int n, int rows) {
@@ -387,7 +350,7 @@ __global__ void __launch_bounds__(THREADS) indrnn_bwd_bf16_kernel(
   issue(blockIdx.x, 0);
   for (int t = blockIdx.x, i = 0; t < tiles; t += gridDim.x, ++i) {
     const int s = i % STAGES, p0 = t * TP;
-    cp_async_wait_all();  // this thread's copies of tile t have landed
+    cp_async_wait<0>();  // this thread's copies of tile t have landed
     __syncthreads();      // and every thread's; every thread is done with the other stage
     issue(t + gridDim.x, (s + 1) % STAGES);
 
@@ -438,8 +401,8 @@ __global__ void __launch_bounds__(THREADS) indrnn_bwd_bf16_kernel(
 #pragma unroll
         for (int mi = 0; mi < MT; ++mi) {
           if (warp + 4 * mi >= mtiles) continue;
-          mma(acc_w[mi][n], a[mi], b[0], b[1]);
-          mma(acc_w[mi][n + 1], a[mi], b[2], b[3]);
+          mma_bf16(acc_w[mi][n], a[mi], b[0], b[1]);
+          mma_bf16(acc_w[mi][n + 1], a[mi], b[2], b[3]);
         }
       }
     }
@@ -462,8 +425,8 @@ __global__ void __launch_bounds__(THREADS) indrnn_bwd_bf16_kernel(
             if (c0 + n >= nt) break;
             uint32_t b[4];
             ldsm4_trans(b, ws + (kk + row8) * L.lx + 8 * (c0 + n) + col8);
-            mma(acc[n], a, b[0], b[1]);
-            mma(acc[n + 1], a, b[2], b[3]);
+            mma_bf16(acc[n], a, b[0], b[1]);
+            mma_bf16(acc[n + 1], a, b[2], b[3]);
           }
         }
         // register j of n tile n: pixel pr+gq (+8 for j >= 2), in-channel
@@ -485,7 +448,7 @@ __global__ void __launch_bounds__(THREADS) indrnn_bwd_bf16_kernel(
             *reinterpret_cast<const uint4*>(dxs + (pr + e / nt) * L.lx + 8 * (e % nt));
     }
   }
-  cp_async_wait_all();
+  cp_async_wait<0>();
   __syncthreads();  // the stages are free: they hold the db/du reduction below
 
   // this block's partials: [F * CI] dW, then [F] db, then [F] du. Register j

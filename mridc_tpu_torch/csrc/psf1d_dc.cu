@@ -12,28 +12,59 @@
 // with g's channels 2:4 read as eta and an epilogue that adds g[..., :2]
 // ([B, H, W, 2] out). Both passes are one template (BWD).
 //
-// What bounds it on an H100: operations. The product costs 8*C*H*W^2 flops per
-// slice (3.9 GFLOP at 15 coils and 320x320) against about (C+3)*H*W*2 values
-// of traffic (~16 MB in float32), far above the card's flop-per-byte ratio.
+// What bounds it on an H100: operations. The product costs 6*C*H*W^2 flops per
+// slice in the Gauss form (2.9 GFLOP at 15 coils and 320x320) against about
+// (C+3)*H*W*2 values of traffic (~16 MB in float32), far above the card's
+// flop-per-byte ratio. Inside the card the limits are the L2-to-SM traffic of
+// s_c, which every tile of output columns reads again, and the shared-memory
+// traffic of the mma.sync fragments.
 //
-// Design: one block per (tile of output columns u, tile of rows h, example b).
-// The block loops over coils and, inside, over tiles of v. It forms s_c*eta for
-// its rows on the fly into shared memory, stages the matching tile of C, and
-// accumulates the complex product on the tensor cores in float32. After each
-// coil it multiplies by conj(s_c) at its own (h, u) and adds into a coil sum
-// held in registers, so the [B, C, H, W, 2] coil tensor is never written. C
+// float32 (tf32 below): one block per (tile of output columns
+// u, tile of rows h, example b). The block loops over coils and, inside, over
+// tiles of v. It forms s_c*eta for its rows on the fly into shared memory,
+// stages the matching tile of C from registers loaded one tile ahead (the C
+// tile again for every coil), and accumulates on the tensor cores: mma.sync
+// m16n8k8 in TF32, each operand split into a TF32 hi and lo part and each real
+// product taken as hi*lo + lo*hi + hi*hi, which keeps float32 accuracy. C
 // arrives in the Gauss form of psf1d_gauss_mats (Cr, Cr+Ci, Ci-Cr); staging
-// reads the first two and forms Ci = (Cr+Ci) - Cr. The complex multiply-add
-// is four real products, xr*Cr + xi*(-Ci) and xi*Cr + xr*Ci, with the -Ci
-// fragment made by flipping sign bits. Staging reads 16-byte vectors (when the
-// row length allows) into registers one tile ahead, so the next tile's loads
-// are in flight during this tile's MMAs.
-//   float32 storage: mma.sync m16n8k8 in TF32, each operand split into a TF32
-//   hi and a TF32 lo part and each real product taken as hi*lo + lo*hi + hi*hi,
-//   which keeps float32 accuracy (lo*lo lies below float32's rounding).
-//   bfloat16 storage: mma.sync m16n8k16 on bf16 operands; s_c*eta and Ci are
-//   rounded to bf16 once, when staged.
-// TMA staging and wgmma are later work.
+// forms Ci = (Cr+Ci) - Cr and the product is four real products. After each
+// coil the block multiplies by conj(s_c) at its own (h, u) and adds into a
+// coil sum held in registers, so the [B, C, H, W, 2] coil tensor is never
+// written.
+//
+// bfloat16 (tc below): a persistent grid of one wave walks tiles of 64 rows h
+// by 64 columns u (64 by 32 where 320 < W <= 480), one block of 8 warps an SM.
+//   - The operator stays on chip across the coils: a tile stages its 64 rows
+//     of C for every v once (82 KB at W = 320, dynamic shared memory), and
+//     eta's 64 rows once (80 KB); then it loops over the coils staging only
+//     s_c. The L2-to-SM traffic of a call falls about 3x (chip_smoke.py
+//     prints it beside the first version's).
+//   - Four products over (Cr, Ci), Ci = (Cr+Ci) - Cr formed once per tile and
+//     rounded to bf16 again: a fragment feeds two products, so a product
+//     loads two thirds of the shared-memory bytes of the Gauss form's. The
+//     Gauss form (three products over the planes as delivered, as
+//     apply_psf1d computes) needs a third plane of C, which leaves no room
+//     for 64 x 64 tiles; at equal tiles the two ran within 5% of each other
+//     on an H100, and the wider tile won by 1.8x (PERF.md).
+//   - Warp pair q owns rows 16q .. 16q + 15, its two warps the left and right
+//     32 columns. Each pair streams its rows of s_c through its own ring of
+//     32-column chunks (16-byte cp.async, 4-byte at a ragged W), the next
+//     chunk in flight during this one; its warps form x = s_c*eta of 8 rows
+//     each in float32 from the staged bf16 values, round it once into the
+//     planes (xr, xi), and meet at a 64-thread named barrier. No block barrier
+//     runs inside a tile, so one pair's copies and conversion overlap
+//     another's products, and two warps share each SM sub-partition.
+//   - Products on mma.sync m16n8k16 bf16 with float32 accumulate, fragments
+//     by ldmatrix from rows padded by 16 bytes (no bank conflicts).
+//   - After each coil a warp multiplies its accumulators by conj(s_c) at its
+//     pixels, kept in shared memory from the chunks that cover the tile's
+//     columns, and adds them into a coil sum in float32 registers, in coil
+//     order: no atomics, the same result from run to run.
+//   - Outputs go out as 16-byte (forward) or 8-byte (backward) pairs of pixels.
+//   - mma.sync, not wgmma: on an H100 the product alone (no copies, no
+//     conversion) takes ~0.15 ms at B=8, 4.6x its four products' time at
+//     the card's bf16 peak; wgmma with TMA-fed, warp-specialised stages is
+//     the next step.
 #include "common.cuh"
 
 using namespace mridc;
@@ -216,194 +247,347 @@ __global__ void __launch_bounds__(THREADS) psf1d_dc_f32_kernel(
 
 }  // namespace tf32
 
-// ---- bfloat16: tensor cores -----------------------------------------------
+// ---- bfloat16: tensor cores, the operator held on chip across the coils ------
 
 namespace tc {
 
-constexpr int TM = 32;        // rows h per block
-constexpr int TN = 64;        // output columns u per block
-constexpr int TK = 32;        // v per staged tile (two k16 steps)
-constexpr int LDS = TK + 8;   // smem row stride in bf16: 20 words, so fragment loads hit 32 banks
-constexpr int THREADS = 128;  // 4 warps: 2 (h) x 2 (u), 16 x 32 outputs each
-
 using bf16 = __nv_bfloat16;
 
-// bf16 pairs packed in 32-bit words (lower address in the low half)
-__device__ __forceinline__ float lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
-__device__ __forceinline__ uint32_t pack(float a, float b) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(a)) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(b)) << 16);
-}
+// The complex product is four real products over (Cr, Ci), with Ci =
+// (Cr+Ci) - Cr formed once per tile and rounded to bf16 a second time: two
+// planes of the operator and of x, two accumulator sets, each fragment
+// feeding two products.
+constexpr int TK = 32;      // v per chunk: two k16 steps
+constexpr int LX = TK + 8;  // x plane row stride: the 8 rows of an ldmatrix phase hit distinct banks
+constexpr int STAGES = 2;   // raw s_c chunks a warp pair has in flight: the next one during this one
+constexpr int PAIRS = 4, THREADS = 64 * PAIRS, TM = 16 * PAIRS;  // a pair of warps owns 16 rows of the tile
+constexpr uint32_t SIGN2 = 0x80008000u;
 
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// Shared memory of a tile of TM rows h by TN columns u at width W, in bf16
+// elements: the operator [2][TN][lk] (Cr, Ci; rows u, every v) and eta
+// [TM][kp] complex (every v), shared by the warps; then per warp pair its
+// ring of raw s_c chunks [STAGES][16][TK] complex, its x planes
+// [2 buffers][2][16][LX] (xr, xi) and its s_c at the tile's columns [16][le]
+// (the epilogue's conj(s_c)). Every region starts on 16 bytes.
+struct Layout {
+  int kp;       // W rounded up to TK: the chunks' v range, zeros past W
+  int lk;       // operator row stride kp + 8 (kp % 32 == 0: rows 4 words apart mod 16, no bank conflicts)
+  int le;       // s_c row stride 2 TN + 16: rows 8 words apart mod 32, a half-warp's 8-byte reads hit 32 banks
+  size_t eta, pair0, x, es, per_pair, elems;  // x and es: offsets inside a pair's region
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-// 8 consecutive bf16 from global memory, the first n of them valid (zeros
-// after); one 16-byte load when the row layout keeps it aligned
-__device__ __forceinline__ uint4 load8(const bf16* p, int n, bool vec) {
-  if (vec && n >= 8) return __ldg(reinterpret_cast<const uint4*>(p));
-  const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
-  uint32_t w[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    w[i] = (2 * i < n ? (uint32_t)q[2 * i] : 0u) | ((2 * i + 1 < n ? (uint32_t)q[2 * i + 1] : 0u) << 16);
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-// eta at pixels pix .. pix + 3 (the first n / 2 valid): 16 bytes of a
-// [.., 2] eta, or (backward) channels 2:4 of g [.., 4], four 4-byte loads
-template <bool BWD>
-__device__ __forceinline__ uint4 load_eta(const bf16* e, size_t pix, int n, bool vec) {
-  if (!BWD) return load8(e + pix * 2, n, vec);
-  uint32_t w[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) w[i] = 2 * i < n ? ld32(e + (pix + i) * 4 + 2) : 0u;
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-// One v-tile's global data, held in registers from its load (issued before
-// the previous tile's MMAs) to its conversion into shared memory. Each thread
-// owns two 4-value chunks of the x tile (eta and s_c) and two 8-value chunks of
-// each C tile.
-struct Stage {
-  uint4 eta[2], sens[2], cr[2], cs[2];
+  __host__ __device__ Layout(int TN, int W) {
+    kp = (W + TK - 1) / TK * TK;
+    lk = kp + 8;
+    le = 2 * TN + 16;
+    eta = (size_t)2 * TN * lk;
+    pair0 = eta + (size_t)TM * kp * 2;
+    x = (size_t)STAGES * 16 * TK * 2;
+    es = x + (size_t)2 * 2 * 16 * LX;
+    per_pair = es + (size_t)16 * le;
+    elems = pair0 + PAIRS * per_pair;
+  }
+  __host__ __device__ size_t bytes() const { return elems * 2; }
 };
 
-template <bool BWD>
+// a bf16 (re, im) pair packed in a 32-bit word (re in the low half)
+__device__ __forceinline__ float re_of(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float im_of(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the complex pixels (h, u) and (h, u + 1) of one [H, W] complex plane ``p``
+// as two words, zeros where outside; one 8-byte load when W is even
+__device__ __forceinline__ uint2 load_pair(const bf16* p, int h, int u, int H, int W) {
+  uint2 r = make_uint2(0u, 0u);
+  if (h >= H || u >= W) return r;
+  const uint32_t* q = reinterpret_cast<const uint32_t*>(p + ((size_t)h * W + u) * 2);
+  if (W % 2 == 0) return *reinterpret_cast<const uint2*>(q);
+  r.x = q[0];
+  if (u + 1 < W) r.y = q[1];
+  return r;
+}
+
+// the 64 threads of warp pair ``pair`` wait for each other (named barrier 1 + pair)
+__device__ __forceinline__ void pair_sync(int pair) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + pair) : "memory");
+}
+
+// A tile is TM = 64 rows h by TN = 16 * WN columns u. Warp pair q owns rows
+// 16q .. 16q + 15; its warps take the left and right WN n tiles. Between the
+// block barriers at a tile's start (the operator and eta staged) the pairs
+// run apart: each keeps its own ring of s_c chunks, its warps copy and form
+// x for 8 rows each and meet at a 64-thread barrier, so one pair's copies
+// and conversion overlap another's products, and two warps share each SM
+// sub-partition's tensor core. The grid walks the
+// tiles (b, h-tile, u-tile), u-tile fastest, so the blocks that run together
+// share their rows' s_c in L2.
+template <bool BWD, int WN>
 __global__ void __launch_bounds__(THREADS) psf1d_dc_bf16_kernel(
     const bf16* __restrict__ eta, const bf16* __restrict__ sens, const bf16* __restrict__ mats,
-    const bf16* __restrict__ z0, bf16* __restrict__ out, int C, int H, int W, float inv_sigma2) {
-  __shared__ __align__(16) bf16 xr_s[TM][LDS];  // A = x[h][v], row-major
-  __shared__ __align__(16) bf16 xi_s[TM][LDS];
-  __shared__ __align__(16) bf16 cr_s[TN][LDS];  // B = C[u][v]: C^T column-major
-  __shared__ __align__(16) bf16 ci_s[TN][LDS];
-
-  const int b = blockIdx.z, h0 = blockIdx.y * TM, u0 = blockIdx.x * TN;
+    const bf16* __restrict__ z0, bf16* __restrict__ out, int B, int C, int H, int W, float inv_sigma2) {
+  constexpr int TN = 16 * WN;
+  static_assert(WN % 2 == 0, "B fragments come in pairs of n tiles");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Layout L(TN, W);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, t4 = lane & 3;
-  const int wm = (warp >> 1) * 16, wn = (warp & 1) * 32;
+  const int pair = warp / 2, half = warp % 2, wn = half * 8 * WN;
+  bf16* const op_s = reinterpret_cast<bf16*>(smem_raw);                 // [2][TN][lk]
+  bf16* const eta_s = op_s + L.eta;                                      // [TM][kp] complex
+  bf16* const ring = op_s + L.pair0 + pair * L.per_pair;                // [STAGES][16][TK] complex
+  bf16* const x_s = ring + L.x;                                          // [2][2][16][LX]
+  bf16* const es_s = ring + L.es;                                        // [16][le]: s_c at the tile's columns
   const size_t HW = (size_t)H * W;
-  const bool vec = W % 8 == 0;  // 16-byte loads stay aligned on every row
-  const bf16* eta_b = eta + (size_t)b * HW * (BWD ? 4 : 2);  // backward: g
-  const bf16* cr_g = mats + (size_t)b * 3 * W * W;
-  const bf16* cs_g = cr_g + (size_t)W * W;
-  const int nv = (W + TK - 1) / TK, iters = C * nv;
+  const bool vec = W % 8 == 0;  // 16-byte copies stay aligned on every row
+  const int kp = L.kp, lk = L.lk, le = L.le, nk = kp / TK, iters = C * nk;
+  const int nh = (H + TM - 1) / TM, nu = (W + TN - 1) / TN, units = B * nh * nu;
+  // ldmatrix row addresses, lanes 8j..8j+7 for matrix j: A (x rows h, v
+  // contiguous) takes (row, v) offsets (+0, +0), (+8, +0), (+0, +8), (+8, +8)
+  // into a0..a3; B (operator rows u, v contiguous) takes (+0, +0), (+0, +8),
+  // (+8, +0), (+8, +8): b0, b1 of n tile n, then of n tile n + 1
+  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + (lane >> 4) * 8, b_col = ((lane >> 3) & 1) * 8;
 
-  auto load = [&](Stage& st, int it) {
-    const int c = it / nv, v0 = (it % nv) * TK;
-    const bf16* s_bc = sens + ((size_t)b * C + c) * HW * 2;
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const int q = tid + THREADS * k;
-      const int h = h0 + (q >> 3), v = v0 + 4 * (q & 7);
-      const int n = h < H ? 2 * clamp_n(W - v, 4) : 0;
-      const size_t pix = (size_t)(h < H ? h : 0) * W + v;
-      st.eta[k] = load_eta<BWD>(eta_b, pix, n, vec);
-      st.sens[k] = load8(s_bc + pix * 2, n, vec);
-      const int u = u0 + (q >> 2), vc = v0 + 8 * (q & 3);
-      const int m = u < W ? clamp_n(W - vc, 8) : 0;
-      const size_t oc = (size_t)(u < W ? u : 0) * W + vc;
-      st.cr[k] = load8(cr_g + oc, m, vec);
-      st.cs[k] = load8(cs_g + oc, m, vec);
-    }
-  };
-  auto store = [&](const Stage& st) {
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const int q = tid + THREADS * k;
-      const uint32_t e[4] = {st.eta[k].x, st.eta[k].y, st.eta[k].z, st.eta[k].w};  // (re, im) per word
-      const uint32_t s[4] = {st.sens[k].x, st.sens[k].y, st.sens[k].z, st.sens[k].w};
-      float xr[4], xi[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        xr[i] = lo(e[i]) * lo(s[i]) - hi(e[i]) * hi(s[i]);
-        xi[i] = lo(e[i]) * hi(s[i]) + hi(e[i]) * lo(s[i]);
-      }
-      *reinterpret_cast<uint2*>(&xr_s[q >> 3][4 * (q & 7)]) = make_uint2(pack(xr[0], xr[1]), pack(xr[2], xr[3]));
-      *reinterpret_cast<uint2*>(&xi_s[q >> 3][4 * (q & 7)]) = make_uint2(pack(xi[0], xi[1]), pack(xi[2], xi[3]));
-      const uint32_t r[4] = {st.cr[k].x, st.cr[k].y, st.cr[k].z, st.cr[k].w};
-      const uint32_t c[4] = {st.cs[k].x, st.cs[k].y, st.cs[k].z, st.cs[k].w};
-      uint32_t ci[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ci[i] = pack(lo(c[i]) - lo(r[i]), hi(c[i]) - hi(r[i]));  // Ci = (Cr+Ci) - Cr
-      *reinterpret_cast<uint4*>(&cr_s[q >> 2][8 * (q & 3)]) = st.cr[k];
-      *reinterpret_cast<uint4*>(&ci_s[q >> 2][8 * (q & 3)]) = make_uint4(ci[0], ci[1], ci[2], ci[3]);
-    }
-  };
+  for (int unit = blockIdx.x; unit < units; unit += gridDim.x) {
+    const int u0 = (unit % nu) * TN, h0 = (unit / nu % nh) * TM, b = unit / (nu * nh);
+    const int hp = h0 + 16 * pair;  // this pair's first row
+    const bf16* eta_b = eta + (size_t)b * HW * (BWD ? 4 : 2);  // backward: g
+    const bf16* s_b = sens + (size_t)b * C * HW * 2;
+    const bf16* m_b = mats + (size_t)b * 3 * W * W;
+    __syncthreads();  // the previous tile is done with shared memory
 
-  float gr[4][4], gi[4][4], ar[4][4], ai[4][4];  // [n tile][accumulator register]
+    // one group: the operator's rows u0.. (planes Cr and Cr+Ci as delivered)
+    // and eta's rows, zeros past W and H. A ragged W (odd rows) stages the
+    // operator with plain loads.
+    for (int r = warp; r < TN; r += 2 * PAIRS) {
+      const int u = u0 + r;
+      for (int v = 8 * lane; v < kp; v += 8 * 32)
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
+        for (int p = 0; p < 2; ++p) {
+          bf16* dst = op_s + ((size_t)p * TN + r) * lk + v;
+          const bf16* src = m_b + (size_t)p * W * W + (size_t)u * W + v;
+          if (vec) {
+            const bool ok = u < W && v < W;
+            cp_async16(dst, ok ? src : m_b, ok);
+          } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) gr[n][j] = gi[n][j] = ar[n][j] = ai[n][j] = 0.f;
-
-  Stage st;
-  load(st, 0);
-  for (int it = 0; it < iters; ++it) {
-    store(st);
-    __syncthreads();
-    if (it + 1 < iters) load(st, it + 1);  // in flight during this tile's MMAs
-#pragma unroll
-    for (int kk = 0; kk < TK; kk += 16) {
-      // A fragments: rows wm+g and wm+g+8, columns kk+2*t4 (+1) and +8
-      const bf16* pr = &xr_s[wm + g][kk + 2 * t4];
-      const bf16* pi = &xi_s[wm + g][kk + 2 * t4];
-      const uint32_t a_r[4] = {ld32(pr), ld32(pr + 8 * LDS), ld32(pr + 8), ld32(pr + 8 * LDS + 8)};
-      const uint32_t a_i[4] = {ld32(pi), ld32(pi + 8 * LDS), ld32(pi + 8), ld32(pi + 8 * LDS + 8)};
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        // B fragments: column (u) wn+8n+g, rows (v) kk+2*t4 (+1) and +8
-        const bf16* qr = &cr_s[wn + 8 * n + g][kk + 2 * t4];
-        const bf16* qi = &ci_s[wn + 8 * n + g][kk + 2 * t4];
-        const uint32_t br0 = ld32(qr), br1 = ld32(qr + 8);
-        const uint32_t bi0 = ld32(qi), bi1 = ld32(qi + 8);
-        mma(ar[n], a_r, br0, br1);
-        mma(ar[n], a_i, bi0 ^ 0x80008000u, bi1 ^ 0x80008000u);  // - xi * Ci
-        mma(ai[n], a_i, br0, br1);
-        mma(ai[n], a_r, bi0, bi1);
-      }
-    }
-    __syncthreads();
-
-    if (it % nv == nv - 1) {
-      // coil sum of conj(s_c) * (C s_c eta); accumulator register j of n tile n
-      // sits at row wm+g (+8 for j >= 2), column wn+8n+2*t4+(j&1)
-      const bf16* s_bc = sens + ((size_t)b * C + it / nv) * HW * 2;
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int h = h0 + wm + g + (j >= 2 ? 8 : 0), u = u0 + wn + 8 * n + 2 * t4 + (j & 1);
-          if (h < H && u < W) {
-            const size_t o = ((size_t)h * W + u) * 2;
-            const float sr = __bfloat162float(s_bc[o]), si = __bfloat162float(s_bc[o + 1]);
-            gr[n][j] += sr * ar[n][j] + si * ai[n][j];
-            gi[n][j] += sr * ai[n][j] - si * ar[n][j];
+            for (int j = 0; j < 8; ++j) dst[j] = u < W && v + j < W ? src[j] : __float2bfloat16(0.f);
           }
-          ar[n][j] = ai[n][j] = 0.f;
         }
     }
-  }
-
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int h = h0 + wm + g + (j >= 2 ? 8 : 0), u = u0 + wn + 8 * n + 2 * t4 + (j & 1);
-      if (h >= H || u >= W) continue;
-      if (BWD)
-        write_bwd(eta_b, out + (size_t)b * HW * 2, (size_t)h * W + u, gr[n][j], gi[n][j], inv_sigma2);
-      else
-        write_out(eta_b, z0 + (size_t)b * HW * 2, out + (size_t)b * HW * 4, (size_t)h * W + u, gr[n][j],
-                  gi[n][j], inv_sigma2);
+    for (int r = 8 * warp; r < 8 * warp + 8; ++r) {
+      const int h = h0 + r;
+      bf16* dst = eta_s + (size_t)r * kp * 2;
+      if (!BWD && vec) {
+        for (int v = 4 * lane; v < kp; v += 4 * 32) {
+          const bool ok = h < H && v < W;
+          cp_async16(dst + 2 * v, ok ? eta_b + ((size_t)h * W + v) * 2 : eta_b, ok);
+        }
+      } else {  // 4 bytes a pixel: eta [.., 2] at a ragged W, or channels 2:4 of g [.., 4]
+        for (int v = lane; v < kp; v += 32) {
+          const bool ok = h < H && v < W;
+          const bf16* src = eta_b + ((size_t)h * W + v) * (BWD ? 4 : 2) + (BWD ? 2 : 0);
+          cp_async4(dst + 2 * v, ok ? src : eta_b, ok);
+        }
+      }
     }
+    cp_async_commit();
+
+    // this warp's 8 of its pair's rows of raw s_c of chunk i (coil i / nk, v
+    // from (i % nk) * TK) into the pair's ring slot i % STAGES, zeros past H
+    // and W; one group per chunk, empty past the last
+    auto issue = [&](int i) {
+      if (i < iters) {
+        const bf16* s_c = s_b + (size_t)(i / nk) * HW * 2;
+        const int v0 = (i % nk) * TK;
+        bf16* slot = ring + (size_t)(i % STAGES) * 16 * TK * 2;
+        if (vec) {
+#pragma unroll
+          for (int e = half * 8 * (TK / 4) + lane; e < (half + 1) * 8 * (TK / 4); e += 32) {
+            const int h = hp + e / (TK / 4), v = v0 + 4 * (e % (TK / 4));
+            const bool ok = h < H && v < W;
+            cp_async16(slot + (size_t)e * 8, ok ? s_c + ((size_t)h * W + v) * 2 : s_c, ok);
+          }
+        } else {
+          for (int e = half * 8 * TK + lane; e < (half + 1) * 8 * TK; e += 32) {
+            const int h = hp + e / TK, v = v0 + e % TK;
+            const bool ok = h < H && v < W;
+            cp_async4(slot + (size_t)e * 2, ok ? s_c + ((size_t)h * W + v) * 2 : s_c, ok);
+          }
+        }
+      }
+      cp_async_commit();
+    };
+
+    // x = s_c * eta of chunk i for this warp's 8 rows into x buffer i % 2,
+    // formed in float32 from the staged bf16 values and rounded once into the
+    // planes (xr, xi), 4 pixels a step. s_c at the tile's columns is kept for
+    // the epilogue.
+    auto convert = [&](int i) {
+      const bf16* slot = ring + (size_t)(i % STAGES) * 16 * TK * 2;
+      bf16* xb = x_s + (size_t)(i % 2) * 2 * 16 * LX;
+      const int v0 = (i % nk) * TK;
+#pragma unroll
+      for (int e = half * 8 * (TK / 4) + lane; e < (half + 1) * 8 * (TK / 4); e += 32) {
+        const int r = e / (TK / 4), c4 = 4 * (e % (TK / 4));
+        const uint4 sv = *reinterpret_cast<const uint4*>(slot + (size_t)e * 8);
+        const uint4 ev = *reinterpret_cast<const uint4*>(eta_s + ((size_t)(16 * pair + r) * kp + v0 + c4) * 2);
+        const int ue = v0 + c4 - u0;
+        if (ue >= 0 && ue < TN) *reinterpret_cast<uint4*>(es_s + (size_t)r * le + 2 * ue) = sv;
+        const uint32_t s4[4] = {sv.x, sv.y, sv.z, sv.w}, e4[4] = {ev.x, ev.y, ev.z, ev.w};
+        float xr[4], xi[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          xr[j] = re_of(e4[j]) * re_of(s4[j]) - im_of(e4[j]) * im_of(s4[j]);
+          xi[j] = re_of(e4[j]) * im_of(s4[j]) + im_of(e4[j]) * re_of(s4[j]);
+        }
+        const size_t o = (size_t)r * LX + c4;
+        *reinterpret_cast<uint2*>(xb + o) = make_uint2(pack(xr[0], xr[1]), pack(xr[2], xr[3]));
+        *reinterpret_cast<uint2*>(xb + 16 * LX + o) = make_uint2(pack(xi[0], xi[1]), pack(xi[2], xi[3]));
+      }
+    };
+
+    // accumulator register j of n tile n: row g (+8 for j >= 2) of the pair's
+    // rows, column wn+8n+2*t4+(j&1); acc[0], acc[1] this coil's re and im,
+    // gr/gi the coil sum
+    float acc[2][WN][4], gr[WN][4], gi[WN][4];
+#pragma unroll
+    for (int n = 0; n < WN; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) gr[n][j] = gi[n][j] = acc[0][n][j] = acc[1][n][j] = 0.f;
+
+    for (int i = 0; i < STAGES - 1; ++i) issue(i);
+    for (int i = -1; i < iters; ++i) {
+      cp_async_wait<STAGES - 2>();  // chunk i + 1 (at i = -1 also the operator and eta) has landed
+      if (i < 0) {
+        __syncthreads();  // every thread's copies of the operator and eta
+        // Ci = (Cr+Ci) - Cr in plane 1, in place
+        for (int r = warp; r < TN; r += 2 * PAIRS)
+          for (int v = 2 * lane; v < kp; v += 2 * 32) {
+            __nv_bfloat162* c1 = reinterpret_cast<__nv_bfloat162*>(op_s + ((size_t)TN + r) * lk + v);
+            const __nv_bfloat162 c0 = *reinterpret_cast<const __nv_bfloat162*>(op_s + (size_t)r * lk + v);
+            *c1 = __floats2bfloat162_rn(__low2float(*c1) - __low2float(c0), __high2float(*c1) - __high2float(c0));
+          }
+        __syncthreads();
+      } else {
+        pair_sync(pair);  // x of chunk i complete; both warps' reads of x buffer i - 1 are done
+      }
+      issue(i + STAGES);  // into the slot chunk i was converted from
+      if (i >= 0) {
+        const int kc = i % nk;
+        const bf16* xb = x_s + (size_t)(i % 2) * 2 * 16 * LX;
+#pragma unroll
+        for (int kk = 0; kk < TK; kk += 16) {
+          uint32_t a[2][4];
+#pragma unroll
+          for (int p = 0; p < 2; ++p) ldsm4(a[p], xb + ((size_t)p * 16 + a_row) * LX + kk + a_col);
+#pragma unroll
+          for (int n = 0; n < WN; n += 2) {
+            uint32_t bq[2][4];
+#pragma unroll
+            for (int p = 0; p < 2; ++p)
+              ldsm4(bq[p], op_s + ((size_t)p * TN + wn + 8 * n + b_row) * lk + kc * TK + kk + b_col);
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {  // re += xr Cr - xi Ci, im += xr Ci + xi Cr
+              mma_bf16(acc[0][n + j], a[0], bq[0][2 * j], bq[0][2 * j + 1]);
+              mma_bf16(acc[0][n + j], a[1], bq[1][2 * j] ^ SIGN2, bq[1][2 * j + 1] ^ SIGN2);
+              mma_bf16(acc[1][n + j], a[0], bq[1][2 * j], bq[1][2 * j + 1]);
+              mma_bf16(acc[1][n + j], a[1], bq[0][2 * j], bq[0][2 * j + 1]);
+            }
+          }
+        }
+
+        if (kc == nk - 1) {  // coil done: add conj(s_c) * (C s_c eta), in coil order
+#pragma unroll
+          for (int n = 0; n < WN; ++n)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const uint2 s =
+                  *reinterpret_cast<const uint2*>(es_s + (size_t)(g + 8 * hf) * le + 2 * (wn + 8 * n + 2 * t4));
+#pragma unroll
+              for (int jj = 0; jj < 2; ++jj) {
+                const int j = 2 * hf + jj;
+                const uint32_t sw = jj ? s.y : s.x;
+                const float re = acc[0][n][j], im = acc[1][n][j];
+                gr[n][j] += re_of(sw) * re + im_of(sw) * im;
+                gi[n][j] += re_of(sw) * im - im_of(sw) * re;
+                acc[0][n][j] = acc[1][n][j] = 0.f;
+              }
+            }
+          pair_sync(pair);  // both warps' reads of es are done before the conversion below may rewrite it
+        }
+      }
+      if (i + 1 < iters) convert(i + 1);  // overlaps the products issued above
+    }
+    cp_async_wait<0>();  // the empty groups past the last chunk
+
+    // outputs at (h, u) and (h, u + 1): 16 (forward) or 8 (backward) bytes a
+    // pair when W is even (then u + 1 < W too), else a pixel at a time
+    const bool even_w = W % 2 == 0;
+#pragma unroll
+    for (int n = 0; n < WN; ++n)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = 16 * pair + g + 8 * hf, h = h0 + r, u = u0 + wn + 8 * n + 2 * t4;
+        if (h >= H || u >= W) continue;
+        const size_t p = (size_t)h * W + u;
+        const float gr0 = gr[n][2 * hf], gr1 = gr[n][2 * hf + 1], gi0 = gi[n][2 * hf], gi1 = gi[n][2 * hf + 1];
+        if (BWD) {  // d_eta = g[..., :2] + A(g[..., 2:]) / sigma^2
+          const uint32_t* gq = reinterpret_cast<const uint32_t*>(eta_b + p * 4);  // g: words (0:2, 2:4) a pixel
+          uint32_t* o = reinterpret_cast<uint32_t*>(out + (size_t)b * HW * 2 + p * 2);
+          if (even_w) {
+            const uint4 gv = *reinterpret_cast<const uint4*>(gq);
+            *reinterpret_cast<uint2*>(o) =
+                make_uint2(pack(re_of(gv.x) + gr0 * inv_sigma2, im_of(gv.x) + gi0 * inv_sigma2),
+                           pack(re_of(gv.z) + gr1 * inv_sigma2, im_of(gv.z) + gi1 * inv_sigma2));
+          } else {
+            o[0] = pack(re_of(gq[0]) + gr0 * inv_sigma2, im_of(gq[0]) + gi0 * inv_sigma2);
+            if (u + 1 < W) o[1] = pack(re_of(gq[2]) + gr1 * inv_sigma2, im_of(gq[2]) + gi1 * inv_sigma2);
+          }
+        } else {  // [eta, (A(eta) - z0) / sigma^2]
+          const uint2 ev = *reinterpret_cast<const uint2*>(eta_s + ((size_t)r * kp + u) * 2);
+          const uint2 zv = load_pair(z0 + (size_t)b * HW * 2, h, u, H, W);
+          uint32_t* o = reinterpret_cast<uint32_t*>(out + (size_t)b * HW * 4 + p * 4);
+          const uint32_t w1 = pack((gr0 - re_of(zv.x)) * inv_sigma2, (gi0 - im_of(zv.x)) * inv_sigma2);
+          const uint32_t w3 = pack((gr1 - re_of(zv.y)) * inv_sigma2, (gi1 - im_of(zv.y)) * inv_sigma2);
+          if (even_w) {
+            *reinterpret_cast<uint4*>(o) = make_uint4(ev.x, w1, ev.y, w3);
+          } else {
+            *reinterpret_cast<uint2*>(o) = make_uint2(ev.x, w1);
+            if (u + 1 < W) *reinterpret_cast<uint2*>(o + 2) = make_uint2(ev.y, w3);
+          }
+        }
+      }
+  }
+}
+
+using Kernel = void (*)(const bf16*, const bf16*, const bf16*, const bf16*, bf16*, int, int, int, int, float);
+
+// a tile shape's kernel and shared memory at width W
+struct Setup {
+  Kernel kernel;
+  int threads, tm, tn;
+  size_t smem;
+
+  bool fits() const { return smem <= (size_t)MAX_DYNAMIC_SMEM; }
+  // blocks of one wave (cached; the first call sets the shared-memory limit)
+  cudaError_t cap(int device, int* blocks) const { return wave((const void*)kernel, threads, smem, device, blocks); }
+  int units(int B, int H, int W) const { return B * ((H + tm - 1) / tm) * ((W + tn - 1) / tn); }
+};
+
+template <bool BWD, int WN>
+Setup make(int W) {
+  return {&psf1d_dc_bf16_kernel<BWD, WN>, THREADS, TM, 16 * WN, Layout(16 * WN, W).bytes()};
+}
+
+// 64 x 64 tiles; 64 x 32 where their shared memory would not fit (W > 320, up
+// to W = 480)
+template <bool BWD>
+Setup pick(int W) {
+  Setup s = make<BWD, 4>(W);
+  if (!s.fits()) s = make<BWD, 2>(W);
+  return s;
 }
 
 }  // namespace tc
@@ -424,10 +608,16 @@ template <bool BWD>
 int launch_bf16(const void* eta, const void* sens, const void* mats, const void* z0, void* out, int B, int C, int H,
                 int W, float inv_sigma2, void* stream) {
   if (bad(B, C, H, W)) return (int)cudaErrorInvalidValue;
+  const tc::Setup s = tc::pick<BWD>(W);
+  if (!s.fits()) return (int)cudaErrorInvalidValue;
+  int device = 0, cap = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = s.cap(device, &cap);
+  if (err != cudaSuccess) return (int)err;
+  const int units = s.units(B, H, W);
   using tc::bf16;
-  const dim3 grid((W + tc::TN - 1) / tc::TN, (H + tc::TM - 1) / tc::TM, B);
-  tc::psf1d_dc_bf16_kernel<BWD><<<grid, tc::THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)eta, (const bf16*)sens, (const bf16*)mats, (const bf16*)z0, (bf16*)out, C, H, W, inv_sigma2);
+  s.kernel<<<units < cap ? units : cap, s.threads, s.smem, (cudaStream_t)stream>>>(
+      (const bf16*)eta, (const bf16*)sens, (const bf16*)mats, (const bf16*)z0, (bf16*)out, B, C, H, W, inv_sigma2);
   return (int)cudaGetLastError();
 }
 
@@ -452,4 +642,27 @@ extern "C" int k1_psf1d_dc_bwd_f32(const void* g, const void* sens, const void* 
 extern "C" int k1_psf1d_dc_bwd_bf16(const void* g, const void* sens, const void* mats, void* out, int B, int C,
                                     int H, int W, float inv_sigma2, void* stream) {
   return launch_bf16<true>(g, sens, mats, nullptr, out, B, C, H, W, inv_sigma2, stream);
+}
+
+// Writes info[0..5] for k1_psf1d_dc_bf16 (bwd 0) or k1_psf1d_dc_bwd_bf16 (bwd 1)
+// at [B, H, W] on ``device``: blocks of the grid (one wave, at most one a
+// tile), shared memory a block in bytes, blocks an SM, threads a block, tile
+// rows h and tile columns u. Blocks 0 if the kernel does not take W; info[1]
+// is then the shared memory its narrowest tile would need.
+extern "C" int k1_psf1d_dc_bf16_setup(int bwd, int B, int H, int W, int device, int* info) {
+  const tc::Setup s = bwd ? tc::pick<true>(W) : tc::pick<false>(W);
+  for (int i = 0; i < 6; ++i) info[i] = 0;
+  info[1] = (int)s.smem;
+  if (bad(B, 1, H, W) || !s.fits()) return (int)cudaSuccess;
+  int cap = 0, sms = 0;
+  cudaError_t err = s.cap(device, &cap);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const int units = s.units(B, H, W);
+  info[0] = units < cap ? units : cap;
+  info[2] = cap / (sms > 0 ? sms : 1);
+  info[3] = s.threads;
+  info[4] = s.tm;
+  info[5] = s.tn;
+  return (int)cudaSuccess;
 }

@@ -75,6 +75,11 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
 # library -> {launch-setup query: argtypes}; a query launches nothing, takes no
 # stream and is not counted
 QUERIES: Dict[str, Dict[str, tuple]] = {
+    "psf1d_dc": {
+        # bwd (0 or 1), B, H, W, device index, out: int[6] (blocks, shared memory bytes, blocks per SM,
+        # threads, tile rows, tile columns)
+        "k1_psf1d_dc_bf16_setup": (_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)),
+    },
     "indrnn_bwd": {
         # bf16 (0 or 1), P, CI, F, device index, out: blocks of the grid (0: widths not taken)
         "k3_indrnn_bwd_blocks": (_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)),

@@ -11,13 +11,17 @@ for an upstream g is ``d_eta = g[..., :2] + A(g[..., 2:]) / sigma^2`` and
 
 from __future__ import annotations
 
+import ctypes
+from typing import Dict, Tuple
+
 import torch
 
-from mridc_tpu_torch.kernels.binding import launch
+from mridc_tpu_torch.kernels.binding import launch, query
 from mridc_tpu_torch.kernels.common import check_operand, dense, device_of, refuse_grads
 from mridc_tpu_torch.nn.dc import log_likelihood_gradient_psf1d
 
-__all__ = ["psf1d_dc", "psf1d_dc_plain", "psf1d_dc_bwd", "psf1d_dc_bwd_plain", "SYMBOLS", "BWD_SYMBOLS"]
+__all__ = ["psf1d_dc", "psf1d_dc_plain", "psf1d_dc_bwd", "psf1d_dc_bwd_plain", "bf16_setup", "SYMBOLS",
+           "BWD_SYMBOLS"]
 
 SYMBOLS = {torch.float32: "k1_psf1d_dc_f32", torch.bfloat16: "k1_psf1d_dc_bf16"}
 BWD_SYMBOLS = {torch.float32: "k1_psf1d_dc_bwd_f32", torch.bfloat16: "k1_psf1d_dc_bwd_bf16"}
@@ -35,6 +39,32 @@ def psf1d_dc_bwd_plain(g, sens, mats, sigma: float = 1.0) -> torch.Tensor:
     return g[..., :2] + log_likelihood_gradient_psf1d(v, sens, mats, torch.zeros_like(v), sigma=sigma)[..., 2:]
 
 
+SETUP_KEYS = ("blocks", "smem_bytes", "blocks_per_sm", "threads", "tile_h", "tile_u")
+_SETUPS: Dict[Tuple[int, int, int, int, int, bool], Dict[str, int]] = {}
+
+
+def bf16_setup(b: int, h: int, w: int, device: torch.device, bwd: bool = False) -> Dict[str, int]:
+    """The bf16 kernel's launch at [B, H, W] on ``device`` (cached): grid
+    blocks (0: W not taken), shared memory a block, blocks per SM, threads a
+    block, and the tile's rows h and columns u."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    key = (b, h, w, index, bwd)
+    if key not in _SETUPS:
+        info = (ctypes.c_int * len(SETUP_KEYS))()
+        query("psf1d_dc", "k1_psf1d_dc_bf16_setup", device, int(bwd), b, h, w, index, info)
+        _SETUPS[key] = dict(zip(SETUP_KEYS, info))
+    return _SETUPS[key]
+
+
+def _check_width(name, dtype, w, dev, bwd):
+    """The bf16 kernel holds a tile's rows of the [W, W] operator in shared
+    memory, which bounds W (480)."""
+    setup = bf16_setup(1, 1, w, dev, bwd) if dtype == torch.bfloat16 else None
+    if setup is not None and setup["blocks"] == 0:
+        raise ValueError(f"{name}: the bf16 kernel does not take W = {w}: its narrowest tile needs "
+                         f"{setup['smem_bytes']} bytes of shared memory, more than a block can have")
+
+
 def _shape(name, sens, dtype):
     if sens.ndim != 5:
         raise ValueError(f"{name}: sens must be [B, C, H, W, 2], got {tuple(sens.shape)}")
@@ -47,6 +77,7 @@ def _forward_kernel(eta, sens, mats, z0, sigma, dev) -> torch.Tensor:
     check_operand("psf1d_dc.eta", eta, (b, h, w, 2), dts)
     check_operand("psf1d_dc.mats", mats, (b, 3, w, w), dts)
     check_operand("psf1d_dc.z0", z0, (b, h, w, 2), dts)
+    _check_width("psf1d_dc", sens.dtype, w, dev, False)
     out = torch.empty((b, h, w, 4), dtype=sens.dtype, device=dev)
     launch(
         "psf1d_dc", SYMBOLS[sens.dtype], dev,
@@ -67,6 +98,7 @@ def psf1d_dc_bwd(g, sens, mats, sigma: float = 1.0) -> torch.Tensor:
     check_operand("psf1d_dc_bwd.sens", sens, (b, c, h, w, 2), dts)
     check_operand("psf1d_dc_bwd.g", g, (b, h, w, 4), dts)
     check_operand("psf1d_dc_bwd.mats", mats, (b, 3, w, w), dts)
+    _check_width("psf1d_dc_bwd", sens.dtype, w, dev, True)
     out = torch.empty((b, h, w, 2), dtype=sens.dtype, device=dev)
     launch("psf1d_dc", BWD_SYMBOLS[sens.dtype], dev, g.data_ptr(), sens.data_ptr(), mats.data_ptr(), out.data_ptr(),
            b, c, h, w, 1.0 / sigma**2)

@@ -9,13 +9,28 @@ compute dtype at each call, as flax's ``dtype=`` does.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Conv", "ConvNonlinear", "as_torch_dtype", "activation", "replicate_pad"]
+__all__ = ["Conv", "ConvNonlinear", "as_torch_dtype", "activation", "replicate_pad", "fan_in_truncated_normal_"]
+
+# std of a unit normal cut at +-2, by which flax's truncated_normal divides
+TRUNC_STD = 0.87962566103423978
+
+
+def fan_in_truncated_normal_(
+    weight: torch.Tensor, scale: float, generator: Optional[torch.Generator] = None
+) -> torch.Tensor:
+    """flax ``variance_scaling(scale, "fan_in", "truncated_normal")`` on an OIHW
+    kernel: a normal with std s = sqrt(scale / fan_in) / TRUNC_STD cut at +-2s,
+    whose variance is scale / fan_in (``kaiming_normal``: scale 2,
+    ``lecun_normal``: scale 1)."""
+    s = math.sqrt(scale / weight[0].numel()) / TRUNC_STD
+    return nn.init.trunc_normal_(weight, std=s, a=-2 * s, b=2 * s, generator=generator)
 
 
 def as_torch_dtype(dtype) -> Optional[torch.dtype]:
@@ -72,6 +87,12 @@ class Conv(nn.Conv2d):
         )
         self.compute_dtype = as_torch_dtype(dtype)
 
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """flax ``nn.Conv``'s defaults: ``lecun_normal`` kernel, zero bias."""
+        fan_in_truncated_normal_(self.weight, 1.0, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
         bias = None if self.bias is None else self.bias.to(dt)
@@ -118,7 +139,8 @@ class ConvNonlinear(nn.Module):
         self.conv_layer = Conv(in_features, features, kernel_size, dilation, "VALID", use_bias, dtype)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        nn.init.kaiming_normal_(self.conv_layer.weight, nonlinearity="relu", generator=generator)
+        """flax ``kaiming_normal`` kernel (``mridc_tpu/nn/layers.py:286``), zero bias."""
+        fan_in_truncated_normal_(self.conv_layer.weight, 2.0, generator)
         if self.conv_layer.bias is not None:
             nn.init.zeros_(self.conv_layer.bias)
 

@@ -97,6 +97,36 @@ def test_conv_nonlinear_rejects_unknown_nonlinearity():
         tlayers.ConvNonlinear(2, 2, 3, 1, True, "gelu")(torch.zeros(1, 2, 4, 4))
 
 
+@pytest.mark.parametrize("layer,scale,jax_init", [
+    ("Conv", 1.0, jax.nn.initializers.lecun_normal),
+    ("ConvNonlinear", 2.0, jax.nn.initializers.kaiming_normal),
+])
+def test_init_is_flax_truncated_normal(layer, scale, jax_init):
+    """Each layer's reset draws flax's fan-in truncated normal: no entry past 2s
+    (s = sqrt(scale / fan_in) / 0.87962566), a std within 1% of
+    sqrt(scale / fan_in), a zero bias; a flax draw of the same [3, 3, 64, 128]
+    kernel passes the same checks, and torch's untruncated kaiming_normal_
+    fails the first."""
+    cin, cout, k = 64, 128, 3
+    fan_in = cin * k * k
+    std = np.sqrt(scale / fan_in)
+    s = std / tlayers.TRUNC_STD
+
+    def passes(w):
+        w = np.asarray(w, np.float64)
+        return bool(np.abs(w).max() <= 2 * s * (1 + 1e-6)) and abs(w.std() / std - 1) < 0.01
+
+    mod = tlayers.Conv(cin, cout, k) if layer == "Conv" else tlayers.ConvNonlinear(cin, cout, k)
+    conv = mod if layer == "Conv" else mod.conv_layer
+    mod.reset_parameters(torch.Generator().manual_seed(0))
+    assert passes(conv.weight.detach().numpy())
+    assert not bool(conv.bias.detach().any())
+    assert passes(jax_init()(jax.random.PRNGKey(0), (k, k, cin, cout)))
+    untruncated = torch.nn.init.kaiming_normal_(torch.empty(cout, cin, k, k), a=np.sqrt(2 / scale - 1),
+                                                generator=torch.Generator().manual_seed(0))
+    assert not passes(untruncated.numpy())
+
+
 def test_compute_dtype_casts_at_call():
     conv = tlayers.Conv(2, 3, 3, dtype="bfloat16")
     assert conv.weight.dtype == torch.float32
