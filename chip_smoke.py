@@ -11,9 +11,10 @@ Phases (any failure raises; no phase catches its own):
   2. build the kernels of ``mridc_tpu_torch/csrc`` (one nvcc per source, in
      parallel) and print each kernel's registers and spills;
   3. each kernel against its plain version on the card, at the flagship shapes
-     (B=2, 15 coils, 320x320, 64 filters) and at an odd size; K1-bf16 forward
-     and backward also at one coil, W=200, H=40, W=368 and W=396 (the edges
-     of its tiles); K3-f32 also at 64 -> 128 and 128 -> 128 channels, at in-channels
+     (B=2, 15 coils, 320x320, 64 filters) and at an odd size; K1 forward
+     and backward (both dtypes) also at one coil, W=200, H=40, W=368 and W=396
+     (the edges of their tiles), K1-f32 also at W=640 (its wide route); K3-f32
+     also at 64 -> 128 and 128 -> 128 channels, at in-channels
      that are not a multiple of 8, and over a pixel count that no tile
      divides; K3-bwd (both dtypes) at 64 -> 64, 64 -> 128, 128 -> 128 and
      16 -> 8 channels over that count;
@@ -26,9 +27,9 @@ Phases (any failure raises; no phase catches its own):
      predictions must agree, and one K3 call's operands are kept;
   6. each kernel against its plain version again on the main path's operands
      (B=8: the f32 prediction as eta, the captured K3 call), then its time
-     beside its bound and its plain version's time; K1-bf16's launch (grid,
-     shared memory, blocks per SM, tile) and the L2-to-SM bytes its tiles
-     imply beside the first version's;
+     beside its bound and its plain version's time; K1's launch in each dtype
+     (grid, shared memory, blocks per SM, tile; f32 also its route) and the
+     L2-to-SM bytes its tiles imply beside the first version's;
   7. a small CIRIM training step (phase 4's model, f32, remat "step+cascade")
      on the card against the CPU path, in both dc_modes: loss, every
      parameter gradient, and the parameters after one Adam step under
@@ -44,7 +45,8 @@ Phases (any failure raises; no phase catches its own):
   9. each backward kernel against its plain version on the operands of one of
      its calls in a training step, then its time beside its bound and its
      plain version's time; K1-bf16's forward is also checked and timed at the
-     B=24 operands (a line of its own, not a kernels row).
+     B=24 operands (a line of its own, not a kernels row); K1's launches at
+     the training operands.
 
 Output: JSON lines per check, run and kernel; then the ``{"kernels": [...]}``
 line, the card's name and power limit, and last
@@ -290,19 +292,31 @@ def ptxas_by_kernel(log: str) -> dict:
     return out
 
 
-def k1_l2_bytes(setup: dict, b: int, c: int, h: int, w: int, bwd: bool) -> dict:
-    """Bytes that one call of the bf16 K1 kernel moves between L2 and the SMs
-    at [b, c, h, w], from its launch setup: per tile, its operator rows for
-    every v (the two planes it reads, Cr and Cr+Ci), eta's rows (4 bytes a pixel; the backward's g channels 2:4 fetch
-    whole 8-byte pixels), every coil's s_c rows, and its output with z0
-    (forward) or g (backward); beside the first version's (one 32 x 64 tile a
-    block, re-staging 8 KB of operator and 8 KB of eta and s_c for every coil
-    and 32 columns of v)."""
+def k1_l2_bytes(setup: dict, b: int, c: int, h: int, w: int, bwd: bool, dtype: str = "bfloat16") -> dict:
+    """Bytes that one call of a K1 kernel moves between L2 and the SMs at
+    [b, c, h, w], from its launch setup, beside the first version's.
+    bfloat16: per tile, its operator rows for every v (the two planes it
+    reads, Cr and Cr+Ci), eta's rows (4 bytes a pixel; the backward's g
+    channels 2:4 fetch whole 8-byte pixels), every coil's s_c rows, and its
+    output with z0 (forward) or g (backward); the first version took one
+    32 x 64 tile a block, re-staging 8 KB of operator and 8 KB of eta and s_c
+    for every coil and 32 columns of v. float32, on-chip route: per tile, the
+    three planes' operator rows for every v, eta's rows (8 bytes a pixel; the
+    backward's g channels 2:4 fetch whole 16-byte pixels), every coil's s_c
+    rows, and every coil's s_c at the tile's pixels (the epilogue's conj(s_c)),
+    and its output with z0 or g; the first version (the wide route's kernel)
+    re-stages 8 KB of operator and 8 KB of eta and s_c for every coil
+    and 16 columns of v in each 32 x 64 tile."""
     tm, tn = setup["tile_h"], setup["tile_u"]
     tiles = b * -(-h // tm) * -(-w // tn)
-    per_tile = 2 * tn * w * 2 + tm * w * (8 if bwd else 4) + c * tm * w * 4 + tm * tn * 12
-    first = b * -(-h // 32) * -(-w // 64) * c * -(-w // 32) * 16384
-    return {"tiles": tiles, "l2_bytes": tiles * per_tile, "l2_bytes_first_version": first}
+    if dtype == "bfloat16":
+        per_tile = 2 * tn * w * 2 + tm * w * (8 if bwd else 4) + c * tm * w * 4 + tm * tn * 12
+        first = b * -(-h // 32) * -(-w // 64) * c * -(-w // 32) * 16384
+    else:
+        per_tile = 3 * tn * w * 4 + tm * w * (16 if bwd else 8) + c * tm * w * 8 + c * tm * tn * 8 + tm * tn * 24
+        first = b * -(-h // 32) * -(-w // 64) * c * -(-w // 16) * 16384
+    l2 = first if setup.get("route") == "wide" else tiles * per_tile
+    return {"tiles": tiles, "l2_bytes": l2, "l2_bytes_first_version": first}
 
 
 def kernel_category(name: str) -> str:
@@ -454,15 +468,16 @@ def main() -> int:
                 errors.setdefault(sym, []).append(
                     check(f"{sym}[{part}/{tag}]", got[i], want, *(tol if i < 2 else tol_sums)))
 
-        def check_k1_bwd_bf16(label, b, c, h, w):
-            """K1-bwd-bf16 on an upstream g drawn at [b, h, w, 4], against its
-            plain version rounded once, at K1_BF16."""
+        def check_k1_bwd(label, b, c, h, w, dt):
+            """K1-bwd in ``dt`` on an upstream g drawn at [b, h, w, 4], against
+            its plain version rounded once, at F32 or K1_BF16."""
             _, sens_b, mask_b = (t(a) for a in bench_data(b, c, h, w, seed=4))
-            args = (rand(b, h, w, 4).to(torch.bfloat16), sens_b.to(torch.bfloat16),
-                    psf1d_gauss_mats(mask_b[:, 0, 0, :], True, "ortho").to(torch.bfloat16), 0.7)
-            sym = K1_BWD[torch.bfloat16]
+            args = (rand(b, h, w, 4).to(dt), sens_b.to(dt), psf1d_gauss_mats(mask_b[:, 0, 0, :], True, "ortho").to(dt),
+                    0.7)
+            sym = K1_BWD[dt]
             errors.setdefault(sym, []).append(check(f"{sym}[{label}]", k1mod.psf1d_dc_bwd(*args),
-                                                    rounded_once(k1mod.psf1d_dc_bwd_plain, *args), *K1_BF16))
+                                                    rounded_once(k1mod.psf1d_dc_bwd_plain, *args),
+                                                    *(F32 if dt == torch.float32 else K1_BF16)))
 
         for label, (b, c, h, w) in {"flagship_b2": (2, COILS, H, W), "odd": (2, 3, 37, 45)}.items():
             y, sens, mask = (t(a) for a in bench_data(b, c, h, w, seed=3))
@@ -503,7 +518,7 @@ def main() -> int:
                 errors.setdefault(sym, []).append(check(
                     f"{sym}[{label}]", kernels.psf1d_dc(*args, 0.7),
                     rounded_once(kernels.psf1d_dc_plain, *args, 0.7), *tol))
-            check_k1_bwd_bf16(label, b, c, h, w)
+                check_k1_bwd(label, b, c, h, w, dt)
 
             ci, fo = (FILTERS, FILTERS) if label != "odd" else (32, 24)  # odd: 3 n-tiles, a ragged pixel tile
             x, hprev = cl(rand(b, ci, h, w)), cl(rand(b, fo, h, w, positive=True))
@@ -514,23 +529,31 @@ def main() -> int:
                 errors.setdefault(sym, []).append(
                     check(f"{sym}[{label}]", kernels.indrnn(*args), rounded_once(kernels.indrnn_plain, *args), *tol))
 
-        # K1-bf16 forward and backward at the edges of its tiles (64 rows by 64
-        # columns, 64 by 32 where W > 320): one coil; a width that no column
-        # tile divides (200); a height that no row tile divides (40); the
-        # fastMRI widths on the narrower tiles: 368 (16-byte copies) and 396
-        # (W % 8 != 0: 4-byte copies of s_c and eta, plain operator loads);
-        # bench.py's 1D mask
+        # K1 forward and backward at the edges of its tiles. bf16: 64 rows by
+        # 64 columns, 64 by 32 where W > 320; f32: 32 by 32 up to W = 320, 16
+        # by 32 with rings of 3 chunks up to W = 384 and of 2 up to W = 416,
+        # the first version's kernel (32 x 64 blocks) above. One coil; a width that no
+        # column tile divides (200); a height that no row tile divides (40);
+        # the fastMRI widths on the narrower tiles: 368 (16-byte copies) and
+        # 396 (bf16: W % 8 != 0, 4-byte copies of s_c and eta, plain operator
+        # loads; f32: 2 stages); f32 also at 640 (the wide route; the bf16
+        # kernel refuses it); bench.py's 1D mask. The f32 launch setup is
+        # printed for each
         for label, (b, c, h, w) in {"one_coil": (2, 1, 64, 64), "w200": (2, COILS, 64, 200),
                                     "h40": (2, COILS, 40, 64), "w368": (1, 4, 48, 368),
-                                    "w396": (1, 4, 48, 396)}.items():
+                                    "w396": (1, 4, 48, 396), "w640": (1, 2, 40, 640)}.items():
             y_e, sens_e, mask_e = (t(a) for a in bench_data(b, c, h, w, seed=6))
-            args = [a.to(torch.bfloat16) for a in (rand(b, h, w, 2), sens_e,
-                                                   psf1d_gauss_mats(mask_e[:, 0, 0, :], True, "ortho"),
-                                                   k2.sens_reduce_plain(y_e, sens_e, mask_e, True, "ortho"))]
-            sym = K1[torch.bfloat16]
-            errors[sym].append(check(f"{sym}[{label}]", kernels.psf1d_dc(*args, 0.7),
-                                     rounded_once(kernels.psf1d_dc_plain, *args, 0.7), *K1_BF16))
-            check_k1_bwd_bf16(label, b, c, h, w)
+            operands = (rand(b, h, w, 2), sens_e, psf1d_gauss_mats(mask_e[:, 0, 0, :], True, "ortho"),
+                        k2.sens_reduce_plain(y_e, sens_e, mask_e, True, "ortho"))
+            for dt, tol in ((torch.float32, F32), (torch.bfloat16, K1_BF16)):
+                if dt == torch.bfloat16 and w > 480:
+                    continue
+                args = [a.to(dt) for a in operands]
+                sym = K1[dt]
+                errors[sym].append(check(f"{sym}[{label}]", kernels.psf1d_dc(*args, 0.7),
+                                         rounded_once(kernels.psf1d_dc_plain, *args, 0.7), *tol))
+                check_k1_bwd(label, b, c, h, w, dt)
+            emit({"k1_f32_launch": label, "shape": [b, c, h, w], **k1mod.f32_setup(b, h, w, dev), "card": card})
 
         # K3-f32 at the other widths projects/ uses (64 -> 128, 128 -> 128: the
         # latter takes a narrower pixel tile to fit shared memory), at
@@ -699,6 +722,9 @@ def main() -> int:
         setup = k1mod.bf16_setup(b, H, W, dev)
         emit({"k1_bf16_launch": "forward", "batch": b, **setup, **k1_l2_bytes(setup, b, c, H, W, False),
               "card": card})
+        setup = k1mod.f32_setup(b, H, W, dev)
+        emit({"k1_f32_launch": "forward", "batch": b, **setup,
+              **k1_l2_bytes(setup, b, c, H, W, False, "float32"), "card": card})
 
         x_c = k2.expand(eta, sens, True)
         k_c = torch.fft.fft2(x_c, norm="ortho")
@@ -914,10 +940,10 @@ def main() -> int:
                       "ms": time_ms(lambda: kernels.psf1d_dc(*fargs)),
                       "plain_ms": time_ms(lambda: kernels.psf1d_dc_plain(*fargs)), "bound_ms": fwd_bound,
                       "bound_by": fwd_by, "note": "forward at the training step's operands", "card": card})
-                for bwd in (False, True):
-                    setup = k1mod.bf16_setup(b, H, W, dev, bwd)
-                    emit({"k1_bf16_launch": "backward" if bwd else "forward", "batch": b, **setup,
-                          **k1_l2_bytes(setup, b, c, H, W, bwd), "card": card})
+            for bwd in (False, True):
+                setup = (k1mod.bf16_setup if dt == torch.bfloat16 else k1mod.f32_setup)(b, H, W, dev, bwd)
+                emit({f"k1_{'bf16' if dt == torch.bfloat16 else 'f32'}_launch": "backward" if bwd else "forward",
+                      "batch": b, **setup, **k1_l2_bytes(setup, b, c, H, W, bwd, dname), "card": card})
             row(K1_BWD[dt], "mridc_tpu_torch/csrc/psf1d_dc.cu", "mridc_tpu/nn/dc.py:162 (log_likelihood_gradient_psf1d, "
                 "backward)", k1mod.psf1d_dc_bwd, k1mod.psf1d_dc_bwd_plain, args, nbytes, flops, tol,
                 train_counts, "step")

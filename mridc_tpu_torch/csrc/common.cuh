@@ -52,11 +52,17 @@ inline cudaError_t wave(const void* kernel, int threads, size_t smem, int device
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
 
-// 16 (or 4) bytes from device to shared memory, asynchronously; zeros when
+// 16 (8, 4) bytes from device to shared memory, asynchronously; zeros when
 // ``valid`` is false (nothing is read then)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 8 : 0)
                : "memory");
 }
 
@@ -120,6 +126,17 @@ __device__ __forceinline__ Split split(float x) {
 }
 
 __device__ __forceinline__ Split neg(Split s) { return {s.hi ^ 0x80000000u, s.lo ^ 0x80000000u}; }
+
+// A cheaper split for kernels bound by their splits: hi is x with its 13 low
+// bits cleared (TF32 by truncation) and lo = x - hi, exact, passed with its
+// low bits set: the tensor core reads the top 19 bits of a .tf32 operand, so
+// lo is truncated too. Two operations, where cvt.rna.tf32.f32 compiles to a
+// sequence of several on Hopper. |lo| < 2^-10 |x|, so the truncations and the
+// dropped lo*lo keep a product's error below ~3 * 2^-20 of its magnitude.
+__device__ __forceinline__ Split split_trunc(float x) {
+  const uint32_t hi = __float_as_uint(x) & 0xffffe000u;
+  return {hi, __float_as_uint(x - __uint_as_float(hi))};
+}
 
 // d += a*b, one m16n8k8 TF32 product with float32 accumulate
 __device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,

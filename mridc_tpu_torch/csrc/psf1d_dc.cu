@@ -19,18 +19,47 @@
 // s_c, which every tile of output columns reads again, and the shared-memory
 // traffic of the mma.sync fragments.
 //
-// float32 (tf32 below): one block per (tile of output columns
-// u, tile of rows h, example b). The block loops over coils and, inside, over
-// tiles of v. It forms s_c*eta for its rows on the fly into shared memory,
-// stages the matching tile of C from registers loaded one tile ahead (the C
-// tile again for every coil), and accumulates on the tensor cores: mma.sync
-// m16n8k8 in TF32, each operand split into a TF32 hi and lo part and each real
-// product taken as hi*lo + lo*hi + hi*hi, which keeps float32 accuracy. C
-// arrives in the Gauss form of psf1d_gauss_mats (Cr, Cr+Ci, Ci-Cr); staging
-// forms Ci = (Cr+Ci) - Cr and the product is four real products. After each
-// coil the block multiplies by conj(s_c) at its own (h, u) and adds into a
-// coil sum held in registers, so the [B, C, H, W, 2] coil tensor is never
-// written.
+// float32 (tf32 below): a persistent grid of one wave walks tiles of 32 rows
+// h by 32 columns u (16 by 32 where 320 < W <= 416), one block of 8 warps an
+// SM.
+//   - The operator stays on chip across the coils: a tile stages its 32 rows
+//     of all three planes for every v once (123 KB at W = 320, dynamic shared
+//     memory) and eta's rows once (82 KB; g's channels 2:4 in the backward),
+//     then loops over the coils streaming only s_c. L2-to-SM traffic at B=8
+//     falls from ~1.97 GB to ~1.26 GB (chip_smoke.py prints both).
+//   - The complex product is the Gauss form of apply_psf1d over the planes
+//     as delivered: A planes (xr + xi, xi, xr), B planes (Cr, Cr + Ci,
+//     Ci - Cr), three accumulator sets combined into re and im in the coil
+//     epilogue. Each real product is 3xTF32 (hi*lo + lo*hi + hi*hi on
+//     mma.sync m16n8k8): 9 MMAs a 16 x 8 x 8 piece, where the four-product
+//     form takes 12. Fragments are split into TF32 hi and lo once per load:
+//     an A split feeds 12 MMAs (3 in each of a warp's 4 n tiles), a B split 3.
+//     A split is two operations (split_trunc: hi truncated, lo = x - hi read
+//     to its top 19 bits by the tensor core); with cvt.rna, which compiles to
+//     a sequence of several, the splits and not the products bounded the kernel
+//     (1.28 against 0.79 ms at B=8 on an H100, PERF.md).
+//   - Warp w takes row group w / KP (16 rows) and K phase w % KP (KP = 4, or
+//     8 for 16-row tiles): every KP-th 8-deep chunk of v, for every coil,
+//     over all 32 columns. It streams its rows of s_c through its own
+//     3-chunk cp.async ring (2 at W > 384) and forms x = s_c * eta in
+//     registers straight into its A fragments. No __syncthreads runs inside
+//     a tile's coil loop: a __syncwarp per chunk; block barriers only where
+//     a tile starts (operator and eta staged) and ends.
+//   - The coil sum stays in float32 registers: each warp adds conj(s_c)
+//     times its phase's partial products in coil order (s_c at its pixels
+//     loaded from L2 as the coil starts); at the tile's end the K phases'
+//     sums are added in phase order through shared memory. No atomics: the
+//     same result from run to run.
+//   - Widths no 16-row tile holds (W > 416) take the wide route, the first
+//     version's kernel (tf32::wide): the launcher picks the route by shape.
+//   - What bounds it on an H100 at B=8: the MMAs with their A splits alone
+//     take ~0.47 ms and the rest of the work (copies, loads, splits, coil
+//     epilogues) ~0.51 ms; they overlap only in part, to ~0.78 ms. 800 tiles
+//     run in 7 rounds of 132 SMs for 6.06 of work.
+//   - mma.sync, not wgmma: a wgmma B operand is read from shared memory as
+//     32-bit TF32 words, so 3xTF32 would need hi and lo planes of every
+//     operator plane resident (246 KB at W = 320 for 32 rows), which does
+//     not fit beside eta; the splits stay in registers.
 //
 // bfloat16 (tc below): a persistent grid of one wave walks tiles of 64 rows h
 // by 64 columns u (64 by 32 where 320 < W <= 480), one block of 8 warps an SM.
@@ -90,15 +119,25 @@ __device__ __forceinline__ void write_bwd(const T* g_b, T* out_b, size_t p, floa
 
 __device__ __forceinline__ int clamp_n(int n, int cap) { return n < 0 ? 0 : (n > cap ? cap : n); }
 
-// ---- float32: tensor cores, three TF32 products per real product -----------
+// ---- float32: 3xTF32 tensor cores -------------------------------------------
 
 namespace tf32 {
+
+// The wide route: the first version's design, one block per 32 rows h x 64
+// columns u x example, for the widths whose operator rows no on-chip tile
+// holds (W > 416).
+// It loops over coils and, inside, over 16-deep tiles of v, staging s_c*eta
+// and the operator tile (again for every coil) through registers, with a
+// block barrier on each side of each tile's four real products (12 MMAs a
+// 16 x 8 x 8 piece).
+namespace wide {
 
 constexpr int TM = 32;        // rows h per block
 constexpr int TN = 64;        // output columns u per block
 constexpr int TK = 16;        // v per staged tile (two k8 steps)
 constexpr int LDS = TK + 4;   // smem row stride in floats: fragment loads hit 32 banks
 constexpr int THREADS = 128;  // 4 warps: 2 (h) x 2 (u), 16 x 32 outputs each
+constexpr int SMEM = (2 * TM + 2 * TN) * LDS * 4;  // static shared memory, bytes
 
 // 4 consecutive floats from global memory, the first n valid (zeros after);
 // one 16-byte load when the row layout keeps it aligned
@@ -191,7 +230,7 @@ __global__ void __launch_bounds__(THREADS) psf1d_dc_f32_kernel(
     __syncthreads();
     if (it + 1 < iters) load(st, it + 1);  // in flight during this tile's MMAs
 #pragma unroll
-    for (int kk = 0; kk < TK; kk += 8) {
+    for (int kk = 0; kk < TK; kk += 8) {  // wide
       // A fragments: rows wm+g (+8), columns kk+t4 (+4)
       const int r0 = wm + g, k0 = kk + t4;
       const Split a_r[4] = {split(xr_s[r0][k0]), split(xr_s[r0 + 8][k0]), split(xr_s[r0][k0 + 4]),
@@ -245,6 +284,307 @@ __global__ void __launch_bounds__(THREADS) psf1d_dc_f32_kernel(
     }
 }
 
+}  // namespace wide
+
+// The on-chip route (see the file's head): tiles of TM = 16 * RG rows h by
+// TN = 32 columns u, 8 warps; warp w takes row group w / KP and K phase
+// w % KP (KP = 8 / RG), the chunks of 8 v whose index in the coil is the
+// phase mod KP, over all 32 columns.
+constexpr int KW = 8;                // v per chunk: one k8 step
+constexpr int WARPS = 8, THREADS = 32 * WARPS;
+constexpr int TN = 32, NT = TN / 8;  // columns u per tile; n tiles per warp
+
+// Shared memory of a tile of TM rows and S ring stages at width
+// W, in floats: eta [TM][2 kp] (complex, every v), the operator [3][TN][kp]
+// (planes Cr, Cr+Ci, Ci-Cr as delivered; rows u, every v), then each warp's
+// ring [S][16][2 KW] of raw s_c. kp is W rounded up to 32, zeros past W.
+// Rows are not padded but swizzled (eta_sw, op_sw). At the tile's end the
+// operator and the rings hold the K phases' coil sums (``scratch``).
+struct Layout {
+  int kp;
+  size_t op, ring, floats;
+
+  __host__ __device__ Layout(int TM, int S, int W) {
+    kp = (W + 31) / 32 * 32;
+    op = (size_t)TM * 2 * kp;
+    ring = op + (size_t)3 * TN * kp;
+    floats = ring + (size_t)WARPS * S * 16 * 2 * KW;
+    const size_t scratch = op + (size_t)(WARPS - TM / 16) * 32 * 8 * NT;
+    if (scratch > floats) floats = scratch;
+  }
+  __host__ __device__ size_t bytes() const { return floats * 4; }
+};
+
+// word of v in operator row r: the 64-bit B fragment loads of a half warp
+// (rows g = 0..3) fall 8 words apart mod 32, on 32 distinct banks
+__device__ __forceinline__ int op_sw(int r, int v) { return v ^ ((r & 3) << 3); }
+// word of complex pixel v in eta row r: the 128-bit A loads of a quarter warp
+// (rows 2q, 2q + 1) fall 16 words apart mod 32
+__device__ __forceinline__ int eta_sw(int r, int v) { return (2 * v) ^ ((r & 1) << 4); }
+
+// the complex pixels (h, u) and (h, u + 1) of one [H, W] complex plane ``p``
+// as (re, im, re, im), zeros where outside; one 16-byte load when W is even
+__device__ __forceinline__ float4 load_pair(const float* p, int h, int u, int H, int W) {
+  if (h >= H || u >= W) return make_float4(0.f, 0.f, 0.f, 0.f);
+  const float* q = p + ((size_t)h * W + u) * 2;
+  if (W % 2 == 0) return __ldg(reinterpret_cast<const float4*>(q));
+  const float2 a = __ldg(reinterpret_cast<const float2*>(q));
+  const float2 c = u + 1 < W ? __ldg(reinterpret_cast<const float2*>(q + 2)) : make_float2(0.f, 0.f);
+  return make_float4(a.x, a.y, c.x, c.y);
+}
+
+// The Gauss form (the file's head): k1 = Cr (xr + xi), k2 = (Cr + Ci) xi,
+// k3 = (Ci - Cr) xr, re = k1 - k2, im = k1 + k3. Inside each k8 step the
+// pixels v0 + 2 t4 and v0 + 2 t4 + 1 stand for k = t4 and t4 + 4 of the
+// fragment layout (a permutation of v applied to A and B alike), so that a
+// lane's B fragment is one 64-bit load and its A pixels one 128-bit load per
+// row.
+template <bool BWD, int RG, int S>
+__global__ void __launch_bounds__(THREADS, 1) psf1d_dc_f32_kernel(
+    const float* __restrict__ eta, const float* __restrict__ sens, const float* __restrict__ mats,
+    const float* __restrict__ z0, float* __restrict__ out, int B, int C, int H, int W, float inv_sigma2) {
+  constexpr int TM = 16 * RG, KP = WARPS / RG;
+  extern __shared__ __align__(16) unsigned char smem_f32[];
+  float* const smem = reinterpret_cast<float*>(smem_f32);
+  const Layout L(TM, S, W);
+  const size_t plane = (size_t)TN * L.kp;  // floats of one operator plane
+  const int kp = L.kp;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, t4 = lane & 3;
+  const int rg = warp / KP, kph = warp % KP;  // row group, K phase
+  float* const eta_s = smem;                                                    // [TM][2 kp]
+  float* const op_s = smem + L.op;                                              // [3][TN][kp]
+  float* const ring = smem + L.ring + (size_t)warp * S * 16 * 2 * KW;           // [S][16][2 KW]
+  const size_t HW = (size_t)H * W;
+  const bool vec4 = W % 4 == 0;  // 16-byte copies of operator rows stay aligned
+  const bool even = W % 2 == 0;  // 16-byte copies of complex pixel pairs stay aligned
+  const int nk = (W + KW - 1) / KW;
+  const int mk = nk > kph ? (nk - kph + KP - 1) / KP : 0;  // this warp's chunks a coil
+  const int nh = (H + TM - 1) / TM, nu = (W + TN - 1) / TN, units = B * nh * nu;
+
+  for (int unit = blockIdx.x; unit < units; unit += gridDim.x) {
+    const int u0 = (unit % nu) * TN, h0 = (unit / nu % nh) * TM, b = unit / (nu * nh);
+    const int hw = h0 + 16 * rg;  // this warp's first row
+    const float* eta_b = eta + (size_t)b * HW * (BWD ? 4 : 2);  // backward: g
+    const float* s_b = sens + (size_t)b * C * HW * 2;
+    const float* m_b = mats + (size_t)b * 3 * W * W;
+    __syncthreads();  // the previous tile is done with shared memory
+
+    // one group: the operator's rows u0.. of the three planes and eta's rows
+    // (g's channels 2:4 in the backward), for every v, zeros past W and H
+    for (int e = tid; e < 3 * TN * (kp / 4); e += THREADS) {
+      const int p = e / (TN * (kp / 4)), r = e / (kp / 4) % TN, v = 4 * (e % (kp / 4)), u = u0 + r;
+      float* dst = op_s + p * plane + (size_t)r * kp;
+      const float* src = m_b + (size_t)p * W * W + (size_t)u * W + v;
+      if (vec4) {
+        const bool ok = u < W && v < W;
+        cp_async16(dst + op_sw(r, v), ok ? src : m_b, ok);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool ok = u < W && v + j < W;
+          cp_async4(dst + op_sw(r, v + j), ok ? src + j : m_b, ok);
+        }
+      }
+    }
+    for (int e = tid; e < TM * (kp / 2); e += THREADS) {
+      const int r = e / (kp / 2), v = 2 * (e % (kp / 2)), h = h0 + r;
+      float* dst = eta_s + (size_t)r * 2 * kp;
+      const float* src = eta_b + ((size_t)h * W + v) * (BWD ? 4 : 2) + (BWD ? 2 : 0);
+      if (!BWD && even) {
+        const bool ok = h < H && v < W;
+        cp_async16(dst + eta_sw(r, v), ok ? src : eta_b, ok);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const bool ok = h < H && v + j < W;
+          cp_async8(dst + eta_sw(r, v + j), ok ? src + j * (BWD ? 4 : 2) : eta_b, ok);
+        }
+      }
+    }
+    cp_async_commit();
+
+    // this warp's next chunk of raw s_c (coil ic, chunk kph + ij * KP of the
+    // coil: 16 rows x 8 pixels) into its ring slot is, zeros past H and W;
+    // one group per call, empty past the last chunk
+    int ic = mk > 0 ? 0 : C, ij = 0, is = 0;
+    auto copy_next = [&]() {
+      if (ic < C) {  // s_c copies
+        const float* s_c = s_b + (size_t)ic * HW * 2;
+        const int v0 = (kph + ij * KP) * KW;
+        float* slot = ring + (size_t)is * 16 * 2 * KW;
+        if (even) {
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const int e = lane + 32 * k, h = hw + e / 4, v = v0 + 2 * (e % 4);  // row e / 4, pixels 2 (e % 4), +1
+            const bool ok = h < H && v < W;
+            cp_async16(slot + 4 * e, ok ? s_c + ((size_t)h * W + v) * 2 : s_c, ok);
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int e = lane + 32 * k, h = hw + e / 8, v = v0 + e % 8;  // row e / 8, pixel e % 8
+            const bool ok = h < H && v < W;
+            cp_async8(slot + 2 * e, ok ? s_c + ((size_t)h * W + v) * 2 : s_c, ok);
+          }
+        }
+        if (++ij == mk) ij = 0, ++ic;
+        is = is + 1 == S ? 0 : is + 1;
+      }
+      cp_async_commit();
+    };
+
+    // acc[p][n][j]: plane p's product, n tile n, accumulator register j at row
+    // g (+8 for j >= 2) of the warp's rows, column 8n + 2 t4 + (j & 1); gr/gi
+    // the coil sum; sv the coil's s_c at those pixels (fetched as the coil starts)
+    float acc[3][NT][4], gr[NT][4], gi[NT][4];
+    float4 sv[NT][2];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) gr[n][j] = gi[n][j] = acc[0][n][j] = acc[1][n][j] = acc[2][n][j] = 0.f;
+
+    for (int t = 0; t < S - 1; ++t) copy_next();
+    cp_async_wait<S - 2>();
+    __syncthreads();  // every thread's copies of the operator and eta (and its chunk 0) have landed
+    for (int c = 0; c < (mk > 0 ? C : 0); ++c) {
+      const float* s_c = s_b + (size_t)c * HW * 2;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) sv[n][hf] = load_pair(s_c, hw + g + 8 * hf, u0 + 8 * n + 2 * t4, H, W);
+      for (int jc = 0; jc < mk; ++jc) {
+        if (c + jc > 0) {
+          cp_async_wait<S - 2>();  // this chunk has landed (this lane's copies) ...
+          __syncwarp();            // ... every lane's, and every lane is done with the slot refilled below
+        }
+        const float* slot = ring + (size_t)((c * mk + jc) % S) * 16 * 2 * KW;
+        copy_next();
+        const int v0 = (kph + jc * KP) * KW;
+        Split a[3][4];  // A fragments of the planes (xr + xi, xi, xr)
+        {
+          float xr[4], xi[4];
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {  // rows g and g + 8: pixels v0 + 2 t4 (j = hf), v0 + 2 t4 + 1 (j = 2 + hf)
+            const int r = 16 * rg + g + 8 * hf;
+            const float4 s = *reinterpret_cast<const float4*>(slot + (g + 8 * hf) * 2 * KW + 4 * t4);
+            const float4 e = *reinterpret_cast<const float4*>(eta_s + (size_t)r * 2 * kp + eta_sw(r, v0 + 2 * t4));
+            xr[hf] = e.x * s.x - e.y * s.y;
+            xi[hf] = e.x * s.y + e.y * s.x;
+            xr[2 + hf] = e.z * s.z - e.w * s.w;
+            xi[2 + hf] = e.z * s.w + e.w * s.z;
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            a[0][j] = split_trunc(xr[j] + xi[j]);
+            a[1][j] = split_trunc(xi[j]);
+            a[2][j] = split_trunc(xr[j]);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const int r = 8 * n + g;  // operator row (u) in the tile
+          const float* b = op_s + (size_t)r * kp + op_sw(r, v0 + 2 * t4);
+#pragma unroll
+          for (int p = 0; p < 3; ++p) {
+            const float2 bv = *reinterpret_cast<const float2*>(b + p * plane);
+            mma3(acc[p][n], a[p], split_trunc(bv.x), split_trunc(bv.y));
+          }
+        }
+      }
+      // coil done: add conj(s_c) * (re, im), re = k1 - k2, im = k1 + k3
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float4 s = sv[n][j >> 1];
+          const float sr = j & 1 ? s.z : s.x, si = j & 1 ? s.w : s.y;
+          const float re = acc[0][n][j] - acc[1][n][j], im = acc[0][n][j] + acc[2][n][j];
+          gr[n][j] += sr * re + si * im;
+          gi[n][j] += sr * im - si * re;
+          acc[0][n][j] = acc[1][n][j] = acc[2][n][j] = 0.f;
+        }
+    }
+    cp_async_wait<0>();  // the empty groups past the last chunk
+
+    // the K phases' coil sums, added in phase order by phase 0's warps
+    // (element-major: a warp's 32 lanes write 32 consecutive words)
+    __syncthreads();  // every warp is done with the operator and its ring
+    float* const scratch = smem + L.op;  // [KP - 1][RG][8 NT][32]
+    if (kph > 0) {
+      float* dst = scratch + (size_t)((kph - 1) * RG + rg) * 8 * NT * 32 + lane;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          dst[(4 * n + j) * 32] = gr[n][j];
+          dst[(4 * NT + 4 * n + j) * 32] = gi[n][j];
+        }
+    }
+    __syncthreads();
+    if (kph > 0) continue;
+    for (int k = 1; k < KP; ++k) {
+      const float* src = scratch + (size_t)((k - 1) * RG + rg) * 8 * NT * 32 + lane;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          gr[n][j] += src[(4 * n + j) * 32];
+          gi[n][j] += src[(4 * NT + 4 * n + j) * 32];
+        }
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = 16 * rg + g + 8 * (j >> 1), h = h0 + r, u = u0 + 8 * n + 2 * t4 + (j & 1);
+        if (h >= H || u >= W) continue;
+        const size_t p = (size_t)h * W + u;
+        if (BWD) {  // d_eta = g[..., :2] + A(g[..., 2:]) / sigma^2
+          const float2 gv = __ldg(reinterpret_cast<const float2*>(eta_b + p * 4));
+          *reinterpret_cast<float2*>(out + ((size_t)b * HW + p) * 2) =
+              make_float2(gv.x + gr[n][j] * inv_sigma2, gv.y + gi[n][j] * inv_sigma2);
+        } else {  // [eta, (A(eta) - z0) / sigma^2]
+          const float2 ev = *reinterpret_cast<const float2*>(eta_s + (size_t)r * 2 * kp + eta_sw(r, u));
+          const float2 zv = __ldg(reinterpret_cast<const float2*>(z0 + ((size_t)b * HW + p) * 2));
+          *reinterpret_cast<float4*>(out + ((size_t)b * HW + p) * 4) =
+              make_float4(ev.x, ev.y, (gr[n][j] - zv.x) * inv_sigma2, (gi[n][j] - zv.y) * inv_sigma2);
+        }
+      }
+  }
+}
+
+using Kernel = void (*)(const float*, const float*, const float*, const float*, float*, int, int, int, int, float);
+
+constexpr int ON_CHIP = 0, WIDE = 1;  // routes
+
+// a route's kernel (null for the wide route, launched on its own grid) and
+// its shared memory at width W
+struct Setup {
+  Kernel kernel;
+  int threads, tm, tn, route;
+  size_t smem;
+
+  bool fits() const { return smem <= (size_t)MAX_DYNAMIC_SMEM; }
+  // blocks of one wave (cached; the first call sets the shared-memory limit)
+  cudaError_t cap(int device, int* blocks) const { return wave((const void*)kernel, threads, smem, device, blocks); }
+  int units(int B, int H, int W) const { return B * ((H + tm - 1) / tm) * ((W + tn - 1) / tn); }
+};
+
+template <bool BWD, int RG, int S>
+Setup make(int W) {
+  return {&psf1d_dc_f32_kernel<BWD, RG, S>, THREADS, 16 * RG, TN, ON_CHIP, Layout(16 * RG, S, W).bytes()};
+}
+
+// The route by shape alone: 32 x 32 tiles with rings of 3 chunks where their
+// shared memory fits (W <= 320), then 16 x 32 tiles with 3 (W <= 384) or 2
+// (W <= 416) stages; wider W takes the wide route.
+template <bool BWD>
+Setup pick(int W) {
+  const Setup tiles[] = {make<BWD, 2, 3>(W), make<BWD, 1, 3>(W), make<BWD, 1, 2>(W)};
+  for (const Setup& s : tiles)
+    if (s.fits()) return s;
+  return {nullptr, wide::THREADS, wide::TM, wide::TN, WIDE, (size_t)wide::SMEM};
+}
 }  // namespace tf32
 
 // ---- bfloat16: tensor cores, the operator held on chip across the coils ------
@@ -594,13 +934,30 @@ Setup pick(int W) {
 
 bool bad(int B, int C, int H, int W) { return B <= 0 || C <= 0 || H <= 0 || W <= 0 || B > 65535; }
 
+// the wide route's grid: one block a 32 x 64 tile
+dim3 wide_grid(int B, int H, int W) {
+  return dim3((W + tf32::wide::TN - 1) / tf32::wide::TN, (H + tf32::wide::TM - 1) / tf32::wide::TM, B);
+}
+
 template <bool BWD>
 int launch_f32(const void* eta, const void* sens, const void* mats, const void* z0, void* out, int B, int C, int H,
                int W, float inv_sigma2, void* stream) {
   if (bad(B, C, H, W)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((W + tf32::TN - 1) / tf32::TN, (H + tf32::TM - 1) / tf32::TM, B);
-  tf32::psf1d_dc_f32_kernel<BWD><<<grid, tf32::THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)eta, (const float*)sens, (const float*)mats, (const float*)z0, (float*)out, C, H, W, inv_sigma2);
+  const tf32::Setup s = tf32::pick<BWD>(W);
+  if (s.route == tf32::WIDE) {
+    tf32::wide::psf1d_dc_f32_kernel<BWD><<<wide_grid(B, H, W), s.threads, 0, (cudaStream_t)stream>>>(
+        (const float*)eta, (const float*)sens, (const float*)mats, (const float*)z0, (float*)out, C, H, W,
+        inv_sigma2);
+    return (int)cudaGetLastError();
+  }
+  int device = 0, cap = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = s.cap(device, &cap);
+  if (err != cudaSuccess) return (int)err;
+  const int units = s.units(B, H, W);
+  s.kernel<<<units < cap ? units : cap, s.threads, s.smem, (cudaStream_t)stream>>>(
+      (const float*)eta, (const float*)sens, (const float*)mats, (const float*)z0, (float*)out, B, C, H, W,
+      inv_sigma2);
   return (int)cudaGetLastError();
 }
 
@@ -664,5 +1021,39 @@ extern "C" int k1_psf1d_dc_bf16_setup(int bwd, int B, int H, int W, int device, 
   info[3] = s.threads;
   info[4] = s.tm;
   info[5] = s.tn;
+  return (int)cudaSuccess;
+}
+
+// Writes info[0..6] for k1_psf1d_dc_f32 (bwd 0) or k1_psf1d_dc_bwd_f32 (bwd 1)
+// at [B, H, W] on ``device``: blocks of the grid, shared memory a block in
+// bytes, blocks an SM, threads a block, tile rows h, tile columns u, and the
+// route (0: on chip, a persistent grid of one wave, at most one block a tile;
+// 1: wide, the first version's kernel, one block a tile). Every W has a route.
+extern "C" int k1_psf1d_dc_f32_setup(int bwd, int B, int H, int W, int device, int* info) {
+  const tf32::Setup s = bwd ? tf32::pick<true>(W) : tf32::pick<false>(W);
+  for (int i = 0; i < 7; ++i) info[i] = 0;
+  if (bad(B, 1, H, W)) return (int)cudaSuccess;
+  int cap = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  if (s.route == tf32::WIDE) {
+    const dim3 grid = wide_grid(B, H, W);
+    const void* kernel =
+        bwd ? (const void*)tf32::wide::psf1d_dc_f32_kernel<true> : (const void*)tf32::wide::psf1d_dc_f32_kernel<false>;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, s.threads, 0);
+    info[0] = (int)(grid.x * grid.y * grid.z);
+  } else {
+    err = s.cap(device, &cap);
+    const int units = s.units(B, H, W);
+    info[0] = units < cap ? units : cap;
+    per_sm = cap / (sms > 0 ? sms : 1);
+  }
+  if (err != cudaSuccess) return (int)err;
+  info[1] = (int)s.smem;
+  info[2] = per_sm;
+  info[3] = s.threads;
+  info[4] = s.tm;
+  info[5] = s.tn;
+  info[6] = s.route;
   return (int)cudaSuccess;
 }

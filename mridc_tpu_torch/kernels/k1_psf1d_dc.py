@@ -20,8 +20,8 @@ from mridc_tpu_torch.kernels.binding import launch, query
 from mridc_tpu_torch.kernels.common import check_operand, dense, device_of, refuse_grads
 from mridc_tpu_torch.nn.dc import log_likelihood_gradient_psf1d
 
-__all__ = ["psf1d_dc", "psf1d_dc_plain", "psf1d_dc_bwd", "psf1d_dc_bwd_plain", "bf16_setup", "SYMBOLS",
-           "BWD_SYMBOLS"]
+__all__ = ["psf1d_dc", "psf1d_dc_plain", "psf1d_dc_bwd", "psf1d_dc_bwd_plain", "bf16_setup", "f32_setup",
+           "SYMBOLS", "BWD_SYMBOLS"]
 
 SYMBOLS = {torch.float32: "k1_psf1d_dc_f32", torch.bfloat16: "k1_psf1d_dc_bf16"}
 BWD_SYMBOLS = {torch.float32: "k1_psf1d_dc_bwd_f32", torch.bfloat16: "k1_psf1d_dc_bwd_bf16"}
@@ -40,25 +40,39 @@ def psf1d_dc_bwd_plain(g, sens, mats, sigma: float = 1.0) -> torch.Tensor:
 
 
 SETUP_KEYS = ("blocks", "smem_bytes", "blocks_per_sm", "threads", "tile_h", "tile_u")
-_SETUPS: Dict[Tuple[int, int, int, int, int, bool], Dict[str, int]] = {}
+ROUTES = ("on_chip", "wide")
+_SETUPS: Dict[Tuple[str, int, int, int, int, bool], Dict[str, object]] = {}
+
+
+def _setup(symbol: str, b: int, h: int, w: int, device: torch.device, bwd: bool, n: int) -> list:
+    index = torch.cuda.current_device() if device.index is None else device.index
+    key = (symbol, b, h, w, index, bwd)
+    if key not in _SETUPS:
+        info = (ctypes.c_int * n)()
+        query("psf1d_dc", symbol, device, int(bwd), b, h, w, index, info)
+        _SETUPS[key] = list(info)
+    return _SETUPS[key]
 
 
 def bf16_setup(b: int, h: int, w: int, device: torch.device, bwd: bool = False) -> Dict[str, int]:
     """The bf16 kernel's launch at [B, H, W] on ``device`` (cached): grid
     blocks (0: W not taken), shared memory a block, blocks per SM, threads a
     block, and the tile's rows h and columns u."""
-    index = torch.cuda.current_device() if device.index is None else device.index
-    key = (b, h, w, index, bwd)
-    if key not in _SETUPS:
-        info = (ctypes.c_int * len(SETUP_KEYS))()
-        query("psf1d_dc", "k1_psf1d_dc_bf16_setup", device, int(bwd), b, h, w, index, info)
-        _SETUPS[key] = dict(zip(SETUP_KEYS, info))
-    return _SETUPS[key]
+    return dict(zip(SETUP_KEYS, _setup("k1_psf1d_dc_bf16_setup", b, h, w, device, bwd, len(SETUP_KEYS))))
+
+
+def f32_setup(b: int, h: int, w: int, device: torch.device, bwd: bool = False) -> Dict[str, object]:
+    """The float32 kernel's launch at [B, H, W] on ``device`` (cached), as
+    :func:`bf16_setup`, and its route: ``on_chip`` (the operator's tile rows
+    held in shared memory, W <= 416) or ``wide`` (the first version's kernel, any W)."""
+    info = _setup("k1_psf1d_dc_f32_setup", b, h, w, device, bwd, len(SETUP_KEYS) + 1)
+    return {**dict(zip(SETUP_KEYS, info)), "route": ROUTES[info[-1]]}
 
 
 def _check_width(name, dtype, w, dev, bwd):
     """The bf16 kernel holds a tile's rows of the [W, W] operator in shared
-    memory, which bounds W (480)."""
+    memory, which bounds W (480); the float32 kernel takes any W (wider ones
+    on its wide route)."""
     setup = bf16_setup(1, 1, w, dev, bwd) if dtype == torch.bfloat16 else None
     if setup is not None and setup["blocks"] == 0:
         raise ValueError(f"{name}: the bf16 kernel does not take W = {w}: its narrowest tile needs "

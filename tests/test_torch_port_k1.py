@@ -1,5 +1,5 @@
-"""K1-bf16 (the psf1d DC of the flagship bf16 step) on the CPU: the kernel's
-arithmetic, emulated in torch, against its limits.
+"""K1-bf16 and K1-f32 (the psf1d DC of the flagship bf16 and float32 steps)
+on the CPU: each kernel's arithmetic, emulated in torch, against its limits.
 
 The kernel runs only on the card (``chip_smoke.py`` holds it against its plain
 version there, forward and backward). What can be checked here is where it
@@ -17,6 +17,16 @@ version in float32 on the same bf16 operands, rounded once at the end) and
 against ``mridc_tpu.nn.dc.log_likelihood_gradient_psf1d`` in float32, at the
 limit chip_smoke.py holds the kernel to (K1_BF16: rtol 1e-2, atol 1e-2 x the
 largest magnitude). Run with ``-s`` to see the headroom under each limit.
+
+K1-f32 takes the Gauss three-product form on 3xTF32: each operand split into
+hi = tf32(x) and lo = tf32(x - hi), where tf32 keeps 10 mantissa bits by
+truncation (the kernel clears hi's 13 low bits, and the tensor core reads only
+the top 19 bits of lo), each product taken as hi*lo + lo*hi + hi*hi summed in
+float32 over 8-deep steps of v; the warps of a row group take the steps in K
+phases (step index mod KP), each phase adds conj(s_c) times its coil's
+partial products in coil order, and the phases' sums are added in phase
+order. Held against the plain version and the JAX package in float32 at
+chip_smoke.py's F32 limit (rtol 1e-4, atol 1e-4 x the largest magnitude).
 """
 
 import importlib
@@ -37,11 +47,11 @@ KSTEP = 16  # the MMA's depth
 BF = torch.bfloat16
 
 
-def _operands(b, c, h, w, seed):
+def _operands(b, c, h, w, seed, rounded=True):
     """eta, sens (unit RSS), mats (Gauss form, centered ortho), z0 and an
     upstream g [B, H, W, 4], all rounded to bf16 (float32 tensors holding bf16
-    values); a 1D mask of every 4th column plus the centre at the flagship
-    width, random columns otherwise."""
+    values) unless ``rounded`` is False; a 1D mask of every 4th column plus the
+    centre at the flagship width, random columns otherwise."""
     rng = np.random.default_rng(seed)
     sens = rng.standard_normal((b, c, h, w, 2)).astype(np.float32)
     sens /= np.sqrt((sens**2).sum(axis=(1, 4), keepdims=True))
@@ -54,7 +64,7 @@ def _operands(b, c, h, w, seed):
     else:
         mask = (rng.random((b, w)) < 0.4).astype(np.float32)
     mats = psf1d_gauss_mats(torch.from_numpy(mask), True, "ortho")
-    return [torch.as_tensor(a).to(BF).float() for a in (eta, sens, mats, z0, g)]
+    return [torch.as_tensor(a).to(BF).float() if rounded else torch.as_tensor(a) for a in (eta, sens, mats, z0, g)]
 
 
 def _bf(x):
@@ -151,3 +161,124 @@ def test_k1_bf16_check_catches_a_plane_mix_up():
     want = _bf(k1.psf1d_dc_plain(eta, sens, mats, z0, SIGMA)).double()
     assert _headroom(emulate_forward(eta, sens, mats, z0).double(), want)[0] < 1.0
     assert _headroom(emulate_forward(eta, sens, swapped, z0).double(), want)[0] > 1.0
+
+
+# ---- K1-f32 -----------------------------------------------------------------
+
+K1_F32 = (1e-4, 1e-4)  # chip_smoke.py's F32: rtol, atol as a share of the largest magnitude
+KW = 8  # the m16n8k8 MMA's depth
+
+
+def _tf32(x):
+    """TF32 by truncation: the 13 low bits of the float32 pattern cleared."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _k_phases(w):
+    """The kernel's K phases at width W: 32 x 32 tiles (4 phases of its 8
+    warps) up to W = 320, 16 x 32 tiles (8 phases) above."""
+    return 4 if (w + 31) // 32 * 32 <= 320 else 8
+
+
+def emulate_f32(eta, sens, mats, swap_b=False, swap_a=False):
+    """A(eta) [B, H, W, 2] as K1-f32 sums it: Gauss planes A (xr + xi, xi, xr)
+    and B (Cr, Cr + Ci, Ci - Cr), 3xTF32 products in 8-deep steps, each K
+    phase's coil sum in coil order, the phases added in order. Mutations the
+    limit must catch, each an indexing slip the kernel could make: ``swap_b``
+    reads the B planes as (Cr + Ci, Cr, Ci - Cr), ``swap_a`` the A planes as
+    (xr + xi, xr, xi)."""
+    b, c, h, w, _ = sens.shape
+    nk, kp = -(-w // KW), _k_phases(w)
+    pad = nk * KW - w
+    sr, si = sens[..., 0], sens[..., 1]
+    er, ei = eta[:, None, ..., 0], eta[:, None, ..., 1]
+    xr, xi = er * sr - ei * si, er * si + ei * sr  # [B, C, H, W], float32
+    a_planes = [torch.nn.functional.pad(x, (0, pad)) for x in ((xr + xi, xr, xi) if swap_a else (xr + xi, xi, xr))]
+    b_planes = [torch.nn.functional.pad(mats[:, p], (0, pad)) for p in ((1, 0, 2) if swap_b else (0, 1, 2))]
+    a_split = [_split(x) for x in a_planes]
+    b_split = [_split(x) for x in b_planes]
+    total_r = torch.zeros(b, h, w)
+    total_i = torch.zeros(b, h, w)
+    for phase in range(kp):
+        acc = [torch.zeros(b, c, h, w) for _ in range(3)]
+        for j in range(phase, nk, kp):
+            sl = slice(j * KW, (j + 1) * KW)
+            for p in range(3):
+                (ahi, alo), (bhi, blo) = a_split[p], b_split[p]
+                for ta, tb in ((ahi, blo), (alo, bhi), (ahi, bhi)):
+                    acc[p] = acc[p] + torch.einsum("bchk,buk->bchu", ta[..., sl], tb[..., sl])
+        re, im = acc[0] - acc[1], acc[0] + acc[2]
+        gr = torch.zeros(b, h, w)
+        gi = torch.zeros(b, h, w)
+        for k in range(c):  # coil order
+            gr = gr + (sr[:, k] * re[:, k] + si[:, k] * im[:, k])
+            gi = gi + (sr[:, k] * im[:, k] - si[:, k] * re[:, k])
+        total_r, total_i = total_r + gr, total_i + gi
+    return torch.stack([total_r, total_i], dim=-1)
+
+
+def _inv_sigma2():
+    return torch.tensor(1.0 / SIGMA**2, dtype=torch.float32)  # the kernel's float argument
+
+
+def emulate_f32_forward(eta, sens, mats, z0, **mutation):
+    return torch.cat([eta, (emulate_f32(eta, sens, mats, **mutation) - z0) * _inv_sigma2()], dim=-1)
+
+
+def emulate_f32_backward(g, sens, mats, **mutation):
+    return g[..., :2] + emulate_f32(g[..., 2:].contiguous(), sens, mats, **mutation) * _inv_sigma2()
+
+
+def _f32_headroom(got, want):
+    rtol, atol_rel = K1_F32
+    atol = atol_rel * float(want.abs().max())
+    return float(((got - want).abs() - rtol * want.abs()).max()) / atol, float((got - want).abs().max()), atol
+
+
+def _f32_check(name, got, want):
+    share, err, atol = _f32_headroom(got.double(), want.double())
+    print(f"{name}: max abs err {err:.4g}, atol {atol:.4g}; worst excess over rtol uses {share:.3f} of atol")
+    assert share < 1.0, name
+
+
+F32_SHAPES = {**SHAPES, "w368": (1, 2, 8, 368)}  # 368: 16-row tiles, 8 K phases
+
+
+@pytest.mark.parametrize("shape", F32_SHAPES)
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_k1_f32_arithmetic_meets_its_limits(shape, direction):
+    """The emulated K1-f32, forward or backward, against the plain version and
+    against the JAX package in float32, at K1_F32."""
+    eta, sens, mats, z0, g = _operands(*F32_SHAPES[shape], seed=sum(F32_SHAPES[shape]), rounded=False)
+    tag = f"f32 {direction} [{shape}]"
+    if direction == "forward":
+        got = emulate_f32_forward(eta, sens, mats, z0)
+        plain = k1.psf1d_dc_plain(eta, sens, mats, z0, SIGMA)
+        ref = torch.from_numpy(np.array(jdc.log_likelihood_gradient_psf1d(
+            *(jnp.asarray(t.numpy()) for t in (eta, sens, mats, z0)), sigma=SIGMA)))
+    else:
+        got = emulate_f32_backward(g, sens, mats)
+        plain = k1.psf1d_dc_bwd_plain(g, sens, mats, SIGMA)
+        v = g[..., 2:].numpy()
+        jax_a = jdc.log_likelihood_gradient_psf1d(jnp.asarray(v), *(jnp.asarray(t.numpy()) for t in (sens, mats)),
+                                                  jnp.zeros_like(v), sigma=SIGMA)[..., 2:]
+        ref = g[..., :2] + torch.from_numpy(np.array(jax_a))
+    _f32_check(f"{tag} vs plain", got, plain)
+    _f32_check(f"{tag} vs mridc_tpu float32", got, ref)
+
+
+@pytest.mark.parametrize("mutation", ["swap_b", "swap_a"])
+def test_k1_f32_check_catches_a_mutation(mutation):
+    """The limit is not vacuous: the emulation with two B planes or two A
+    planes swapped lies outside it where the emulation as the kernel computes
+    lies inside. (At the "odd" shape's random mask; bench.py's mask is nearly
+    symmetric, so Ci ~ 0 there and Cr + Ci ~ Cr.)"""
+    eta, sens, mats, z0, _ = _operands(*SHAPES["odd"], seed=7, rounded=False)
+    want = k1.psf1d_dc_plain(eta, sens, mats, z0, SIGMA).double()
+    assert _f32_headroom(emulate_f32_forward(eta, sens, mats, z0).double(), want)[0] < 1.0
+    assert _f32_headroom(emulate_f32_forward(eta, sens, mats, z0, **{mutation: True}).double(), want)[0] > 1.0
