@@ -17,7 +17,9 @@ Phases (any failure raises; no phase catches its own):
      also at 64 -> 128 and 128 -> 128 channels, at in-channels
      that are not a multiple of 8, and over a pixel count that no tile
      divides; K3-bwd (both dtypes) at 64 -> 64, 64 -> 128, 128 -> 128 and
-     16 -> 8 channels over that count;
+     16 -> 8 channels over that count, float32 also at 128 -> 64, 136 -> 64,
+     36 -> 64 and 34 -> 64 (both sides of its route boundary), each with its
+     launch setup;
   4. a small CIRIM (15 coils, 64x64, 2 cascades x 3 steps, 64 filters) on the
      card against the same weights on the CPU, in both dc_modes;
   5. the main path: flagship CIRIM inference (bench.py's flagship_cfg: 5 x 8,
@@ -46,7 +48,9 @@ Phases (any failure raises; no phase catches its own):
      its calls in a training step, then its time beside its bound and its
      plain version's time; K1-bf16's forward is also checked and timed at the
      B=24 operands (a line of its own, not a kernels row); K1's launches at
-     the training operands.
+     the training operands; K3-bwd's launch setup in each dtype (route, tile,
+     stages, blocks, blocks per SM, shared memory) beside its library's
+     registers and spills.
 
 Output: JSON lines per check, run and kernel; then the ``{"kernels": [...]}``
 line, the card's name and power limit, and last
@@ -571,15 +575,24 @@ def main() -> int:
 
         # K3-bwd, both dtypes, at the widths projects/ uses (64 -> 64, 64 ->
         # 128, 128 -> 128) and at the narrowest the bf16 kernel takes (16 -> 8:
-        # out-channels padded to the MMA's 16), over 2 x 33 x 35 pixels, a count
-        # that no pixel tile divides; h' with about half its entries at 0
-        for ci, fo in ((64, 64), (64, 128), (128, 128), (16, 8)):
+        # out-channels padded to the MMA's 16), and float32 on both sides of
+        # its route boundary (the 3xTF32 kernel takes in- and out-channels % 4
+        # == 0 up to 64 x 128 and 128 x 64: 36 -> 64 and 128 -> 64 run on it,
+        # 34 -> 64, 136 -> 64 and 128 -> 128 on the wide route), over 2 x 33 x
+        # 35 pixels, a count that no pixel tile divides; h' with about half its
+        # entries at 0. The launch setup of each is printed
+        both, f32_only = (torch.float32, torch.bfloat16), (torch.float32,)
+        for (ci, fo), dts in (((64, 64), both), ((64, 128), both), ((128, 128), both), ((16, 8), both),
+                              ((128, 64), f32_only), ((136, 64), f32_only), ((36, 64), f32_only),
+                              ((34, 64), f32_only)):
             shape = (2, fo, 33, 35)
             x, hprev = cl(rand(2, ci, 33, 35)), cl(rand(*shape, positive=True))
             out, g = cl(torch.relu(rand(*shape))), cl(rand(*shape))
             wt, hh = rand(fo, ci, 1, 1) / np.sqrt(ci), rand(1, fo, 1, 1, positive=True)
-            for dt in (torch.float32, torch.bfloat16):
+            for dt in dts:
                 check_k3_bwd(f"{ci}->{fo}/2x33x35", tuple(a.to(dt) for a in (g, x, hprev, out, wt, hh)))
+                emit({"k3_bwd_launch": f"{ci}->{fo}/2x33x35", "dtype": str(dt),
+                      **k3mod.bwd_setup(dt, 2 * 33 * 35, ci, fo, dev), "card": card})
         torch.cuda.synchronize()
 
     # 4. small model: kernels on the card against the plain path on the CPU
@@ -968,6 +981,8 @@ def main() -> int:
             args = (g, x, hprev, out, wt, hh)
             check_k3_bwd(f"main_b{x.shape[0]}", args)
             p, fi, fo = x.shape[0] * x.shape[2] * x.shape[3], x.shape[1], hprev.shape[1]
+            emit({"k3_bwd_launch": f"main_b{x.shape[0]}", "dtype": str(dt), **k3mod.bwd_setup(dt, p, fi, fo, dev),
+                  "ptxas": ptxas.get("indrnn_bwd", {}), "card": card})
             # bytes: x, h, h' and g in, dx and dh out, W in (the activations'
             # dtype), u in and the sums out (float32); flops: the two [P, F] x
             # [F, CI] products, and per output channel and pixel the relu

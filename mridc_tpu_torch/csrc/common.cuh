@@ -1,6 +1,7 @@
 // Shared helpers of the port's kernels: storage-type loads and stores (every
-// kernel computes in float32 whatever it stores), cp.async copies into shared
-// memory, ldmatrix and the bf16 mma.sync product, products at float32
+// kernel computes in float32 whatever it stores), a division-free walk over a
+// tile, cp.async copies into shared memory and a read-only 16-byte load into
+// registers, ldmatrix and the bf16 mma.sync product, products at float32
 // accuracy on the TF32 tensor cores (3xTF32), the cached one-wave launch setup
 // of the persistent kernels, and the error string that the Python wrappers
 // print when a launch returns a nonzero cudaError_t.
@@ -48,6 +49,22 @@ inline cudaError_t wave(const void* kernel, int threads, size_t smem, int device
   return cudaSuccess;
 }
 
+// (row, column) of the element e = start, start + step, ... of a row-major
+// [rows, n] walk (a block's threads over a tile's 16-byte vectors), without
+// a division per step
+struct Walk {
+  int r, q, dr, dq, n;
+  __device__ Walk(int start, int step, int n_) : r(start / n_), q(start % n_), dr(step / n_), dq(step % n_), n(n_) {}
+  __device__ void next() {
+    r += dr;
+    q += dq;
+    if (q >= n) {
+      q -= n;
+      ++r;
+    }
+  }
+};
+
 // ---- asynchronous copies into shared memory --------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
@@ -70,6 +87,16 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "r"(valid ? 4 : 0)
                : "memory");
+}
+
+// 16 bytes from device memory through the read-only path, issued where it
+// stands in the program: volatile, so the compiler neither drops nor moves it
+// past the other volatile statements (the MMAs), and a prefetch into
+// registers stays a prefetch
+__device__ __forceinline__ float4 ldg_nc4(const float* p) {
+  float4 v;
+  asm volatile("ld.global.nc.v4.f32 {%0,%1,%2,%3}, [%4];\n" : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p));
+  return v;
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }

@@ -88,21 +88,6 @@ struct Layout {
   }
 };
 
-// (row, column) of the element e = start, start + step, ... of a row-major
-// [rows, n] walk, without a division per step
-struct Walk {
-  int r, q, dr, dq, n;
-  __device__ Walk(int start, int step, int n_) : r(start / n_), q(start % n_), dr(step / n_), dq(step % n_), n(n_) {}
-  __device__ void next() {
-    r += dr;
-    q += dq;
-    if (q >= n) {
-      q -= n;
-      ++r;
-    }
-  }
-};
-
 // X16: CI % 4 == 0, so x rows copy as 16-byte vectors
 template <int TP, bool X16>
 __global__ void __launch_bounds__(THREADS) indrnn_f32_kernel(const float* __restrict__ x, const float* __restrict__ h,

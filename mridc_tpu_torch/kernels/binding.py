@@ -66,7 +66,7 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
     },
     "indrnn_bwd": {
         # x, h, h', g, w, u, dx (or null), dh (or null), partials, sums, P, CI, F, blocks (from
-        # k3_indrnn_bwd_blocks), device index
+        # k3_indrnn_bwd_setup), device index
         "k3_indrnn_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I),
         "k3_indrnn_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I),
     },
@@ -83,8 +83,10 @@ QUERIES: Dict[str, Dict[str, tuple]] = {
         "k1_psf1d_dc_f32_setup": (_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)),
     },
     "indrnn_bwd": {
-        # bf16 (0 or 1), P, CI, F, device index, out: blocks of the grid (0: widths not taken)
-        "k3_indrnn_bwd_blocks": (_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)),
+        # bf16 (0 or 1), P, CI, F, device index, out: int[7] (blocks of the grid, shared memory bytes,
+        # blocks per SM, threads, tile pixels, stages, route: 0 tensor cores, 1 the float32 wide route;
+        # all 0: widths not taken)
+        "k3_indrnn_bwd_setup": (_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)),
     },
 }
 

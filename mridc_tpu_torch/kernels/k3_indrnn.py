@@ -18,10 +18,12 @@ import torch.nn.functional as F
 from mridc_tpu_torch.kernels.binding import launch, query
 from mridc_tpu_torch.kernels.common import check_operand, dense, device_of
 
-__all__ = ["indrnn", "indrnn_plain", "indrnn_bwd", "indrnn_bwd_plain", "SYMBOLS", "BWD_SYMBOLS"]
+__all__ = ["indrnn", "indrnn_plain", "indrnn_bwd", "indrnn_bwd_plain", "bwd_setup", "SYMBOLS", "BWD_SYMBOLS"]
 
 SYMBOLS = {torch.float32: "k3_indrnn_f32", torch.bfloat16: "k3_indrnn_bf16"}
 BWD_SYMBOLS = {torch.float32: "k3_indrnn_bwd_f32", torch.bfloat16: "k3_indrnn_bwd_bf16"}
+BWD_SETUP_KEYS = ("blocks", "smem_bytes", "blocks_per_sm", "threads", "tile_pixels", "stages", "route")
+BWD_ROUTES = ("tensor cores", "wide")
 
 
 def indrnn_plain(x, h, weight, bias: Optional[torch.Tensor], hh) -> torch.Tensor:
@@ -81,6 +83,21 @@ def _forward_kernel(x, h, weight, bias, hh) -> torch.Tensor:
     return out
 
 
+def bwd_setup(dtype: torch.dtype, p: int, ci: int, f: int, device: torch.device) -> dict:
+    """The backward kernel's launch setup for ``p`` pixels and ``ci -> f``
+    channels in ``dtype`` on ``device``: blocks of its one-wave grid, shared
+    memory bytes a block, blocks per SM, threads, pixels a tile, stages and
+    route (bf16: tensor cores; float32: tensor cores where the 3xTF32 kernel
+    takes the widths, else the wide route). ``blocks`` is 0 where no kernel
+    takes the widths."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    info = (ctypes.c_int * len(BWD_SETUP_KEYS))()
+    query("indrnn_bwd", "k3_indrnn_bwd_setup", device, int(dtype == torch.bfloat16), p, ci, f, index, info)
+    out = dict(zip(BWD_SETUP_KEYS, list(info)))
+    out["route"] = BWD_ROUTES[out["route"]]
+    return out
+
+
 def indrnn_bwd(g, x, h, out, weight, hh, need_dx: bool = True, need_dh: bool = True):
     """The backward kernel's wrapper: ``(dx, dh, dW [F, CI], db [F], du [F])``,
     dx/dh in the activations' dtype (None where not needed), the sums in
@@ -96,13 +113,12 @@ def indrnn_bwd(g, x, h, out, weight, hh, need_dx: bool = True, need_dh: bool = T
         raise TypeError(f"indrnn_bwd: expected dtype in {[str(d) for d in BWD_SYMBOLS]}, got {x.dtype}")
     p = b * hgt * wid
     # the persistent grid (one wave), for the rows of partials
-    blocks = ctypes.c_int(0)
-    query("indrnn_bwd", "k3_indrnn_bwd_blocks", dev, int(x.dtype == torch.bfloat16), p, ci, f, dev.index,
-          ctypes.byref(blocks))
-    if blocks.value == 0:
+    blocks = bwd_setup(x.dtype, p, ci, f, dev)["blocks"]
+    if blocks == 0:
         raise ValueError(f"indrnn_bwd: the {x.dtype} kernel does not take {ci} -> {f} channels: it holds dW in "
-                         "registers (bf16: in-channels <= 256 at out-channels <= 64, <= 128 above; float32: "
-                         "out-channels x in-channels rounded up to 4 <= 32768)")
+                         "registers (bf16: in-channels <= 256 at out-channels <= 64, <= 128 above; float32: the "
+                         "wide route takes out-channels x in-channels rounded up to 4 <= 32768, and its tile "
+                         "within shared memory)")
     dts = (x.dtype,)
     g = dense("indrnn_bwd", g.to(x.dtype), channels_last=True)
     for name, t, c in (("x", x, ci), ("h", h, f), ("out", out, f), ("g", g, f)):
@@ -115,13 +131,13 @@ def indrnn_bwd(g, x, h, out, weight, hh, need_dx: bool = True, need_dh: bool = T
     dx = torch.empty_like(x, memory_format=torch.channels_last) if need_dx else None
     dh = torch.empty_like(h, memory_format=torch.channels_last) if need_dh else None
     n = f * ci + 2 * f
-    part = torch.empty((blocks.value, n), dtype=torch.float32, device=dev)
+    part = torch.empty((blocks, n), dtype=torch.float32, device=dev)
     sums = torch.empty((n,), dtype=torch.float32, device=dev)
     launch(
         "indrnn_bwd", BWD_SYMBOLS[x.dtype], dev,
         x.data_ptr(), h.data_ptr(), out.data_ptr(), g.data_ptr(), w.data_ptr(), u.data_ptr(),
         None if dx is None else dx.data_ptr(), None if dh is None else dh.data_ptr(), part.data_ptr(),
-        sums.data_ptr(), p, ci, f, blocks.value, dev.index,
+        sums.data_ptr(), p, ci, f, blocks, dev.index,
     )
     return dx, dh, sums[: f * ci].view(f, ci), sums[f * ci : f * ci + f], sums[f * ci + f :]
 

@@ -11,6 +11,12 @@ plain versions there). What can be checked here is their arithmetic:
 - the bf16 backward's sums over pixels meet its limits: products of bf16
   values (exact in float32) summed in float32, 16 pixels per MMA step, into a
   partial per block that keeps every tile it walks, then the partials in block
+  order;
+- the float32 backward keeps float32 accuracy with truncating splits: hi is
+  the operand with its 13 low bits cleared, lo = x - hi as the tensor core
+  reads it (its 13 low bits ignored), each product hi*lo + lo*hi + hi*hi in
+  float32, dx over 8-channel k-steps, dW over 8-pixel k-steps into a sum per
+  tile, and the tiles' dW, db and du into block partials summed in block
   order.
 """
 
@@ -109,16 +115,16 @@ BWD_BF16_LIMITS = {"dx": (1e-2, 1e-3), "dh": (1e-2, 1e-3), "dW": (1e-3, 1e-4), "
                    "du": (1e-3, 1e-4)}
 
 
-def _bf16_bwd_operands(ci, f, seed):
-    """(g, x, h, h', W, u) as bf16 NCHW tensors over 2 x 64 x 64 pixels (128
-    tiles of 64), h' = relu of a normal draw: about half its entries 0."""
+def _bwd_operands(ci, f, seed, dtype=torch.bfloat16):
+    """(g, x, h, h', W, u) as NCHW tensors in ``dtype`` over 2 x 64 x 64 pixels
+    (128 tiles of 64), h' = relu of a normal draw: about half its entries 0."""
     rng = np.random.default_rng(seed)
     px = (2, 64, 64)
     draws = (rng.standard_normal((*px, f)), rng.standard_normal((*px, ci)), np.abs(rng.standard_normal((*px, f))),
              np.maximum(rng.standard_normal((*px, f)), 0.0))
-    g, x, h, hn = (torch.from_numpy(a.astype(np.float32)).permute(0, 3, 1, 2).to(torch.bfloat16) for a in draws)
-    w = torch.from_numpy((rng.standard_normal((f, ci, 1, 1)) / np.sqrt(ci)).astype(np.float32)).to(torch.bfloat16)
-    u = torch.from_numpy(rng.uniform(0.0, 1.0, (1, f, 1, 1)).astype(np.float32)).to(torch.bfloat16)
+    g, x, h, hn = (torch.from_numpy(a.astype(np.float32)).permute(0, 3, 1, 2).to(dtype) for a in draws)
+    w = torch.from_numpy((rng.standard_normal((f, ci, 1, 1)) / np.sqrt(ci)).astype(np.float32)).to(dtype)
+    u = torch.from_numpy(rng.uniform(0.0, 1.0, (1, f, 1, 1)).astype(np.float32)).to(dtype)
     return g, x, h, hn, w, u
 
 
@@ -161,7 +167,7 @@ def test_bf16_backward_arithmetic_meets_its_limits(cin, f):
     bf16 operands, rounded once; dW, db, du: float64) within phase 9's limits;
     the same sums accumulated in bf16 miss the dW limit, so the test can tell
     the two apart."""
-    ops = _bf16_bwd_operands(cin, f, seed=cin + f)
+    ops = _bwd_operands(cin, f, seed=cin + f)
     plain32 = k3.indrnn_bwd_plain(*(a.float() for a in ops))
     plain64 = k3.indrnn_bwd_plain(*(a.double() for a in ops))
     want = [plain32[0].permute(0, 2, 3, 1).reshape(-1, cin).to(torch.bfloat16),
@@ -171,3 +177,89 @@ def test_bf16_backward_arithmetic_meets_its_limits(cin, f):
         assert _close_at(name, a, b), name
     assert float((ops[3] == 0).float().mean()) > 0.3, "the relu mask must cut some pixels"
     assert not _close_at("dW", emulate_bwd_bf16(*ops, acc_dtype=torch.bfloat16)[2], want[2])
+
+
+# the float32 backward kernel's limits against its plain version (chip_smoke.py
+# phase 9): dx and dh against float32, the sums against float64
+BWD_F32_LIMITS = {name: (KERNEL_RTOL, KERNEL_ATOL) for name in ("dx", "dh", "dW", "db", "du")}
+TERMS = ("hi*lo", "lo*hi", "hi*hi")
+
+
+def split_trunc(a: torch.Tensor):
+    """The kernel's truncating split: hi is ``a`` with its 13 low bits
+    cleared, lo = a - hi (exact), as the tensor core reads it: its 13 low bits
+    ignored too."""
+    clear = lambda t: (t.contiguous().view(torch.int32) & -(2**13)).view(torch.float32)  # noqa: E731
+    hi = clear(a)
+    return hi, clear(a - hi)
+
+
+def _products(acc, a, b, terms):
+    """acc + a @ b as the kernel's three MMAs, each of TF32 operands summed
+    into the float32 accumulator in turn (``terms``: the ones taken)."""
+    (ah, al), (bh, bl) = split_trunc(a), split_trunc(b)
+    for term in terms:
+        acc = acc + {"hi*lo": ah @ bl, "lo*hi": al @ bh, "hi*hi": ah @ bh}[term]
+    return acc
+
+
+def emulate_bwd_f32(g, x, h, hn, w, u, blocks=8, tp=64, kstep=8, terms=TERMS):
+    """The float32 kernel's arithmetic: g' = g [h' > 0]; dh = u g'; dx = g' W
+    over k-steps of ``kstep`` out-channels; block k walks the tiles k, k +
+    blocks, ..., sums each tile's g'^T x (3xTF32) over ``kstep``-pixel steps
+    and adds it, and each step's g' and h g', to its float32 partials of dW,
+    db and du; the partials are summed in block order."""
+    f, ci = w.shape[0], w.shape[1]
+    flat = lambda t: t.permute(0, 2, 3, 1).reshape(-1, t.shape[1]).float()  # noqa: E731
+    g, x, h, hn = flat(g), flat(x), flat(h), flat(hn)
+    wf, uf = w.reshape(f, ci).float(), u.reshape(f).float()
+    gp = torch.where(hn > 0, g, torch.zeros(()))
+    p = gp.shape[0]
+    dx = torch.zeros(p, ci)
+    for k0 in range(0, f, kstep):
+        dx = _products(dx, gp[:, k0 : k0 + kstep], wf[k0 : k0 + kstep], terms)
+    total = [torch.zeros(f, ci), torch.zeros(f), torch.zeros(f)]
+    tiles = -(-p // tp)
+    for blk in range(blocks):
+        dw, db, du = torch.zeros(f, ci), torch.zeros(f), torch.zeros(f)
+        for t in range(blk, tiles, blocks):
+            tile = torch.zeros(f, ci)
+            for k0 in range(t * tp, min((t + 1) * tp, p), kstep):
+                gk, xk, hk = gp[k0 : k0 + kstep], x[k0 : k0 + kstep], h[k0 : k0 + kstep]
+                tile = _products(tile, gk.T, xk, terms)
+                db, du = db + gk.sum(0), du + (hk * gk).sum(0)
+            dw = dw + tile
+        total = [a + b for a, b in zip(total, (dw, db, du))]
+    return dx, uf * gp, *total
+
+
+def test_truncating_split_keeps_21_bits():
+    x = torch.randn(4096, generator=torch.Generator().manual_seed(1))
+    hi, lo = split_trunc(x)
+    assert not bool((hi.view(torch.int32) & 0x1FFF).any()) and not bool((lo.view(torch.int32) & 0x1FFF).any())
+    assert bool((hi.abs() <= x.abs()).all()) and bool(((x - hi).abs() < x.abs() * 2.0**-10).all())
+    assert bool(((x - hi - lo).abs() < x.abs() * 2.0**-19).all())  # hi + lo keeps ~20 bits
+
+
+@pytest.mark.parametrize("cin,f,tp", [(64, 64, 64), (64, 128, 32)])
+@pytest.mark.parametrize("terms", [TERMS, ("hi*hi",), ("hi*lo", "hi*hi")],
+                         ids=["3xtf32", "mutation-hi*hi-alone", "mutation-lo*hi-dropped"])
+def test_f32_backward_arithmetic_meets_its_limits(cin, f, tp, terms):
+    """The emulated float32 kernel against the plain version (dx, dh: float32;
+    dW, db, du: float64) within phase 9's limits at the pixel tile it takes at
+    these widths; with hi*hi alone, or a lo term dropped, the products miss
+    them, so the check is not vacuous."""
+    ops = _bwd_operands(cin, f, seed=cin + f + 1, dtype=torch.float32)
+    plain32 = k3.indrnn_bwd_plain(*ops)
+    plain64 = k3.indrnn_bwd_plain(*(a.double() for a in ops))
+    want = [plain32[0].permute(0, 2, 3, 1).reshape(-1, cin), plain32[1].permute(0, 2, 3, 1).reshape(-1, f),
+            *plain64[2:]]
+    got = emulate_bwd_f32(*ops, tp=tp, terms=terms)
+    close = {name: bool(torch.allclose(a.double(), b.double(), rtol=rtol, atol=atol * float(b.abs().max())))
+             for (name, (rtol, atol)), a, b in zip(BWD_F32_LIMITS.items(), got, want)}
+    assert float((ops[3] == 0).float().mean()) > 0.3, "the relu mask must cut some pixels"
+    assert close["dh"] and close["db"] and close["du"], close  # no products: the same in every case
+    if terms == TERMS:
+        assert close["dx"] and close["dW"], close
+    else:
+        assert not close["dx"] and not close["dW"], close
