@@ -9,7 +9,9 @@ Run from the repository root, on a machine with a CUDA device:
 Phases (any failure raises; no phase catches its own):
   1. the card: ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``;
   2. build the kernels of ``mridc_tpu_torch/csrc`` (one nvcc per source, in
-     parallel) and print each kernel's registers and spills;
+     parallel) and print each kernel's registers and spills; 2b. with cuDNN's
+     TF32 flag at PyTorch's default (on; the script never sets it), the
+     package's float32 conv forward and backward against float64;
   3. each kernel against its plain version on the card, at the flagship shapes
      (B=2, 15 coils, 320x320, 64 filters) and at an odd size; K1 forward
      and backward (both dtypes) also at one coil, W=200, H=40, W=368 and W=396
@@ -33,7 +35,8 @@ Phases (any failure raises; no phase catches its own):
      (grid, shared memory, blocks per SM, tile; f32 also its route) and the
      L2-to-SM bytes its tiles imply beside the first version's;
   7. a small CIRIM training step (phase 4's model, f32, remat "step+cascade")
-     on the card against the CPU path, in both dc_modes: loss, every
+     on the card against the CPU path, in both dc_modes and with the soft-DC
+     tail (SENSE expand and reduce, forward and backward): loss, every
      parameter gradient, and the parameters after one Adam step under
      InverseSquareRootAnnealing;
   8. the training path: flagship CIRIM trained through ``Trainer`` (the
@@ -50,7 +53,24 @@ Phases (any failure raises; no phase catches its own):
      B=24 operands (a line of its own, not a kernels row); K1's launches at
      the training operands; K3-bwd's launch setup in each dtype (route, tile,
      stages, blocks, blocks per SM, shared memory) beside its library's
-     registers and spills.
+     registers and spills;
+  V1. E2EVN/VarNet: a small VarNet (2 cascades, 8 channels, 2 pools, 4
+     coils, 64x64 and 37x45) on the card against the CPU, both dc_modes, f32
+     and bf16, centered ortho and uncentered backward FFTs: the forward, then
+     one Trainer step (loss, gradients, parameters after Adam);
+  V2. serving at full width (bench.py's e2evn_cfg: 8 cascades, NormUnet 18
+     channels x 4 pools) at B=8 as ``vn_bf16_psf1d`` (as configured),
+     ``vn_f32_psf1d`` and ``vn_f32_full``, 2 warm-up and 5 timed forwards
+     each, launch counters zeroed before each and read after; the three
+     predictions agree; the growth of a perturbation per cascade; V2b. one
+     traced forward per run; ``vn_bf16_psf1d`` also timed at B=32;
+  V3. training at full width through ``Trainer`` at B=8 as
+     ``train_vn_bf16_psf1d`` and ``train_vn_f32_full`` (first-step gradients
+     against ``vn_f32_psf1d``'s; 2 warm-up and 3 timed steps; launches per
+     step; peak memory; one traced step each);
+  V4. the SENSE expansion's and reduction's backward on a
+     ``train_vn_f32_full`` step's operands, and the psf1d q-term on a K1 call
+     of ``vn_bf16_psf1d``, against their plain versions.
 
 Output: JSON lines per check, run and kernel; then the ``{"kernels": [...]}``
 line, the card's name and power limit, and last
@@ -123,6 +143,55 @@ TRAIN_BATCH, TRAIN_F32_BATCH, TRAIN_WARMUP, TRAIN_ITERS = 24, 8, 2, 3
 TRAIN_OPTIM = {"name": "adam", "lr": 1e-3, "betas": [0.9, 0.98], "weight_decay": 0.0,
                "sched": {"name": "InverseSquareRootAnnealing", "min_lr": 0.0, "warmup_ratio": 0.1}}
 TRAIN_CFG = {"max_steps": 100, "gradient_clip_val": 0.0}
+
+# E2EVN/VarNet (bench.py:e2evn_cfg, reference base_vn_train.yaml widths): 8
+# cascades, NormUnet 18 channels x 4 pools, padding size 11. VN_GAIN scales
+# each NormUnet's final 1x1 conv kernel (see vn_layout_tree)
+VN_CASCADES, VN_CHANS, VN_POOLS = 8, 18, 4
+VN_GAIN = 0.05
+VN_BIG_BATCH = 32
+# launches per VarNet forward: psf1d runs K1 once per cascade but the last
+# (the q-term, which the last cascade's output does not read) and K2's load
+# and reduce once (the SENSE init); full holds k-space in FFT order,
+# so it loads once (y to that order; centered FFT) and runs per cascade a
+# reduce (sens_reduce) and an expand (sens_expand), then one more reduce (the
+# final SENSE combination)
+VN_PER_FORWARD = {
+    "vn_bf16_psf1d": {"k1_psf1d_dc_bf16": 7, "k2_load": 1, "k2_reduce": 1},
+    "vn_f32_psf1d": {"k1_psf1d_dc_f32": 7, "k2_load": 1, "k2_reduce": 1},
+    "vn_f32_full": {"k2_load": 1, "k2_reduce": 9, "k2_expand": 8},
+}
+# launches per VarNet training step (no rematerialisation): the forward's,
+# and in the backward K1's backward once per q-term (psf1d); (full) a reduce
+# per cascade for sens_expand's backward, and an expand for sens_reduce's
+# backward in cascades 1-7 and the final combination (cascade 0 reduces y,
+# which takes no gradient)
+VN_PER_STEP = {
+    "train_vn_bf16_psf1d": {"k1_psf1d_dc_bf16": 7, "k1_psf1d_dc_bwd_bf16": 7, "k2_load": 1, "k2_reduce": 1},
+    "train_vn_f32_full": {"k2_load": 1, "k2_reduce": 17, "k2_expand": 16},
+}
+
+# kernel against plain version (rtol, atol as a share of the largest
+# magnitude). float32: the kernel and cuBLAS/cuDNN in full float32 accumulate
+# in other orders; rtol 1e-4 with atol 1e-4 of the largest magnitude.
+# bfloat16: each kernel is held against its plain version computed in float32
+# on the same bf16 operands and rounded once at the end (rounded_once). K3
+# differs from that by the float32 summation order and the final rounding
+# only, at most one bf16 ulp (2^-7 relative): rtol 1e-2, atol 1e-3 of the
+# largest magnitude. K1 also rounds s_c*eta and Ci to bf16 where it stages
+# them (unit roundoff 2^-9 on each of the C*W terms of an output's sum): rtol
+# 1e-2, atol 1e-2 of the largest magnitude. Readings on an H100 80GB HBM3 that
+# these limits were set from, max abs error at the largest magnitude: K1 0.031
+# at 7.09 (flagship, B=2) and 0.016 at 7.44 (main path, B=8); K3 0.016 at 6.72
+# and 0.0039 at 1.82 (one bf16 ulp at each).
+F32, K1_BF16, K3_BF16 = (1e-4, 1e-4), (1e-2, 1e-2), (1e-2, 1e-3)
+# a bf16 model on the card against the same bf16 model on the CPU: the two
+# round at other places (cuDNN's and the CPU's bf16 convolutions, K1-bf16's
+# staging): rtol 3e-2 and atol 3e-2 of the largest magnitude
+# (tests/test_torch_port_vn.py's bf16 limits), and relative l2 5e-2, the JAX
+# package's own bf16 bound (tests/test_models_recon.py:238)
+BF16_MODEL, BF16_REL_L2 = (3e-2, 3e-2), 5e-2
+
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
@@ -202,6 +271,59 @@ def jax_layout_tree(cfg, seed, gain=None):
             cin = rf
         step[f"ConvNonlinear_{i}"] = {"Conv_0": conv}
     return {"params": {"ScanCheckpoint_Cascade_0": {"RIMBlock_0": {"ScanCheckpoint_RIMStep_0": step}}}}
+
+
+def vn_cfg(**overrides):
+    """bench.py's e2evn_cfg (the JAX bench's E2EVN: bf16 compute, psf1d DC in
+    bf16, centered ortho FFT), as a plain dict."""
+    cfg = {
+        "model_name": "VN",
+        "num_cascades": VN_CASCADES,
+        "channels": VN_CHANS,
+        "pooling_layers": VN_POOLS,
+        "fft_centered": True,
+        "fft_normalization": "ortho",
+        "compute_dtype": "bfloat16",
+        "dc_mode": "psf1d",
+        "dc_dtype": "bfloat16",
+    }
+    cfg.update(overrides)
+    return cfg
+
+
+def vn_layout_tree(cfg, seed, gain=1.0):
+    """Random VarNet weights drawn with numpy in the flax tree layout of
+    mridc_tpu (``_VarNetBlock_{i}/NormUnet_0/Unet_0``; both dc_modes share
+    it): every kernel normal with variance 1 / fan-in (flax's lecun normal;
+    fan-in kH * kW * in, for the transpose convs too), zero bias, dc_weight 1.
+    ``gain`` scales each NormUnet's final 1x1 conv kernel: at 1 a random
+    cascade amplifies a perturbation of its input several times over, so 8 of
+    them compound float32 rounding into the output; a small gain keeps each
+    cascade's regulariser a small correction to its DC step."""
+    rng = np.random.default_rng(seed)
+    chans, pools = cfg.get("channels", 18), cfg.get("pooling_layers", 4)
+
+    def kernel(k, cin, cout, scale=1.0):
+        return (rng.standard_normal((k, k, cin, cout)) * scale / np.sqrt(k * k * cin)).astype(np.float32)
+
+    def block(cin, cout):
+        return {"Conv_0": {"kernel": kernel(3, cin, cout)}, "Conv_1": {"kernel": kernel(3, cout, cout)}}
+
+    tree = {}
+    for i in range(cfg.get("num_cascades", 8)):
+        unet, ch, k = {}, chans, 0
+        unet["ConvBlock_0"] = block(2, ch)
+        for k in range(1, pools):
+            unet[f"ConvBlock_{k}"] = block(ch, ch * 2)
+            ch *= 2
+        unet[f"ConvBlock_{pools}"] = block(ch, ch * 2)
+        for j in range(pools):
+            unet[f"TransposeConvBlock_{j}"] = {"ConvTranspose_0": {"kernel": kernel(2, ch * 2, ch)}}
+            unet[f"ConvBlock_{pools + 1 + j}"] = block(ch * 2, ch)
+            ch = ch // 2 if j < pools - 1 else ch
+        unet["Conv_0"] = {"kernel": kernel(1, ch, 2, gain), "bias": np.zeros(2, np.float32)}
+        tree[f"_VarNetBlock_{i}"] = {"dc_weight": np.ones(1, np.float32), "NormUnet_0": {"Unet_0": unet}}
+    return {"params": tree}
 
 
 def check(name, got, want, rtol, atol_rel, note=""):
@@ -323,6 +445,42 @@ def k1_l2_bytes(setup: dict, b: int, c: int, h: int, w: int, bwd: bool, dtype: s
     return {"tiles": tiles, "l2_bytes": l2, "l2_bytes_first_version": first}
 
 
+def check_tf32_rule(dev, card) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from mridc_tpu_torch.nn.layers import Conv
+
+    if not torch.backends.cudnn.allow_tf32:
+        raise AssertionError("cuDNN's TF32 flag is off: this check needs PyTorch's default (on)")
+    g = torch.Generator().manual_seed(7)
+    x64 = torch.randn(2, 18, 160, 160, generator=g, dtype=torch.float64)
+    gy64 = torch.randn(2, 36, 160, 160, generator=g, dtype=torch.float64)
+    conv = Conv(18, 36, 3, use_bias=False)
+    conv.reset_parameters(g)
+    w64 = conv.weight.detach().double().requires_grad_(True)
+    xr = x64.clone().requires_grad_(True)
+    F.conv2d(xr, w64, padding=1).backward(gy64)
+    want = (F.conv2d(x64, w64.detach(), padding=1), xr.grad, w64.grad)
+
+    def run(fn):
+        x = x64.float().to(dev).contiguous(memory_format=torch.channels_last).requires_grad_(True)
+        out = fn(x)
+        out.backward(gy64.float().to(dev).contiguous(memory_format=torch.channels_last))
+        return out, x.grad
+
+    conv = conv.to(dev, memory_format=torch.channels_last)
+    port = run(conv) + (conv.weight.grad,)
+    wl = conv.weight.detach().clone().requires_grad_(True)
+    lib = run(lambda x: F.conv2d(x, wl, padding=1)) + (wl.grad,)
+    if not torch.backends.cudnn.allow_tf32:
+        raise AssertionError("the port's convolution left cuDNN's TF32 flag off")
+    for part, got, lib_got, ref in zip(("out", "dx", "dw"), port, lib, want):
+        lib_err = float((lib_got.detach().double().cpu() - ref).abs().max() / ref.abs().max())
+        check(f"tf32_rule[{part}]", got.double().cpu(), ref, 1e-4, 1e-5,
+              note=f"PyTorch's conv under the same flag: max abs err / max {lib_err:.3g}")
+
+
 def kernel_category(name: str) -> str:
     """Which layer a CUDA kernel of a forward or training step belongs to, by
     its name."""
@@ -338,6 +496,12 @@ def kernel_category(name: str) -> str:
     if "anonymous namespace" in n and any(k in n for k in ("expand_kernel", "residual_kernel", "load_kernel",
                                                             "reduce_kernel")):
         return "K2 stages"
+    if "welford" in n:
+        return "InstanceNorm statistics"
+    if "avg_pool" in n or "reflection_pad" in n:
+        return "pooling and reflect pad"
+    if any(k in n for k in ("dse::", "fft2d_", "pointwise_mult_and_sum_complex")):  # cuDNN's FFT convolutions
+        return "conv and GEMM (cuDNN, cuBLAS)"
     if "fft" in n:
         return "cuFFT"
     if any(k in n for k in ("conv", "xmma", "cudnn", "implicit", "gemm", "sm90", "cutlass", "nhwc", "nchw", "wgrad",
@@ -375,6 +539,342 @@ def trace_call(fn, ms_per_call):
             "top_kernels_ms": [[name[:120], ms] for name, ms in top]}
 
 
+def check_all(name, got: dict, want: dict, rtol, atol_rel, note=""):
+    """:func:`check` over matching entries of two dicts of tensors (atol
+    ``atol_rel`` x each entry's own largest magnitude), emitted as one line
+    with the worst entry; raises on any entry outside its limits."""
+    import torch
+
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{name}: entries {sorted(got)} != {sorted(want)}")
+    worst, bad = None, []
+    for k in want:
+        g, w = got[k].detach().float(), want[k].detach().float()
+        if w.numel() == 0:
+            continue
+        atol = atol_rel * float(w.abs().max())
+        err = float((g - w).abs().max())
+        ok = bool(torch.isfinite(g).all()) and torch.allclose(g, w, rtol=rtol, atol=atol)
+        lim = atol + rtol * w.abs()
+        share = float(torch.where(lim > 0, (g - w).abs() / lim.clamp(min=1e-30),
+                                  torch.where(g == w, 0.0, float("inf"))).max())
+        if worst is None or share > worst[1]:
+            worst = (k, share, err, atol)
+        if not ok:
+            bad.append(k)
+    worst = worst or ("", 0.0, 0.0, 0.0)
+    rec = {"check": name, "entries": len(want), "worst": worst[0], "worst_err_over_limit": worst[1],
+           "worst_max_abs_err": worst[2], "worst_atol": worst[3], "rtol": rtol, "ok": not bad}
+    if note:
+        rec["note"] = note
+    emit(rec)
+    if bad:
+        raise AssertionError(f"{name}: outside the limits: {bad}")
+
+
+def cosine(a, b) -> float:
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def varnet_phases(dev, card, rows) -> None:
+    """Phases V1-V4, E2EVN/VarNet (bench.py:e2evn_cfg at full width); see the
+    module docstring."""
+    import torch
+
+    from mridc_tpu_torch import kernels
+    from mridc_tpu_torch.kernels import binding
+    from mridc_tpu_torch.kernels import k1_psf1d_dc as k1mod
+    from mridc_tpu_torch.kernels import k2_full_dc as k2
+    from mridc_tpu_torch.models import build_model
+    from mridc_tpu_torch.train.losses import process_reconstruction_loss
+    from mridc_tpu_torch.train.trainer import Trainer
+    from mridc_tpu_torch.utils.params import varnet_params_from_jax
+
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+
+    def flat_grads(model):
+        return torch.cat([p.grad.flatten().double() for _, p in sorted(model.named_parameters())])
+
+    # V1. a small VarNet (2 cascades, 8 channels, 2 pools, 4 coils, weights at
+    # gain 1 as the CPU tests have them) on the card against the same weights
+    # on the CPU: the forward, then one training step through Trainer (loss,
+    # every gradient, the parameters after one Adam step). float32: the
+    # forward and the loss at phase 4's limits; each parameter's gradient at
+    # relative l2 2e-2; the parameters after Adam at phase 7's limits where
+    # |g| > 2e-2 x max. The gradients cannot be held elementwise: a ~1e-6
+    # change of y (the card's prediction lies ~1e-6 from the CPU's) flips a
+    # LeakyReLU kink now and then, and one flip moved a parameter's gradient
+    # on the CPU by up to 0.46% in relative l2 and 1.85% of its max in one
+    # element (5 perturbations a configuration; with the slopes set to 1,
+    # 7e-6). bf16 (compute, and the psf1d DC) against the CPU's
+    # bf16: the forward at BF16_MODEL and BF16_REL_L2, the loss at rtol 3e-2,
+    # and the whole gradient at cosine >= 0.9: bf16 gradients of random
+    # NormUnets are noisy (the CPU's bf16 against its float32 read cosine
+    # 0.964-0.982 on this model), and a wrong index or operand reads near 0
+    small = vn_cfg(num_cascades=2, channels=8, pooling_layers=2)
+    for b, h, w in ((2, 64, 64), (2, 37, 45)):
+        ys, ss, ms = bench_data(b, 4, h, w, seed=12)
+        batch = {"masked_kspace": ys, "sensitivity_maps": ss, "mask": ms, "target": train_target(b, h, w)}
+        for centered, norm in ((True, "ortho"), (False, "backward")):
+            for mode in ("psf1d", "full"):
+                for dt in ("f32", "bf16"):
+                    cfg = dict(small, dc_mode=mode, fft_centered=centered, fft_normalization=norm,
+                               compute_dtype="bfloat16" if dt == "bf16" else None,
+                               dc_dtype="bfloat16" if dt == "bf16" and mode == "psf1d" else None)
+                    state = varnet_params_from_jax(vn_layout_tree(cfg, seed=13))
+                    tag = f"{mode}/{dt}/{'c' if centered else 'u'}-{norm}/{h}x{w}"
+                    res = {}
+                    for where in ("card", "cpu"):
+                        model = build_model(cfg, device=dev if where == "card" else "cpu")
+                        model.load_state_dict(state)
+                        with torch.inference_mode():
+                            pred = model(*(torch.from_numpy(a).to(model.cascades[0].dc_weight.device)
+                                           for a in (ys, ss, ms))).prediction.cpu()
+                        trainer = Trainer(model, optim_cfg=TRAIN_OPTIM, trainer_cfg=TRAIN_CFG,
+                                          device=dev if where == "card" else "cpu")
+                        loss = float(trainer.training_batch(batch)["loss"])
+                        params = dict(model.named_parameters())
+                        res[where] = (pred, loss, {k: p.grad.cpu() for k, p in params.items()},
+                                      {k: p.detach().cpu() for k, p in params.items()}, flat_grads(model).cpu())
+                    (pd, ld, gd, qd, fd), (pc, lc, gc, qc, fc) = res["card"], res["cpu"]
+                    if dt == "f32":
+                        check(f"vn_small[{tag}]", pd, pc, 2e-3, 2e-4)
+                        check(f"vn_small_train_loss[{tag}]", torch.tensor(ld), torch.tensor(lc), 2e-3, 2e-4)
+                        rel = {k: float((gd[k] - gc[k]).norm() / gc[k].norm()) if float(gc[k].norm()) > 0
+                               else float(gd[k].norm()) for k in gc}
+                        worst = max(rel, key=rel.get)
+                        emit({"check": f"vn_small_grads[{tag}]", "entries": len(rel), "worst": worst,
+                              "max_rel_l2": rel[worst], "limit": 2e-2, "ok": rel[worst] <= 2e-2})
+                        if rel[worst] > 2e-2:
+                            raise AssertionError(f"vn_small_grads[{tag}]: {worst} at relative l2 {rel[worst]}")
+                        sure = {k: gc[k].abs() > 2e-2 * float(gc[k].abs().max()) for k in gc}
+                        check_all(f"vn_small_params_after_adam[{tag}]",
+                                  {k: qd[k][sure[k]] for k in qc}, {k: qc[k][sure[k]] for k in qc}, 2e-3, 2e-4)
+                        continue
+                    rel = float((pd - pc).norm() / pc.norm())
+                    check(f"vn_small[{tag}]", pd, pc, *BF16_MODEL, note=f"rel l2 {rel:.3g} (limit {BF16_REL_L2})")
+                    check(f"vn_small_train_loss[{tag}]", torch.tensor(ld), torch.tensor(lc), 3e-2, 0.0)
+                    cos = cosine(fd, fc)
+                    emit({"check": f"vn_small_grad_cosine[{tag}]", "cosine": cos, "limit": 0.9,
+                          "max_rel_l2_per_parameter": max(float((gd[k] - gc[k]).norm() / gc[k].norm())
+                                                          for k in gc if float(gc[k].norm()) > 0)})
+                    if not (rel <= BF16_REL_L2 and cos >= 0.9):
+                        raise AssertionError(f"vn_small[{tag}]: bf16 card and CPU disagree: rel l2 {rel}, "
+                                             f"gradient cosine {cos}")
+
+    # V2. serving at full width: B=8, the flagship's data; the launch counters
+    # are zeroed before each run and read after it
+    state = varnet_params_from_jax(vn_layout_tree(vn_cfg(), seed=0, gain=VN_GAIN))
+    y, sens, mask = (t(a) for a in bench_data(BATCH, COILS, H, W))
+    runs = {"vn_bf16_psf1d": vn_cfg(), "vn_f32_psf1d": vn_cfg(compute_dtype=None, dc_dtype=None),
+            "vn_f32_full": vn_cfg(compute_dtype=None, dc_dtype=None, dc_mode="full")}
+    vn_counts = {k: 0 for k in binding.LAUNCHES}
+    models, preds, recs = {}, {}, []
+
+    def serve(name, model, yb, sb, mb):
+        b = yb.shape[0]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with torch.inference_mode():
+            for _ in range(WARMUP):
+                model(yb, sb, mb)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ITERS):
+                pred = model(yb, sb, mb).prediction
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        delta = {k: v for k, v in kernels.launch_counts().items() if v}
+        want = {k: v * (WARMUP + ITERS) for k, v in VN_PER_FORWARD[name].items()}
+        rec = {"run": name, "batch": b, "forwards_timed": ITERS, "seconds": dt, "slices_per_s": ITERS * b / dt,
+               "ms_per_forward": dt / ITERS * 1e3,
+               "launches_per_forward": {k: v / (WARMUP + ITERS) for k, v in delta.items()}, "card": card}
+        emit(rec)
+        if delta != want:
+            raise AssertionError(f"{name} at B={b}: launches {delta} != expected {want}")
+        if not bool(torch.isfinite(pred).all()) or tuple(pred.shape) != (b, H, W, 2):
+            raise AssertionError(f"{name}: prediction not finite or of shape {tuple(pred.shape)}")
+        for k, v in delta.items():
+            vn_counts[k] += v
+        return rec, pred.float()
+
+    for name, cfg in runs.items():
+        models[name] = build_model(cfg, device=dev)
+        models[name].load_state_dict(state)
+        rec, preds[name] = serve(name, models[name], y, sens, mask)
+        recs.append(rec)
+    ref = preds["vn_f32_psf1d"]
+    limits = {"vn_bf16_psf1d": 5e-2, "vn_f32_full": 1e-4}
+    rel = {k: float((preds[k] - ref).norm() / ref.norm()) for k in limits}
+    sense0 = kernels.sens_reduce(y, sens, None, True, "ortho")
+    # the growth of a perturbation per cascade: y x (1 + 1e-4 noise) through
+    # vn_f32_psf1d, the change of each cascade's NormUnet input and of the output
+    inputs = []
+    hooks = [blk.model.register_forward_pre_hook(lambda mod, a: inputs.append(a[0].clone()))
+             for blk in models["vn_f32_psf1d"].cascades]
+    noise = torch.randn(y.shape, generator=torch.Generator().manual_seed(3)).to(dev)
+    with torch.inference_mode():
+        p0 = models["vn_f32_psf1d"](y, sens, mask).prediction
+        p1 = models["vn_f32_psf1d"](y * (1 + 1e-4 * noise), sens, mask).prediction
+    for hk in hooks:
+        hk.remove()
+    n = len(inputs) // 2
+    d = [float((a - b).norm()) for a, b in zip(inputs[n:], inputs[:n])] + [float((p1 - p0).norm())]
+    growth = [d[i + 1] / d[i] for i in range(n)]
+    rec = {"check": "vn_agreement", "rel_l2_vn_bf16_psf1d_vs_vn_f32_psf1d": rel["vn_bf16_psf1d"],
+           "rel_l2_vn_f32_full_vs_vn_f32_psf1d": rel["vn_f32_full"],
+           "rel_l2_vn_f32_psf1d_vs_sense_init": float((ref - sense0).norm() / sense0.norm()),
+           "perturbation_growth_per_cascade": growth, "gain": VN_GAIN, "limits": limits, "card": card}
+    emit(rec)
+    if not all(rel[k] <= limits[k] for k in limits):
+        raise AssertionError(f"VarNet predictions disagree: {rec}")
+    del p0, p1, noise, inputs, preds
+
+    # the operands of one K1 call of vn_bf16_psf1d (V4)
+    captured: dict = {}
+    orig = k1mod.psf1d_dc
+
+    def grab(*a):
+        captured.setdefault("psf1d_normal", tuple(x.detach().clone() if torch.is_tensor(x) else x for x in a))
+        return orig(*a)
+
+    k1mod.psf1d_dc = grab
+    try:
+        with torch.inference_mode():
+            models["vn_bf16_psf1d"](y, sens, mask)
+    finally:
+        k1mod.psf1d_dc = orig
+
+    # V2b. where a forward's device time goes (one traced forward per run)
+    for rec in recs:
+        model = models[rec["run"]]
+        with torch.inference_mode():
+            emit({"trace": rec["run"], **trace_call(lambda: model(y, sens, mask), rec["ms_per_forward"]), "card": card})
+
+    # bench.py's E2EVN configuration at B=32 (timing; its launches asserted)
+    yb, sb, mb = (t(a) for a in bench_data(VN_BIG_BATCH, COILS, H, W))
+    serve("vn_bf16_psf1d", models["vn_bf16_psf1d"], yb, sb, mb)
+    del models, yb, sb, mb
+    torch.cuda.empty_cache()
+
+    # V3. training at full width through Trainer (Adam under
+    # InverseSquareRootAnnealing, base_vn_train.yaml's optim block), B=8.
+    # First the first-step gradients on the same slices (vn_f32_psf1d the
+    # reference): float32 full against psf1d at relative l2 1e-3, beside how
+    # far vn_f32_psf1d's own gradient moves when y moves by 1e-6 x noise (the
+    # gradient of these random weights is far more sensitive than the
+    # prediction: LeakyReLU kinks, V1); bf16 at
+    # cosine >= 0.9, since the JAX package's own bf16 first-step gradient lies
+    # at cosine 0.974 from its float32 one on these weights (CPU, 8 coils,
+    # 128 x 128, gain 0.05; 0.963 at gain 0.1): bf16 backward passes through
+    # 8 x 20 random NormUnet layers
+    target8 = t(train_target(BATCH, H, W))
+    batch = {"masked_kspace": y, "sensitivity_maps": sens, "mask": mask, "target": target8}
+    train_runs = {"train_vn_bf16_psf1d": runs["vn_bf16_psf1d"], "train_vn_f32_full": runs["vn_f32_full"]}
+    first = {}
+    noise = torch.randn(y.shape, generator=torch.Generator().manual_seed(4)).to(dev)
+    grad_runs = [(name, cfg, y) for name, cfg in train_runs.items()]
+    grad_runs += [("vn_f32_psf1d", runs["vn_f32_psf1d"], y), ("vn_f32_psf1d_y_moved", runs["vn_f32_psf1d"],
+                                                              y * (1 + 1e-6 * noise))]
+    for name, cfg, yn in grad_runs:
+        model = build_model(cfg, device=dev)
+        model.load_state_dict(state)
+        process_reconstruction_loss(model(yn, sens, mask, train=True), target8, "l1").backward()
+        first[name] = flat_grads(model)
+        del model
+    ref_g = first["vn_f32_psf1d"]
+    moved = float((first["vn_f32_psf1d_y_moved"] - ref_g).norm() / ref_g.norm())
+    readings = {"rel_l2_train_vn_f32_full_vs_vn_f32_psf1d": float((first["train_vn_f32_full"] - ref_g).norm()
+                                                                  / ref_g.norm()),
+                "cosine_train_vn_bf16_psf1d_vs_vn_f32_psf1d": cosine(first["train_vn_bf16_psf1d"], ref_g)}
+    grad_limits = {"rel_l2_train_vn_f32_full_vs_vn_f32_psf1d": ("<=", 1e-3),
+                   "cosine_train_vn_bf16_psf1d_vs_vn_f32_psf1d": (">=", 0.9)}
+    rec = {"check": "vn_train_first_step_gradients", "batch": BATCH, **readings,
+           "limits": {k: f"{op} {v}" for k, (op, v) in grad_limits.items()},
+           "rel_l2_vn_f32_psf1d_y_moved_1e-6": moved,
+           "gain": VN_GAIN, "card": card}
+    emit(rec)
+    if not all(readings[k] <= v if op == "<=" else readings[k] >= v for k, (op, v) in grad_limits.items()):
+        raise AssertionError(f"VarNet first-step gradients disagree: {rec}")
+    del first, ref_g, noise
+
+    def capturing(fname):
+        orig_fn = getattr(k2, fname)
+
+        def wrapped(*args):
+            captured.setdefault(fname, tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args))
+            return orig_fn(*args)
+
+        setattr(k2, fname, wrapped)
+        return lambda: setattr(k2, fname, orig_fn)
+
+    vn_train_counts = {k: 0 for k in binding.LAUNCHES}
+    for name, cfg in train_runs.items():
+        model = build_model(cfg, device=dev)
+        model.load_state_dict(state)
+        trainer = Trainer(model, optim_cfg=TRAIN_OPTIM, trainer_cfg=TRAIN_CFG, device=dev)
+        before = {k: v.detach().clone() for k, v in model.named_parameters()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        for _ in range(TRAIN_WARMUP):
+            trainer.training_batch(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_ITERS):
+            metrics = trainer.training_batch(batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        delta = {k: v for k, v in kernels.launch_counts().items() if v}
+        steps = TRAIN_WARMUP + TRAIN_ITERS
+        want = {k: v * steps for k, v in VN_PER_STEP[name].items()}
+        moved = max(float((p.detach() - before[k]).abs().max()) for k, p in model.named_parameters())
+        rec = {"run": name, "batch": BATCH, "steps_timed": TRAIN_ITERS, "seconds": dt,
+               "slices_per_s": TRAIN_ITERS * BATCH / dt, "ms_per_step": dt / TRAIN_ITERS * 1e3,
+               "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+               "max_param_change": moved, "launches_per_step": {k: v / steps for k, v in delta.items()}, "card": card}
+        emit(rec)
+        if delta != want:
+            raise AssertionError(f"{name}: launches {delta} != expected {want}")
+        if not np.isfinite(rec["loss"]) or not moved > 0:
+            raise AssertionError(f"{name}: loss {rec['loss']} not finite or parameters unchanged ({moved})")
+        for k, v in delta.items():
+            vn_train_counts[k] += v
+        emit({"trace": name, **trace_call(lambda: trainer.training_batch(batch), rec["ms_per_step"]), "card": card})
+        if name == "train_vn_f32_full":
+            restore = [capturing("sens_expand_bwd"), capturing("sens_reduce_bwd")]
+            trainer.training_batch(batch)
+            for undo in restore:
+                undo()
+        del trainer, model
+        torch.cuda.empty_cache()
+
+    # V4. the SENSE expansion's and reduction's backward against their plain
+    # versions on one call's operands from a train_vn_f32_full step (F32), and
+    # their times; the psf1d q-term on one K1 call of vn_bf16_psf1d against
+    # its plain version in float32 on the same bf16 operands (K1_BF16)
+    with torch.inference_mode():
+        for fname in ("sens_expand_bwd", "sens_reduce_bwd"):
+            args = captured[fname]
+            got, plain = getattr(k2, fname), getattr(k2, f"{fname}_plain")
+            check(f"{fname}[train_vn_f32_full]", got(*args), plain(*args), *F32)
+            emit({"function": fname, "shape": tuple(args[0].shape), "ms": time_ms(lambda: got(*args)),
+                  "plain_ms": time_ms(lambda: plain(*args)),
+                  "note": "K2 stages around cuFFT; launches counted under their kernels", "card": card})
+        u, s_, m_, z_, _ = captured["psf1d_normal"]
+        check("psf1d_normal[vn_bf16_psf1d]", k1mod.psf1d_normal(u, s_, m_, z_),
+              rounded_once(k1mod.psf1d_dc_plain, u, s_, m_, z_, 1.0)[..., 2:], *K1_BF16)
+
+    for r in rows:
+        r["vn_launches"] = vn_counts.get(r["name"], 0)
+        r["vn_train_launches"] = vn_train_counts.get(r["name"], 0)
+    missing = [k for k in set().union(*VN_PER_FORWARD.values()) if vn_counts[k] == 0]
+    missing += [k for k in set().union(*VN_PER_STEP.values()) if vn_train_counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the VarNet paths: {missing}")
+
+
 def main() -> int:
     import torch
 
@@ -401,8 +901,9 @@ def main() -> int:
     from mridc_tpu_torch.utils.params import cirim_params_from_jax
 
     t_start = time.perf_counter()
+    # cuDNN's TF32 flag is left as PyTorch sets it (on): the package runs its
+    # float32 convolutions in full float32 itself (phase 2b)
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(DEVICE)
 
     # 1. the card
@@ -428,6 +929,12 @@ def main() -> int:
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     gen = torch.Generator(device="cpu").manual_seed(1)
 
+    # 2b. the package's float32 convolutions run in full float32 whatever
+    # cuDNN's TF32 flag says: with the flag on, a 3x3 conv (the VarNet's
+    # 18 -> 36 channels at B=2, 160 x 160) forward and backward against float64
+    # on the CPU; PyTorch's own conv under the same flag beside it
+    check_tf32_rule(dev, card)
+
     def rand(*shape, dtype=torch.float32, positive=False):
         x = torch.rand(shape, generator=gen) if positive else torch.randn(shape, generator=gen)
         return x.to(dev, dtype)
@@ -439,21 +946,6 @@ def main() -> int:
 
     # 3. kernels against their plain versions on the card
     with torch.inference_mode():
-        # float32: the kernel and cuBLAS/cuDNN in full float32 accumulate in
-        # other orders; rtol 1e-4 with atol 1e-4 of the largest magnitude.
-        # bfloat16: each kernel is held against its plain version computed in
-        # float32 on the same bf16 operands and rounded once at the end
-        # (rounded_once). K3 differs from that by the float32 summation order
-        # and the final rounding only, at most one bf16 ulp (2^-7 relative):
-        # rtol 1e-2, atol 1e-3 of the largest magnitude. K1 also rounds s_c*eta
-        # and Ci to bf16 where it stages them (unit roundoff 2^-9 on each of
-        # the C*W terms of an output's sum): rtol 1e-2, atol 1e-2 of the
-        # largest magnitude. Readings on an H100 80GB HBM3 that these limits
-        # were set from, max abs error at the largest magnitude: K1 0.031 at
-        # 7.09 (flagship, B=2) and 0.016 at 7.44 (main path, B=8); K3 0.016 at
-        # 6.72 and 0.0039 at 1.82 (one bf16 ulp at each).
-        F32, K1_BF16, K3_BF16 = (1e-4, 1e-4), (1e-2, 1e-2), (1e-2, 1e-3)
-
         def check_k3_bwd(tag, args):
             """K3-bwd on ``args`` = (g, x, h, h', W, u) against its plain version:
             dx, dh against the plain version in float32 on the same operands,
@@ -772,17 +1264,27 @@ def main() -> int:
     # step (f32, remat "step+cascade", phase 4's model and weights)
     ts = train_target(2, 64, 64)
     small_batch = {"masked_kspace": ys, "sensitivity_maps": ss, "mask": ms, "target": ts}
-    for mode in ("psf1d", "full"):
-        cfg = dict(small, dc_mode=mode, remat_mode="step+cascade")
+    # the soft-DC tail (no_dc false; stack_intermediates off, so that the loss
+    # reads the tail's output and its backward runs: SENSE expand and reduce)
+    tail = {"no_dc": False, "stack_intermediates": False}
+    for mode, extra in (("psf1d", {}), ("full", {}), ("full_soft_dc", tail)):
+        cfg = dict(small, dc_mode=mode.split("_")[0], remat_mode="step+cascade", **extra)
         res = {}
         for where in (DEVICE, "cpu"):
             model = build_model(cfg, device=where)
-            model.load_state_dict(state_small)
+            # the tail's weights: 0.7 and 0.9
+            model.load_state_dict({**state_small, **{f"cirim.{i}.dc_weight": torch.tensor([0.7 + 0.2 * i])
+                                                     for i in range(small["num_cascades"]) if extra}})
             trainer = Trainer(model, optim_cfg=TRAIN_OPTIM, trainer_cfg=TRAIN_CFG, device=where)
             loss = trainer.training_batch(small_batch)["loss"]
-            res[where] = (float(loss), {k: p.grad.cpu() for k, p in model.named_parameters()},
+            # the cascades chain detached: with the tail's output as the loss's
+            # input, only the last cascade's parameters take a gradient
+            res[where] = (float(loss), {k: p.grad.cpu() for k, p in model.named_parameters() if p.grad is not None},
                           {k: p.detach().cpu() for k, p in model.named_parameters()})
         (l_dev, g_dev, p_dev), (l_cpu, g_cpu, p_cpu) = res[DEVICE], res["cpu"]
+        if sorted(g_dev) != sorted(g_cpu) or (extra and f"cirim.{small['num_cascades'] - 1}.dc_weight" not in g_dev):
+            raise AssertionError(f"train_small[{mode}]: gradients for {sorted(g_dev)} on the card, "
+                                 f"{sorted(g_cpu)} on the CPU")
         check(f"train_small_loss[{mode}]", torch.tensor(l_dev), torch.tensor(l_cpu), 2e-3, 2e-4)
         # gradients: rtol 2e-3, atol 1e-3 x max. float32 itself is no closer on
         # this model: the CPU path's float32 gradients lie up to 3.0e-4 x max
@@ -996,6 +1498,15 @@ def main() -> int:
         missing = [k for k in set().union(*PER_STEP.values()) if train_counts[k] == 0]
         if missing:
             raise AssertionError(f"kernels not launched on the training path: {missing}")
+
+    # V1-V4. E2EVN/VarNet (the CIRIM phases' operands freed first, so that
+    # V3's peak memory is the VarNet step's own)
+    t_vn = time.perf_counter()
+    captured.clear()
+    del k3_args, eta, mats, z0, y, sens, mask, target8, g, sk, mk, x, hprev, out, wt, hh, args
+    torch.cuda.empty_cache()
+    varnet_phases(dev, card, rows)
+    emit({"phase": "varnet", "seconds": time.perf_counter() - t_vn})
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})

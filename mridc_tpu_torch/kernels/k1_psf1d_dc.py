@@ -7,6 +7,10 @@ Stands for ``mridc_tpu/nn/dc.py:162-179`` ``log_likelihood_gradient_psf1d``:
 for an upstream g is ``d_eta = g[..., :2] + A(g[..., 2:]) / sigma^2`` and
 ``d_z0 = -g[..., 2:] / sigma^2``; the gradients with respect to ``sens``
 (needed only by learned sensitivity maps) and the operator are not ported.
+
+:func:`psf1d_normal` is the normal operator A alone (VarNet's psf1d q-term,
+``mridc_tpu/models/recon/vn.py:63-77``): channels 2:4 of the same kernels with
+z0 = 0 and sigma = 1.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from mridc_tpu_torch.kernels.common import check_operand, dense, device_of, refu
 from mridc_tpu_torch.nn.dc import log_likelihood_gradient_psf1d
 
 __all__ = ["psf1d_dc", "psf1d_dc_plain", "psf1d_dc_bwd", "psf1d_dc_bwd_plain", "bf16_setup", "f32_setup",
-           "SYMBOLS", "BWD_SYMBOLS"]
+           "psf1d_normal", "SYMBOLS", "BWD_SYMBOLS"]
 
 SYMBOLS = {torch.float32: "k1_psf1d_dc_f32", torch.bfloat16: "k1_psf1d_dc_bf16"}
 BWD_SYMBOLS = {torch.float32: "k1_psf1d_dc_bwd_f32", torch.bfloat16: "k1_psf1d_dc_bwd_bf16"}
@@ -144,3 +148,12 @@ def psf1d_dc(eta, sens, mats, z0, sigma: float = 1.0) -> torch.Tensor:
     ``eta`` and ``z0``."""
     device_of("psf1d_dc", eta, sens, mats, z0)
     return _Psf1dDC.apply(eta, sens, mats, z0, sigma)
+
+
+def psf1d_normal(u, sens, mats, zero) -> torch.Tensor:
+    """``A(u) = sum_c conj(s_c) C_w (s_c u)`` [B, H, W, 2] in the operands'
+    dtype: channels 2:4 of :func:`psf1d_dc` with ``z0 = zero`` (a zero
+    [B, H, W, 2] of that dtype, which the caller allocates once) and sigma 1;
+    differentiable in ``u`` (its gradient is A of the upstream, on K1's
+    backward kernels)."""
+    return psf1d_dc(u, sens, mats, zero, 1.0)[..., 2:]

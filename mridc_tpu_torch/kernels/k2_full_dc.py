@@ -1,19 +1,29 @@
-"""K2: the full-mask likelihood gradient and the SENSE reduction as kernel
-stages around cuFFT (``csrc/full_dc.cu``), forward and backward, and their
-plain versions.
+"""K2: the full-mask likelihood gradient and the SENSE expansion and reduction
+as kernel stages around cuFFT (``csrc/full_dc.cu``), forward and backward, and
+their plain versions.
 
-Stands for ``mridc_tpu/nn/dc.py:81-101`` ``log_likelihood_gradient`` and
-``:59-71`` ``sens_reduce`` (the SENSE init and the psf1d data term z0). The
-centering shifts are folded into the stages' indices, so no ``fftshift`` copy
-or ``torch.roll`` runs; the transforms are ``torch.fft`` on complex64:
+Stands for ``mridc_tpu/nn/dc.py:81-101`` ``log_likelihood_gradient``,
+``:44-56`` ``sens_expand`` and ``:59-71`` ``sens_reduce`` (the SENSE init, the
+psf1d data term z0, the soft-DC tails and VarNet's full route). The centering
+shifts are folded into the stages' indices, so no ``fftshift`` copy or
+``torch.roll`` runs; the transforms are ``torch.fft`` on complex64:
 
     full_dc     = reduce(ifft2(residual(fft2(expand(eta, s)), y, m)), s, eta)
-    sens_reduce = reduce(ifft2(load(y, m)), s)
+    sens_expand = fft2(expand(x, s))            [FFT order]
+    sens_reduce = reduce(ifft2(load(k, m)), s)
 
 With ``sh = n // 2`` on a centered axis (0 otherwise), the ifftshift of a
 transform's input reads index ``(i + sh) % n`` and the fftshift of its output
 reads ``(i + n - sh) % n``. Between the forward and the inverse transform the
 two shifts cancel for any n, so ``residual`` works in place on the FFT output.
+
+k-space order: a centered k-space tensor is the FFT's output fftshifted. With
+``fft_order=True``, :func:`sens_expand` returns and :func:`sens_reduce` takes
+k-space in the FFT's own order (the centered tensor ifftshifted;
+:func:`to_fft_order`), which saves the shift pass of each call; a caller that
+mixes k-space tensors elementwise only (VarNet's cascades) holds them all in
+that order. Otherwise :func:`sens_expand` fftshifts its output with the
+``load`` stage (``fftshift=True``) when centered.
 
 The eta -> grad map is ``S^H F^-1 M F S / sigma^2``, Hermitian in every mode,
 so the backward of :func:`full_dc` for an upstream g [B, H, W, 4] is the same
@@ -21,13 +31,19 @@ chain with y = 0 on ``g[..., 2:]``, its reduce adding ``g[..., :2]``:
 
     d_eta = reduce_acc(ifft2(apply_mask(fft2(expand(g[..., 2:], s)))), s, g)
 
+SENSE expansion and reduction are each other's adjoints up to the FFT's
+normalisation: the adjoint of ``fft2`` under ``norm`` is ``ifft2`` under the
+swapped one ("backward" <-> "forward", "ortho" itself), so
+
+    d_x (sens_expand) = reduce(ifft2(load(g)), s)   [ifft2 adjoint-normalised]
+    d_k (sens_reduce) = m * fft2(expand(g, s))       [fft2 adjoint-normalised]
+
 Each stage has a wrapper (plain version for CPU tensors, kernel for CUDA
 tensors) and a plain version written with the same index arithmetic as its
-kernel; :func:`full_dc` and :func:`sens_reduce` take the JAX-identical
-``nn/dc.py`` functions on the CPU and the stages on the card. :func:`full_dc`
-is differentiable in ``eta`` on both; the gradients with respect to y, the
-maps and the mask are not ported, nor is :func:`sens_reduce`'s backward on the
-card (it raises; the soft-DC tail trains on the CPU only).
+kernel; :func:`full_dc`, :func:`sens_expand` and :func:`sens_reduce` take the
+JAX-identical ``nn/dc.py`` functions on the CPU and the stages on the card.
+They are differentiable in ``eta``, the image and the k-space on both; the
+gradients with respect to y, the maps and the mask are not ported.
 """
 
 from __future__ import annotations
@@ -44,6 +60,8 @@ from mridc_tpu_torch.ops.fft import _norm
 
 __all__ = [
     "full_dc", "full_dc_plain", "full_dc_bwd", "full_dc_bwd_plain", "sens_reduce", "sens_reduce_plain",
+    "sens_reduce_bwd", "sens_reduce_bwd_plain", "sens_expand", "sens_expand_plain", "sens_expand_bwd",
+    "sens_expand_bwd_plain", "to_fft_order", "from_fft_order",
     "expand", "residual", "load", "reduce", "apply_mask", "reduce_acc",
     "expand_plain", "residual_plain", "load_plain", "reduce_plain", "apply_mask_plain", "reduce_acc_plain",
 ]
@@ -52,8 +70,18 @@ _F32 = (torch.float32,)
 _C64 = (torch.complex64,)
 
 
-def _shifts(h: int, w: int, centered: bool):
-    return (h // 2, w // 2) if centered else (0, 0)
+def _shifts(h: int, w: int, centered: bool, fftshift: bool = False):
+    """Index offsets of the ifftshift (or, with ``fftshift``, the fftshift)
+    over [H, W] on a centered axis pair; (0, 0) otherwise."""
+    if not centered:
+        return 0, 0
+    return ((h - h // 2) % h, (w - w // 2) % w) if fftshift else (h // 2, w // 2)
+
+
+def _adjoint_norm(normalization: str) -> str:
+    """The normalisation whose inverse FFT is the adjoint of the FFT under
+    ``normalization`` (and the other way round)."""
+    return {"backward": "forward", "forward": "backward", "ortho": "ortho"}[_norm(normalization)]
 
 
 def _gather(x: torch.Tensor, sh: int, sw: int) -> torch.Tensor:
@@ -88,10 +116,11 @@ def apply_mask_plain(k, mask, centered: bool) -> torch.Tensor:
     return _gather(torch.broadcast_to(mask, (b, 1, h, w)), sh, sw) * k
 
 
-def load_plain(y, mask: Optional[torch.Tensor], centered: bool) -> torch.Tensor:
-    """[B, C, H, W, 2] -> complex [B, C, H, W]: ifftshift(m * y) (m optional)."""
+def load_plain(y, mask: Optional[torch.Tensor], centered: bool, fftshift: bool = False) -> torch.Tensor:
+    """[B, C, H, W, 2] -> complex [B, C, H, W]: ifftshift(m * y) (m optional;
+    with ``fftshift``, the fftshift)."""
     b, _, h, w, _ = y.shape
-    sh, sw = _shifts(h, w, centered)
+    sh, sw = _shifts(h, w, centered, fftshift)
     q = _gather(torch.view_as_complex(y.contiguous()), sh, sw)
     return q if mask is None else _gather(torch.broadcast_to(mask, (b, 1, h, w)), sh, sw) * q
 
@@ -127,12 +156,49 @@ def full_dc_bwd_plain(g, sens, mask, sigma=1.0, fft_centered=False, fft_normaliz
     return g[..., :2] + back / sigma**2
 
 
+def _reorder_plain(kspace, centered: bool, fftshift: bool) -> torch.Tensor:
+    """Real-view k-space [..., H, W, 2] ifftshifted (centered -> FFT order) or
+    fftshifted (back), when centered."""
+    if not centered:
+        return kspace
+    return (torch.fft.fftshift if fftshift else torch.fft.ifftshift)(kspace, dim=(-3, -2))
+
+
 def sens_reduce_plain(kspace, sens, mask=None, fft_centered=False, fft_normalization="backward",
-                      spatial_dims: Sequence[int] = (-2, -1), coil_dim: int = 1) -> torch.Tensor:
-    """Plain PyTorch version: ``sens_reduce(mask * kspace)`` (mask optional)."""
+                      spatial_dims: Sequence[int] = (-2, -1), coil_dim: int = 1, fft_order: bool = False
+                      ) -> torch.Tensor:
+    """Plain PyTorch version: ``sens_reduce(mask * kspace)`` (mask optional;
+    ``fft_order``: kspace in FFT order, no mask)."""
+    kspace = _reorder_plain(kspace, fft_centered and fft_order, True)
     if mask is not None:
         kspace = dc.expand_rv_mask(mask) * kspace
     return dc.sens_reduce(kspace, sens, fft_centered, fft_normalization, spatial_dims, coil_dim)
+
+
+def sens_reduce_bwd_plain(g, sens, mask=None, fft_centered=False, fft_normalization="backward",
+                          fft_order: bool = False) -> torch.Tensor:
+    """Plain version of :func:`sens_reduce`'s backward: ``g`` [B, H, W, 2] ->
+    d_k = m * F(s g) [B, C, H, W, 2] with the adjoint's normalisation."""
+    k = dc.sens_expand(g, sens, fft_centered, _adjoint_norm(fft_normalization))
+    if mask is not None:
+        k = dc.expand_rv_mask(mask) * k
+    return _reorder_plain(k, fft_centered and fft_order, False)
+
+
+def sens_expand_plain(image, sens, fft_centered=False, fft_normalization="backward", fft_order: bool = False
+                      ) -> torch.Tensor:
+    """Plain PyTorch version: ``nn/dc.py``'s ``sens_expand`` ([B, H, W, 2] ->
+    [B, C, H, W, 2]), in FFT order with ``fft_order``."""
+    k = dc.sens_expand(image, sens, fft_centered, fft_normalization)
+    return _reorder_plain(k, fft_centered and fft_order, False)
+
+
+def sens_expand_bwd_plain(g, sens, fft_centered=False, fft_normalization="backward", fft_order: bool = False
+                          ) -> torch.Tensor:
+    """Plain version of :func:`sens_expand`'s backward: ``g`` [B, C, H, W, 2]
+    -> d_x = sum_c conj(s_c) F^H(g_c) [B, H, W, 2]."""
+    g = _reorder_plain(g, fft_centered and fft_order, True)
+    return dc.sens_reduce(g, sens, fft_centered, _adjoint_norm(fft_normalization))
 
 
 # ---- stage wrappers: plain version on the CPU, kernel on the card ----
@@ -205,17 +271,18 @@ def apply_mask(k, mask, centered: bool) -> torch.Tensor:
     return k
 
 
-def load(y, mask: Optional[torch.Tensor], centered: bool) -> torch.Tensor:
-    """Stage (load): complex64 [B, C, H, W] = ifftshift(m * y), m optional."""
+def load(y, mask: Optional[torch.Tensor], centered: bool, fftshift: bool = False) -> torch.Tensor:
+    """Stage (load): complex64 [B, C, H, W] = ifftshift(m * y), m optional;
+    with ``fftshift`` the fftshift (the FFT's output back to centered order)."""
     dev = device_of("full_dc.load", y, mask)
     if dev.type == "cpu":
-        return load_plain(y, mask, centered)
+        return load_plain(y, mask, centered, fftshift)
     b, c, h, w = _coil_dims("full_dc.load", y)
     check_operand("full_dc.load.y", y, (b, c, h, w, 2), _F32)
     m = None if mask is None else _mask_operand("full_dc.load.mask", mask, b, h, w)
     q = torch.empty((b, c, h, w), dtype=torch.complex64, device=dev)
     launch("full_dc", "k2_load", dev, y.data_ptr(), None if m is None else m.data_ptr(), q.data_ptr(),
-           b, c, h, w, *_shifts(h, w, centered))
+           b, c, h, w, *_shifts(h, w, centered, fftshift))
     return q
 
 
@@ -305,29 +372,143 @@ def full_dc(eta, y, sens, mask, sigma=1.0, fft_centered=False, fft_normalization
     return _FullDC.apply(eta, y, sens, mask, sigma, fft_centered, fft_normalization, tuple(spatial_dims), coil_dim)
 
 
-class _SensReduce(torch.autograd.Function):
-    """The card's SENSE reduction (load -> IFFT -> reduce); its backward is
-    not ported (ROADMAP.md, K2: the sens_reduce backward)."""
+def _kspace_in(name: str, kspace, mask, centered: bool, fft_order: bool) -> torch.Tensor:
+    """Real-view k-space in the caller's order -> the complex64 FFT-order
+    input of an inverse FFT, masked: the load stage where a shift or the mask
+    needs it, the tensor itself (viewed as complex) where nothing does."""
+    if fft_order or not (centered or mask is not None):
+        return torch.view_as_complex(dense(name, kspace))
+    return load(kspace, mask, centered)
+
+
+def _kspace_out(k: torch.Tensor, centered: bool, fft_order: bool) -> torch.Tensor:
+    """A forward FFT's complex64 output -> real-view k-space in the caller's
+    order (centered: fftshifted by the load stage)."""
+    if centered and not fft_order:
+        k = load(torch.view_as_real(k), None, True, fftshift=True)
+    return torch.view_as_real(k)
+
+
+def sens_expand_bwd(g, sens, fft_centered=False, fft_normalization="backward", fft_order: bool = False
+                    ) -> torch.Tensor:
+    """:func:`sens_expand`'s backward: ``g`` [B, C, H, W, 2] -> d_x [B, H, W, 2]
+    (plain version for CPU tensors; load, inverse FFT and reduce on the card)."""
+    dev = device_of("sens_expand_bwd", g, sens)
+    if dev.type == "cpu":
+        return sens_expand_bwd_plain(g, sens, fft_centered, fft_normalization, fft_order)
+    q = _kspace_in("sens_expand_bwd", g, None, fft_centered, fft_order)
+    return reduce(torch.fft.ifft2(q, norm=_adjoint_norm(fft_normalization)), sens, None, fft_centered)
+
+
+def sens_reduce_bwd(g, sens, mask=None, fft_centered=False, fft_normalization="backward", fft_order: bool = False
+                    ) -> torch.Tensor:
+    """:func:`sens_reduce`'s backward: ``g`` [B, H, W, 2] -> d_k [B, C, H, W, 2]
+    (plain version for CPU tensors; expand, FFT, mask and the shift back on
+    the card)."""
+    dev = device_of("sens_reduce_bwd", g, sens, mask)
+    if dev.type == "cpu":
+        return sens_reduce_bwd_plain(g, sens, mask, fft_centered, fft_normalization, fft_order)
+    k = torch.fft.fft2(expand(dense("sens_reduce_bwd", g), sens, fft_centered),
+                       norm=_adjoint_norm(fft_normalization))
+    if mask is not None:
+        k = apply_mask(k, mask, fft_centered)
+    return _kspace_out(k, fft_centered, fft_order)
+
+
+class _SensExpand(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, image, sens, fft_centered, fft_normalization, fft_order):
+        ctx.save_for_backward(sens)
+        ctx.args = (fft_centered, fft_normalization, fft_order)
+        if image.device.type == "cpu":
+            return sens_expand_plain(image, sens, fft_centered, fft_normalization, fft_order)
+        k = torch.fft.fft2(expand(image, sens, fft_centered), norm=_norm(fft_normalization))
+        return _kspace_out(k, fft_centered, fft_order)
 
     @staticmethod
-    def forward(ctx, kspace, sens, mask, fft_centered, fft_normalization):
-        p = torch.fft.ifft2(load(kspace, mask, fft_centered), norm=_norm(fft_normalization))
+    def backward(ctx, g):
+        refuse_grads("sens_expand", ctx.needs_input_grad, {1: "sens"})
+        (sens,) = ctx.saved_tensors
+        return sens_expand_bwd(g, sens, *ctx.args), None, None, None, None
+
+
+class _SensReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, kspace, sens, mask, fft_centered, fft_normalization, fft_order):
+        ctx.save_for_backward(sens, mask)
+        ctx.args = (fft_centered, fft_normalization, fft_order)
+        if kspace.device.type == "cpu":
+            return sens_reduce_plain(kspace, sens, mask, fft_centered, fft_normalization, fft_order=fft_order)
+        p = torch.fft.ifft2(_kspace_in("sens_reduce", kspace, mask, fft_centered, fft_order),
+                            norm=_norm(fft_normalization))
         return reduce(p, sens, None, fft_centered)
 
     @staticmethod
     def backward(ctx, g):
-        refuse_grads("sens_reduce (ROADMAP.md, K2: the sens_reduce backward)", ctx.needs_input_grad,
-                     {0: "kspace", 1: "sens", 2: "mask"})
-        return None, None, None, None, None
+        refuse_grads("sens_reduce", ctx.needs_input_grad, {1: "sens", 2: "mask"})
+        sens, mask = ctx.saved_tensors
+        return sens_reduce_bwd(g, sens, mask, *ctx.args), None, None, None, None, None
+
+
+def _check_order(name, mask, fft_order):
+    if fft_order and mask is not None:
+        raise ValueError(f"{name}: fft_order takes no mask (apply it to the k-space in FFT order first)")
+
+
+def sens_expand(image, sens, fft_centered=False, fft_normalization="backward", fft_order: bool = False
+                ) -> torch.Tensor:
+    """Multicoil k-space of a coil-combined image ([B, H, W, 2] -> [B, C, H, W,
+    2], in sens' dtype), centered when ``fft_centered`` unless ``fft_order``;
+    differentiable in the image."""
+    device_of("sens_expand", image, sens)
+    return _SensExpand.apply(image.to(sens.dtype).contiguous(), sens, fft_centered, fft_normalization, fft_order)
 
 
 def sens_reduce(kspace, sens, mask: Optional[torch.Tensor] = None, fft_centered=False,
                 fft_normalization="backward", spatial_dims: Sequence[int] = (-2, -1),
-                coil_dim: int = 1) -> torch.Tensor:
+                coil_dim: int = 1, fft_order: bool = False) -> torch.Tensor:
     """SENSE-combined image of ``mask * kspace`` ([B, C, H, W, 2] -> [B, H, W, 2]);
-    differentiable on the CPU only."""
+    ``fft_order``: kspace in FFT order (and no mask); differentiable in the
+    k-space."""
     dev = device_of("sens_reduce", kspace, sens, mask)
+    _check_order("sens_reduce", mask, fft_order)
     if dev.type == "cpu":
-        return sens_reduce_plain(kspace, sens, mask, fft_centered, fft_normalization, spatial_dims, coil_dim)
-    _check_layout("sens_reduce", spatial_dims, coil_dim)
-    return _SensReduce.apply(kspace, sens, mask, fft_centered, fft_normalization)
+        if (tuple(spatial_dims), coil_dim) != ((-2, -1), 1):
+            return sens_reduce_plain(kspace, sens, mask, fft_centered, fft_normalization, spatial_dims, coil_dim,
+                                     fft_order)
+    else:
+        _check_layout("sens_reduce", spatial_dims, coil_dim)
+    return _SensReduce.apply(kspace, sens, mask, fft_centered, fft_normalization, fft_order)
+
+
+class _Reorder(torch.autograd.Function):
+    """A permutation of centered k-space's [H, W] axes; its backward is the
+    inverse permutation."""
+
+    @staticmethod
+    def forward(ctx, kspace, fftshift):
+        ctx.fftshift = fftshift
+        return _reorder(kspace, fftshift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reorder(g, not ctx.fftshift), None
+
+
+def _reorder(kspace, fftshift: bool) -> torch.Tensor:
+    if kspace.device.type == "cpu":
+        return _reorder_plain(kspace, True, fftshift)
+    return torch.view_as_real(load(dense("reorder", kspace), None, True, fftshift))
+
+
+def to_fft_order(kspace, fft_centered: bool) -> torch.Tensor:
+    """Centered real-view k-space [B, C, H, W, 2] -> FFT order (ifftshift; the
+    load stage on the card), itself when not centered."""
+    device_of("to_fft_order", kspace)
+    return _Reorder.apply(kspace, False) if fft_centered else kspace
+
+
+def from_fft_order(kspace, fft_centered: bool) -> torch.Tensor:
+    """The inverse of :func:`to_fft_order` (fftshift)."""
+    device_of("from_fft_order", kspace)
+    return _Reorder.apply(kspace, True) if fft_centered else kspace

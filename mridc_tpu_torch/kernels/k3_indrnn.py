@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from mridc_tpu_torch.kernels.binding import launch, query
 from mridc_tpu_torch.kernels.common import check_operand, dense, device_of
+from mridc_tpu_torch.nn.layers import conv2d
 
 __all__ = ["indrnn", "indrnn_plain", "indrnn_bwd", "indrnn_bwd_plain", "bwd_setup", "SYMBOLS", "BWD_SYMBOLS"]
 
@@ -27,8 +28,9 @@ BWD_ROUTES = ("tensor cores", "wide")
 
 
 def indrnn_plain(x, h, weight, bias: Optional[torch.Tensor], hh) -> torch.Tensor:
-    """Plain PyTorch version (the CPU path and the kernel's oracle)."""
-    return F.relu(F.conv2d(x, weight, bias) + hh * h)
+    """Plain PyTorch version (the CPU path and the kernel's oracle; its
+    float32 convolution in full float32)."""
+    return F.relu(conv2d(x, weight, bias) + hh * h)
 
 
 def indrnn_bwd_plain(g, x, h, out, weight, hh):
@@ -38,7 +40,7 @@ def indrnn_bwd_plain(g, x, h, out, weight, hh):
     float64), as the kernel sums them."""
     gp = torch.where(out > 0, g, torch.zeros((), dtype=g.dtype))
     f, ci = weight.shape[0], weight.shape[1]
-    dx = F.conv2d(gp, weight.reshape(f, ci).t().reshape(ci, f, 1, 1))
+    dx = conv2d(gp, weight.reshape(f, ci).t().reshape(ci, f, 1, 1))
     dh = hh * gp
     acc = torch.promote_types(g.dtype, torch.float32)
     gs = gp.to(acc)

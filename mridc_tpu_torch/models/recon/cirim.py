@@ -38,9 +38,7 @@ class CIRIM(BaseReconModel):
     DC outputs across the cascade recompute) changes memory only and is
     ignored: the cascade recompute runs the DC again. ``scan_unroll``,
     ``lane_fold``, ``depth`` and ``train_pointwise_matmul`` shape the TPU
-    layout and are accepted and ignored. The soft-DC tail (``no_dc=False``)
-    trains on the CPU only: its SENSE reduction has no backward on the card
-    yet (ROADMAP.md, K2: the sens_reduce backward)."""
+    layout and are accepted and ignored."""
 
     def __init__(
         self,
@@ -155,10 +153,6 @@ class CIRIM(BaseReconModel):
         )
 
     def forward(self, y, sens, mask, init_pred=None, train: bool = False) -> ModelOutput:
-        if train and not self.no_dc and y.device.type != "cpu":
-            raise NotImplementedError(
-                "CIRIM: training the soft-DC tail (no_dc=False) needs the sens_reduce backward, not ported to the "
-                "card yet (ROADMAP.md, K2: the sens_reduce backward); it trains on the CPU")
         y, sens = y.contiguous(), sens.contiguous()
         mask = expand_mask(mask)
         b, _, h, w, _ = y.shape

@@ -10,15 +10,18 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from mridc_tpu_torch.models.recon.cirim import CIRIM
+from mridc_tpu_torch.models.recon.vn import VarNet
 from mridc_tpu_torch.utils.typecheck import resolve_device
 
 __all__ = ["MODEL_REGISTRY", "PENDING_MODELS", "build_model", "available_models"]
 
-MODEL_REGISTRY: Dict[str, Callable] = {"CIRIM": CIRIM.from_config, "RIM": CIRIM.from_config}
+MODEL_REGISTRY: Dict[str, Callable] = {
+    "CIRIM": CIRIM.from_config, "RIM": CIRIM.from_config,
+    "VN": VarNet.from_config, "VARNET": VarNet.from_config, "E2EVN": VarNet.from_config,
+}
 
-_M8, _M9, _M10, _M11, _M12 = "M8 (E2EVN)", "M9 (reconstruction zoo)", "M10 (quantitative)", "M11 (segmentation)", "M12 (multitask)"
+_M9, _M10, _M11, _M12 = "M9 (reconstruction zoo)", "M10 (quantitative)", "M11 (segmentation)", "M12 (multitask)"
 PENDING_MODELS: Dict[str, str] = {
-    **dict.fromkeys(("VN", "VARNET", "E2EVN"), _M8),
     **dict.fromkeys(
         (
             "ZF", "UNET", "CASCADENET", "CCNN", "CRNNET", "CRNN", "CS", "PICS", "JOINTICNET", "PROXIMALGRADIENT",
@@ -85,7 +88,8 @@ def build_model(cfg: Dict[str, Any], device=None, generator: Optional[torch.Gene
     if name not in MODEL_REGISTRY:
         raise ValueError(f"Unknown model_name {name!r}. Available: {sorted(MODEL_REGISTRY)}")
     if cfg.get("use_sens_net", False):
-        raise NotImplementedError("use_sens_net (learned sensitivity maps) is not ported yet: ROADMAP M8")
+        raise NotImplementedError("use_sens_net (learned sensitivity maps) is not ported yet: ROADMAP M8, its second "
+                                  "half (nn/sens.py, models/sens_wrapper.py and the maps' gradient of K1 and K2)")
     _check_knob_support(name, cfg)
     dev = resolve_device(device)
     return MODEL_REGISTRY[name](cfg, generator=generator).to(dev)

@@ -1,35 +1,48 @@
 """Shared NN building blocks (counterpart of ``mridc_tpu/nn/layers.py``):
-padded convolutions with a compute dtype.
+padded convolutions with a compute dtype, and instance normalisation.
 
 Layout: NCHW tensors in ``torch.channels_last`` memory format, which is
 physically NHWC like the JAX package's layout. Kernels are OIHW (the JAX
 package's HWIO transposed); parameters stay float32 and are cast to the
 compute dtype at each call, as flax's ``dtype=`` does.
+
+Precision: a float32 convolution runs in full float32, as the JAX package
+computes it, whatever ``torch.backends.cudnn.allow_tf32`` says (PyTorch's
+default lets cuDNN use TF32). The flag is read when a convolution runs, in
+the forward and again in the backward (autograd's convolution node does not
+record it), so :func:`conv2d` runs a float32 convolution under
+:func:`cudnn_float32` and hooks its autograd node to turn the flag off while
+the node runs. The node stays PyTorch's own, so a checkpoint's recompute
+still stops before a convolution whose output the backward does not need
+(a Python autograd Function would save its tensors only after running, and
+so run one more convolution per checkpointed region).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Conv", "ConvNonlinear", "as_torch_dtype", "activation", "replicate_pad", "fan_in_truncated_normal_"]
+__all__ = ["Conv", "ConvTranspose", "ConvNonlinear", "InstanceNorm", "as_torch_dtype", "activation", "conv2d",
+           "cudnn_float32", "replicate_pad", "fan_in_truncated_normal_"]
 
 # std of a unit normal cut at +-2, by which flax's truncated_normal divides
 TRUNC_STD = 0.87962566103423978
 
 
 def fan_in_truncated_normal_(
-    weight: torch.Tensor, scale: float, generator: Optional[torch.Generator] = None
+    weight: torch.Tensor, scale: float, generator: Optional[torch.Generator] = None, fan_in: Optional[int] = None
 ) -> torch.Tensor:
     """flax ``variance_scaling(scale, "fan_in", "truncated_normal")`` on an OIHW
     kernel: a normal with std s = sqrt(scale / fan_in) / TRUNC_STD cut at +-2s,
     whose variance is scale / fan_in (``kaiming_normal``: scale 2,
-    ``lecun_normal``: scale 1)."""
-    s = math.sqrt(scale / weight[0].numel()) / TRUNC_STD
+    ``lecun_normal``: scale 1). ``fan_in`` defaults to I*H*W of an OIHW kernel."""
+    s = math.sqrt(scale / (weight[0].numel() if fan_in is None else fan_in)) / TRUNC_STD
     return nn.init.trunc_normal_(weight, std=s, a=-2 * s, b=2 * s, generator=generator)
 
 
@@ -45,6 +58,50 @@ def as_torch_dtype(dtype) -> Optional[torch.dtype]:
 
 def _pair(v: Union[int, Tuple[int, int]]) -> Tuple[int, int]:
     return (v, v) if isinstance(v, int) else tuple(v)
+
+
+@contextlib.contextmanager
+def cudnn_float32():
+    """cuDNN's float32 convolutions in full float32 (TF32 off) inside, the
+    global flag restored after."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _hook_cudnn_float32(node) -> None:
+    """Turn cuDNN's TF32 flag off while autograd ``node`` runs (restored
+    after it)."""
+    prev = []
+
+    def off(grad_outputs):
+        prev.append(torch.backends.cudnn.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+
+    def restore(grad_inputs, grad_outputs):
+        torch.backends.cudnn.allow_tf32 = prev.pop()
+
+    node.register_prehook(off)
+    node.register_hook(restore)
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+           stride: Sequence[int] = (1, 1), padding: Sequence[int] = (0, 0), dilation: Sequence[int] = (1, 1),
+           transposed: bool = False) -> torch.Tensor:
+    """A 2D convolution (``transposed``: its transpose, output padding 0), in
+    full float32 for float32 operands whatever the global cuDNN flag says;
+    other dtypes take PyTorch's convolution as it is."""
+    args = (list(stride), list(padding), list(dilation), transposed, [0, 0], 1)
+    if x.dtype != torch.float32:
+        return torch.ops.aten.convolution(x, weight, bias, *args)
+    with cudnn_float32():
+        out = torch.ops.aten.convolution(x, weight, bias, *args)
+    if out.grad_fn is not None:
+        _hook_cudnn_float32(out.grad_fn)
+    return out
 
 
 def activation(x: torch.Tensor, nonlinear: Optional[str]) -> torch.Tensor:
@@ -81,10 +138,12 @@ class Conv(nn.Conv2d):
         fold_pad_mode: str = "zero",
     ):
         del pointwise_matmul, lane_fold, fold_pad_mode
-        pad = {"SAME": "same", "VALID": 0}[padding.upper()]
-        super().__init__(
-            in_features, features, _pair(kernel_size), dilation=_pair(kernel_dilation), padding=pad, bias=use_bias
-        )
+        if padding.upper() not in ("SAME", "VALID"):
+            raise ValueError(f"Conv padding must be SAME or VALID, got {padding!r}")
+        super().__init__(in_features, features, _pair(kernel_size), dilation=_pair(kernel_dilation), bias=use_bias)
+        # flax SAME at stride 1: d*(k-1) zeros, the smaller half first
+        total = [d * (k - 1) if padding.upper() == "SAME" else 0 for k, d in zip(self.kernel_size, self.dilation)]
+        self.pads = [(t // 2, t - t // 2) for t in total]
         self.compute_dtype = as_torch_dtype(dtype)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -96,7 +155,50 @@ class Conv(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
         bias = None if self.bias is None else self.bias.to(dt)
-        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+        x = x.to(dt)
+        if any(lo != hi for lo, hi in self.pads):
+            (th, bh), (lw, rw) = self.pads
+            x, pads = F.pad(x, (lw, rw, th, bh)), (0, 0)
+        else:
+            pads = tuple(lo for lo, _ in self.pads)
+        return conv2d(x, self.weight.to(dt), bias, (1, 1), pads, self.dilation)
+
+
+class ConvTranspose(nn.ConvTranspose2d):
+    """flax ``nn.ConvTranspose`` with ``padding="SAME"`` and kernel size equal
+    to its stride (each input pixel paints one k x k output patch), no bias.
+    The weight is torch's (in, out, kH, kW); flax applies its (kH, kW, in,
+    out) kernel unflipped, so the weight is flax's kernel transposed and
+    flipped in both spatial axes (:func:`mridc_tpu_torch.utils.params.hwio_to_iohw_flipped`).
+    ``dtype`` is the compute dtype."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 2, dtype=None):
+        super().__init__(in_features, features, kernel_size, stride=kernel_size, bias=False)
+        self.compute_dtype = as_torch_dtype(dtype)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """flax's ``lecun_normal`` on the (kH, kW, in, out) kernel: fan-in kH*kW*in."""
+        fan_in_truncated_normal_(self.weight, 1.0, generator, fan_in=self.in_channels * self.weight[0, 0].numel())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        return conv2d(x.to(dt), self.weight.to(dt), None, self.stride, (0, 0), (1, 1), transposed=True)
+
+
+class InstanceNorm(nn.Module):
+    """Per-sample, per-channel normalisation over the spatial axes of an NCHW
+    tensor (``mridc_tpu/nn/layers.py:InstanceNorm``: torch's InstanceNorm2d
+    without affine, eps 1e-5, population variance). The statistics are taken
+    in float32 whatever the input's dtype; the output is in the input's dtype."""
+
+    def __init__(self, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        var, mean = torch.var_mean(xf, dim=(2, 3), keepdim=True, correction=0)
+        return ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
 
 
 def replicate_pad(x: torch.Tensor, pad: int) -> torch.Tensor:

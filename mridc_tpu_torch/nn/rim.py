@@ -26,9 +26,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from mridc_tpu_torch.kernels.k2_full_dc import full_dc, sens_reduce
+from mridc_tpu_torch.kernels.k2_full_dc import full_dc, sens_expand, sens_reduce
 from mridc_tpu_torch.kernels.k1_psf1d_dc import psf1d_dc
-from mridc_tpu_torch.nn.dc import psf1d_gauss_mats, sens_expand, soft_dc
+from mridc_tpu_torch.nn.dc import psf1d_gauss_mats, soft_dc
 from mridc_tpu_torch.nn.layers import ConvNonlinear, as_torch_dtype
 from mridc_tpu_torch.nn.rnn_cells import make_cell
 
@@ -203,7 +203,7 @@ class RIMBlock(nn.Module):
 
         if not self.no_dc:
             # soft DC: project the estimate back to k-space with a learned weight
-            pred_k = sens_expand(eta, sens, self.fft_centered, self.fft_normalization, self.spatial_dims)
+            pred_k = sens_expand(eta, sens, self.fft_centered, self.fft_normalization)
             current_kspace = y - soft_dc(pred_k, y, mask, self.dc_weight) - pred_k
             eta = self._sens_reduce(current_kspace.contiguous(), sens)
         if return_hx:

@@ -1,5 +1,14 @@
 """Carry weights from the JAX package into the port.
 
+:func:`varnet_params_from_jax` and :func:`normunet_params_from_jax` are the
+inverses of ``import_varnet_params`` and ``import_normunet_params``: flax's
+``_VarNetBlock_{i}/{dc_weight, NormUnet_0/Unet_0/...}`` to the reference torch
+names (``cascades.{i}.dc_weight``, ``cascades.{i}.model.unet...``). flax
+numbers a Unet's ``ConvBlock_k`` in creation order (the down blocks, the
+bottleneck, the up blocks), its ``TransposeConvBlock_i`` from the bottom up,
+and the final 1x1 conv is ``Conv_0``. Every leaf is used once: a leaf left
+over or missing raises.
+
 :func:`cirim_params_from_jax` is the inverse of
 ``mridc_tpu/utils/torch_import.py:import_cirim_params``: it takes a flax CIRIM
 param tree (numpy arrays) and returns the port's ``state_dict``, whose keys are
@@ -21,13 +30,21 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["cirim_params_from_jax", "rim_block_params_from_jax", "hwio_to_oihw"]
+__all__ = ["cirim_params_from_jax", "rim_block_params_from_jax", "normunet_params_from_jax", "varnet_params_from_jax",
+           "hwio_to_oihw", "hwio_to_iohw_flipped"]
 
 _CELL_SCOPE = re.compile(r"^(IndRNNCell|ConvGRUCell|ConvMGUCell)_(\d+)$")
 
 
 def hwio_to_oihw(w: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.transpose(np.asarray(w), (3, 2, 0, 1)))
+
+
+def hwio_to_iohw_flipped(w: np.ndarray) -> np.ndarray:
+    """flax ``ConvTranspose`` (kH, kW, in, out), applied unflipped -> torch
+    ``ConvTranspose2d`` (in, out, kH, kW), which flips its kernel: transposed
+    and reversed along both spatial axes."""
+    return np.ascontiguousarray(np.transpose(np.asarray(w), (2, 3, 0, 1))[..., ::-1, ::-1])
 
 
 def _one_of(tree: Mapping, names, what: str):
@@ -38,7 +55,7 @@ def _one_of(tree: Mapping, names, what: str):
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=np.float32)))
+    return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
 def _block_state(block: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
@@ -98,4 +115,84 @@ def cirim_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     state: Dict[str, torch.Tensor] = {}
     for i in range(n):
         state.update(_block_state(slice_tree(block, i), f"cirim.{i}."))
+    return state
+
+
+class _Leaves:
+    """A flax subtree's leaves by path; :meth:`take` hands each out once and
+    :meth:`done` raises on any left over."""
+
+    def __init__(self, tree: Mapping, what: str):
+        self.what = what
+        self.leaves: Dict[str, np.ndarray] = {}
+
+        def walk(node, path):
+            for k, v in node.items():
+                if isinstance(v, Mapping):
+                    walk(v, f"{path}{k}/")
+                else:
+                    self.leaves[f"{path}{k}"] = np.asarray(v)
+
+        walk(tree, "")
+
+    def has(self, path: str) -> bool:
+        return path in self.leaves
+
+    def take(self, path: str) -> np.ndarray:
+        if path not in self.leaves:
+            raise KeyError(f"{self.what}: leaf {path!r} missing from the param tree")
+        return self.leaves.pop(path)
+
+    def done(self) -> None:
+        if self.leaves:
+            raise KeyError(f"{self.what}: leaves not used: {sorted(self.leaves)}")
+
+
+def _normunet_state(leaves: _Leaves, base: str, prefix: str) -> Dict[str, torch.Tensor]:
+    pools = 0
+    while leaves.has(f"{base}TransposeConvBlock_{pools}/ConvTranspose_0/kernel"):
+        pools += 1
+    if pools == 0:
+        raise KeyError(f"{leaves.what}: no {base}TransposeConvBlock_0 in the param tree")
+    state: Dict[str, torch.Tensor] = {}
+
+    def block(k, name):
+        for j, layer in ((0, 0), (1, 4)):
+            state[f"{prefix}unet.{name}.layers.{layer}.weight"] = _t(
+                hwio_to_oihw(leaves.take(f"{base}ConvBlock_{k}/Conv_{j}/kernel")))
+
+    for i in range(pools):
+        block(i, f"down_sample_layers.{i}")
+    block(pools, "conv")
+    for i in range(pools):
+        state[f"{prefix}unet.up_transpose_conv.{i}.layers.0.weight"] = _t(
+            hwio_to_iohw_flipped(leaves.take(f"{base}TransposeConvBlock_{i}/ConvTranspose_0/kernel")))
+        block(pools + 1 + i, f"up_conv.{i}" if i < pools - 1 else f"up_conv.{i}.0")
+    state[f"{prefix}unet.up_conv.{pools - 1}.1.weight"] = _t(hwio_to_oihw(leaves.take(f"{base}Conv_0/kernel")))
+    state[f"{prefix}unet.up_conv.{pools - 1}.1.bias"] = _t(leaves.take(f"{base}Conv_0/bias"))
+    return state
+
+
+def normunet_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Port :class:`~mridc_tpu_torch.nn.unet.NormUnet` state from a flax
+    ``NormUnet`` param tree (``{"Unet_0": ...}``, with or without ``"params"``)."""
+    leaves = _Leaves(_unwrap(tree), "NormUnet params")
+    state = _normunet_state(leaves, "Unet_0/", "")
+    leaves.done()
+    return state
+
+
+def varnet_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Port :class:`~mridc_tpu_torch.models.recon.vn.VarNet` ``state_dict``
+    from a flax VarNet param tree (either ``dc_mode``: they share it)."""
+    leaves = _Leaves(_unwrap(tree), "VarNet params")
+    state: Dict[str, torch.Tensor] = {}
+    i = 0
+    while leaves.has(f"_VarNetBlock_{i}/dc_weight"):
+        state[f"cascades.{i}.dc_weight"] = _t(leaves.take(f"_VarNetBlock_{i}/dc_weight"))
+        state.update(_normunet_state(leaves, f"_VarNetBlock_{i}/NormUnet_0/Unet_0/", f"cascades.{i}.model."))
+        i += 1
+    if i == 0:
+        raise KeyError("VarNet params: no _VarNetBlock_0/dc_weight in the param tree")
+    leaves.done()
     return state

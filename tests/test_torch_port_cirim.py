@@ -219,13 +219,41 @@ def test_rim_block_return_hx_matches_jax():
         _close(g.numpy(), np.asarray(w))
 
 
-def test_training_forward_is_not_ported_yet():
-    """The part of the training forward not ported yet: the soft-DC tail off
-    the CPU (its SENSE reduction has no backward on the card) raises and names
-    its ROADMAP item. The rest trains (tests/test_torch_port_train.py)."""
-    y, sens, mask = (torch.from_numpy(a) for a in _data(8, 8))
-    soft_dc = build_model(_cfg(no_dc=False), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, K2: the sens_reduce backward"):
-        soft_dc(*(a.to("meta") for a in (y, sens, mask)), train=True)
-    out = build_model(_cfg(), device="cpu")(y, sens, mask, train=True)
-    assert out.intermediates.requires_grad and out.prediction.requires_grad
+def test_soft_dc_tail_trains_like_jax_grad():
+    """The soft-DC tail (no_dc=False) in train mode: its SENSE expansion and
+    reduction are autograd Functions with a hand-written backward (the
+    adjoints, on K2's stages on the card, their plain versions here). With
+    stack_intermediates off the loss reads the last cascade's tail output, so
+    the backward runs through the tail; the loss and every gradient equal
+    jax.grad's (psf1d dc_mode, remat step+cascade)."""
+    from mridc_tpu.train.losses import process_reconstruction_loss as jloss
+    from mridc_tpu_torch.train.losses import process_reconstruction_loss
+
+    cfg = _cfg(dc_mode="psf1d", no_dc=False, remat_mode="step+cascade", stack_intermediates=False)
+    y, sens, mask = _data(16, 13, seed=3)
+    target = np.random.default_rng(4).standard_normal((B, 16, 13, 2)).astype(np.float32)
+    params = _jax_params(cfg, y, sens, mask, seed=6)
+    model = jax_build_model(cfg)
+
+    def loss_fn(p):
+        out = model.apply({"params": p}, jnp.asarray(y), jnp.asarray(sens), jnp.asarray(mask), train=True)
+        return jloss(out, jnp.asarray(target), "l1")
+
+    want_loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
+    want = cirim_params_from_jax(jax.tree_util.tree_map(np.asarray, grads))
+    port = build_model(cfg, device="cpu")
+    port.load_state_dict(cirim_params_from_jax(params))
+    out = port(*(torch.from_numpy(a) for a in (y, sens, mask)), train=True)
+    loss = process_reconstruction_loss(out, torch.from_numpy(target), "l1")
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss), rtol=RTOL)
+    last = f"cirim.{CASCADES - 1}.dc_weight"
+    assert float(want[last].abs().max()) > 0 and port.get_parameter(last).grad is not None
+    for k, p in port.named_parameters():
+        if p.grad is None:
+            # cascades chain detached, so only the last one reaches the loss:
+            # jax.grad gives exact zeros to the others
+            assert not k.startswith(f"cirim.{CASCADES - 1}.") and float(want[k].abs().max()) == 0, k
+            continue
+        np.testing.assert_allclose(p.grad.numpy(), want[k].numpy(), rtol=RTOL,
+                                   atol=ATOL * max(1.0, float(want[k].abs().max())))
