@@ -15,13 +15,18 @@ Phases (any failure raises; no phase catches its own):
   3. each kernel against its plain version on the card, at the flagship shapes
      (B=2, 15 coils, 320x320, 64 filters) and at an odd size; K1 forward
      and backward (both dtypes) also at one coil, W=200, H=40, W=368 and W=396
-     (the edges of their tiles), K1-f32 also at W=640 (its wide route); K3-f32
+     (the edges of their tiles), and at W=640 (both dtypes' wide routes,
+     each route printed); K3-f32
      also at 64 -> 128 and 128 -> 128 channels, at in-channels
      that are not a multiple of 8, and over a pixel count that no tile
      divides; K3-bwd (both dtypes) at 64 -> 64, 64 -> 128, 128 -> 128 and
      16 -> 8 channels over that count, float32 also at 128 -> 64, 136 -> 64,
      36 -> 64 and 34 -> 64 (both sides of its route boundary), each with its
-     launch setup;
+     launch setup; K3 forward and backward at widths its kernels take only
+     split (``kernels.k3_indrnn.plan``: bf16 48 -> 200, float32 64 -> 300,
+     bf16 320 -> 64) and with a 3x3 input kernel at dilation 2 (64 -> 64,
+     B=2, 320x320), in both dtypes, each plan printed and its launches
+     counted;
   4. a small CIRIM (15 coils, 64x64, 2 cascades x 3 steps, 64 filters) on the
      card against the same weights on the CPU, in both dc_modes;
   5. the main path: flagship CIRIM inference (bench.py's flagship_cfg: 5 x 8,
@@ -87,8 +92,8 @@ Phases (any failure raises; no phase catches its own):
      48 training and 16 validation slices) as ``data_f32_full`` (the
      config's train_ds: poisson2d, acceleration 10, f32, full DC; B=8) and
      ``data_bf16_psf1d`` (equispaced1d, acceleration 4, bf16 psf1d; B=24):
-     the host pipeline's ms per batch alone; ``Trainer.fit`` over 2 warm-up
-     and 3 timed steps fed by the plain loader, by ``Prefetcher`` (depth 2,
+     the host pipeline's ms per batch alone; ``Trainer.fit`` over 1 warm-up
+     and 2 timed steps (``D2_WARMUP``, ``D2_ITERS``) fed by the plain loader, by ``Prefetcher`` (depth 2,
      4 workers), by that plus ``DevicePrefetcher``, and by
      ``DeviceDatasetCache`` in its gathered epoch: ms per step, device idle
      share (one more, traced step), launches per step asserted against
@@ -99,7 +104,21 @@ Phases (any failure raises; no phase catches its own):
   D3. ``validate()`` and ``test()`` over the 16 validation slices with
      ``data_f32_full``'s trained weights: ms per slice, SSIM, PSNR and NMSE
      against the target, and the same metrics from the plain CPU path on the
-     same predictions, which must be equal.
+     same predictions, which must be equal;
+  L. the launch path: ``launch.run_from_config`` of
+     projects/reconstruction/conf/base_cirim_train.yaml as written
+     (``LAUNCH_CFG``) with its overrides printed (one epoch of ``L_STEPS``
+     = 24 steps, the phantom roots, ``trainer.profile_dir``), mode
+     ``train``, fed by D2's phantom
+     volumes in place of the h5 read (``launch_phase``), at the config's
+     batch size 1: L1 ``launch_f32_full`` (poisson2d, full DC) and L2
+     ``launch_f32_psf1d`` (equispaced1d, acceleration 4: psf1d): ms per step,
+     slices/s and peak memory beside D2's plain-loader step, launches per
+     step against ``fed_per_step``, the profiler's trace, the run dir
+     (config.yaml, hparams.yaml, top-k checkpoints, last, cirim.mridc); L1's
+     archive restored on the card tests as the trained model; a resumed fit
+     sent SIGTERM after its first step saves ``last`` there, and a third
+     resumes from it.
 
 The poisson2d masks of D1 and D2 (pure-Python dart throwing: minutes a mask
 at 320x320) are drawn at the start, in worker processes that run beside
@@ -234,20 +253,66 @@ D1_COILS, D1_HW, D1_VOLUMES, D1_SLICES, D1_BATCH = 4, 64, 2, 3, 2
 # threads of the prefetching modes, and the two runs: (dataset, model, batch,
 # phase 8's run whose PER_STEP they share)
 D2_TRAIN_VOLUMES, D2_SLICES, D2_VAL_SLICES, D2_WORKERS = 2, 24, 16, 4
+# D2's steps per feeding mode: 1 warm-up and 2 timed, so that the script
+# keeps within its time with phase L
+D2_WARMUP, D2_ITERS = 1, 2
 D2_RUNS = {
     "data_f32_full": (TRAIN_DS, dict(compute_dtype=None, dc_mode="full"), TRAIN_F32_BATCH, "train_f32_full"),
     "data_bf16_psf1d": (EQUISPACED_DS, {}, TRAIN_BATCH, "train_bf16_psf1d"),
 }
 D2_MODES = ("plain", "prefetch", "prefetch+device_prefetch", "device_cache_gathered")
 
+# L: projects/reconstruction/conf/base_cirim_train.yaml as written, a literal
+# so that the script needs no PyYAML (tests/test_torch_port_config.py holds it
+# equal to the YAML)
+LAUNCH_CFG = {
+    "pretrained": False, "checkpoint": None, "mode": "train",
+    "model": {
+        "coil_combination_method": "SENSE", "use_sens_net": False, "sens_chans": 8, "sens_pools": 4,
+        "sens_mask_type": "2D", "fft_centered": False, "fft_normalization": "backward", "spatial_dims": [-2, -1],
+        "coil_dim": 1, "complex_data": True, "log_images": True, "train_loss_fn": "l1", "val_loss_fn": "l1",
+        "optim": TRAIN_OPTIM, "train_ds": TRAIN_DS, "validation_ds": {**TRAIN_DS, "shuffle": False},
+        "test_ds": {**TRAIN_DS, "shuffle": False},
+        "model_name": "CIRIM", "recurrent_layer": "IndRNN", "conv_filters": [64, 64, 2], "conv_kernels": [5, 3, 3],
+        "conv_dilations": [1, 2, 1], "conv_bias": [True, True, False], "recurrent_filters": [64, 64, 0],
+        "recurrent_kernels": [1, 1, 0], "recurrent_dilations": [1, 1, 0], "recurrent_bias": [True, True, False],
+        "depth": 2, "time_steps": 8, "conv_dim": 2, "num_cascades": 5, "dimensionality": 2, "no_dc": True,
+        "keep_prediction": True, "accumulate_predictions": True,
+    },
+    "trainer": {"max_epochs": 20, "max_steps": -1, "accelerator": "tpu", "devices": -1, "precision": "highest",
+                "gradient_clip_val": 0.0, "log_every_n_steps": 50},
+    "exp_manager": {"exp_dir": "output", "name": "cirim", "create_tensorboard_logger": True,
+                    "resume_if_exists": False,
+                    "checkpoint_callback_params": {"monitor": "val_loss", "mode": "min", "save_top_k": 3},
+                    "ema": {"enable": False, "decay": 0.999}},
+}
+# the launch runs: overrides on top of LAUNCH_CFG (JSON values, which the
+# port's config reader parses without PyYAML), the phantom roots (with
+# poisson2d masks drawn beforehand, or none: the transform draws its 1D masks)
+# and phase 8's run whose launches per step (less the SENSE init) a step takes
+_DS_KEYS = ("train_ds", "validation_ds", "test_ds")
+L_RUNS = {
+    "launch_f32_full": ([], "phantom/poisson2d", "train_f32_full"),
+    "launch_f32_psf1d": ([f"model.{k}.mask_args.{a}={v}" for k in _DS_KEYS
+                          for a, v in (("type", '"equispaced1d"'), ("accelerations", "[4]"),
+                                       ("center_fractions", "[0.08]"))], "phantom/1d", "train_f32_psf1d"),
+}
+L_STEPS = 24  # training steps of a launch run (trainer.limit_train_batches): half of D2's 48 slices
+L_VAL_LIMIT = 2  # validation batches of the resumed runs
 
-def data_per_step(run: str) -> dict:
-    """Launches per training step of a D2 run: those of phase 8's run but
-    the SENSE init's (one ``k2_load`` and one ``k2_reduce``). The loader's
+
+def fed_per_step(phase8_run: str) -> dict:
+    """Launches per training step fed by the loader: those of phase 8's run
+    but the SENSE init's (one ``k2_load`` and one ``k2_reduce``). The loader's
     batches carry the transform's zero-filled ``initial_prediction``, and a
     given initial prediction starts the first cascade in its place."""
-    per = {k: v - (k in ("k2_load", "k2_reduce")) for k, v in PER_STEP[D2_RUNS[run][3]].items()}
+    per = {k: v - (k in ("k2_load", "k2_reduce")) for k, v in PER_STEP[phase8_run].items()}
     return {k: v for k, v in per.items() if v}
+
+
+def data_per_step(run: str) -> dict:
+    """Launches per training step of a D2 run (:func:`fed_per_step`)."""
+    return fed_per_step(D2_RUNS[run][3])
 
 # kernel against plain version (rtol, atol as a share of the largest
 # magnitude). float32: the kernel and cuBLAS/cuDNN in full float32 accumulate
@@ -1092,10 +1157,11 @@ def union_ms(prof) -> float:
     return busy / 1e3
 
 
-def data_phases(dev, card, rows, state, state_small, small, phase8, masks) -> None:
+def data_phases(dev, card, rows, state, state_small, small, phase8, masks) -> dict:
     """Phases D1-D3 (see the module docstring). ``state`` and ``state_small``
     are phases 5 and 4's weights, ``small`` phase 4's configuration, ``phase8``
-    phase 8's records by run, ``masks`` the futures of the poisson2d masks."""
+    phase 8's records by run, ``masks`` the futures of the poisson2d masks.
+    Returns D2's records by (run, feeding mode)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1185,7 +1251,7 @@ def data_phases(dev, card, rows, state, state_small, small, phase8, masks) -> No
     # D2. full width: the host pipeline alone, then fit in four feeding modes
     t_d = time.perf_counter()
     data_counts = {k: 0 for k in kernels.launch_counts()}
-    trained = None
+    trained, d2_recs = None, {}
     for name, (ds, model_over, batch, p8) in D2_RUNS.items():
         poisson = ds["mask_args"]["type"] == "poisson2d"
         train_masks = [mask_of(("d2", H, W, f"d2_{i}.h5")) for i in range(D2_TRAIN_VOLUMES)] if poisson else None
@@ -1222,7 +1288,7 @@ def data_phases(dev, card, rows, state, state_small, small, phase8, masks) -> No
                     raise AssertionError(f"{name}: the device cache did not populate in one epoch")
             model = build_model(cfg, device=dev)
             model.load_state_dict(state)
-            steps = TRAIN_WARMUP + TRAIN_ITERS + 1  # the last one traced
+            steps = D2_WARMUP + D2_ITERS + 1  # the last one traced
             trainer = Trainer(model, optim_cfg=TRAIN_OPTIM, trainer_cfg={"max_steps": steps, "max_epochs": 100},
                               device=dev)
             trainer.setup_optimization(num_samples=len(src), batch_size=batch)
@@ -1232,7 +1298,7 @@ def data_phases(dev, card, rows, state, state_small, small, phase8, masks) -> No
 
             def timed(b, step=step, marks=marks, prof=prof):
                 n = marks.setdefault("n", 0)
-                if n == TRAIN_WARMUP:
+                if n == D2_WARMUP:
                     torch.cuda.synchronize()
                     marks["t0"] = time.perf_counter()
                 if n == steps - 1:
@@ -1258,9 +1324,9 @@ def data_phases(dev, card, rows, state, state_small, small, phase8, masks) -> No
                 raise AssertionError(f"{name}/{mode}: {marks.get('n')} steps, {steps} expected")
             delta = {k: v for k, v in counts.items() if v}
             want = {k: v * steps for k, v in data_per_step(name).items()}
-            ms = (marks["t1"] - marks["t0"]) / TRAIN_ITERS * 1e3
+            ms = (marks["t1"] - marks["t0"]) / D2_ITERS * 1e3
             device_ms = union_ms(prof)
-            rec = {"d2": name, "mode": mode, "batch": batch, "steps_timed": TRAIN_ITERS, "ms_per_step": ms,
+            rec = {"d2": name, "mode": mode, "batch": batch, "steps_timed": D2_ITERS, "ms_per_step": ms,
                    "slices_per_s": batch / ms * 1e3, "device_ms_per_step": device_ms,
                    "device_idle_share": 1.0 - device_ms / ms, "traced_step_wall_ms": marks["traced_wall_ms"],
                    "launches_per_step": {k: v / steps for k, v in delta.items()},
@@ -1268,6 +1334,7 @@ def data_phases(dev, card, rows, state, state_small, small, phase8, masks) -> No
                    "phase8_synthetic": {k: phase8[p8][k] for k in ("batch", "ms_per_step", "slices_per_s")},
                    "card": card}
             emit(rec)
+            d2_recs[(name, mode)] = rec
             if delta != want:
                 raise AssertionError(f"{name}/{mode}: launches {delta} != expected {want}")
             for k, v in delta.items():
@@ -1314,6 +1381,174 @@ def data_phases(dev, card, rows, state, state_small, small, phase8, masks) -> No
     if not finite or len(preds) != 2 * -(-D2_VAL_SLICES // TRAIN_F32_BATCH):
         raise AssertionError(f"d3: metrics not finite or {len(preds)} prediction batches")
     emit({"phase": "D3", "seconds": time.perf_counter() - t_d})
+    return d2_recs
+
+
+def launch_phase(dev, card, rows, masks, d2_recs) -> None:
+    """Phase L: the launch path at full width, through the entry point a user
+    calls. ``run_from_config`` of LAUNCH_CFG (the flagship config as written)
+    with the overrides printed, mode ``train``: the initial validation, then
+    ``fit`` with the profiler window, validation-end checkpoints and the
+    archive at the end. L1 ``launch_f32_full`` (poisson2d: full DC, K2 and
+    K3-f32), L2 ``launch_f32_psf1d`` (equispaced1d, acceleration 4: psf1d DC,
+    K1-f32 and K3-f32).
+
+    The script needs no h5py: for the phase, the port's
+    ``data/factory.py:ReconstructionMRIDataset`` is replaced by a factory that
+    returns ``PhantomSource(volumes[root], transform)`` over D2's phantom
+    volumes (15 coils, 320x320; 48 training slices, of which a run takes
+    ``L_STEPS``, and 16 validation slices), with
+    their pre-drawn poisson2d masks for L1. Only the file read is replaced:
+    the transform, the loader and the rest of the path are the port's, and
+    ``tests/test_torch_port_launch.py`` holds the h5 read against mridc_tpu on
+    the CPU. Then L1's archive, restored with ``checkpoints.restore_model``,
+    tests as the trained model does; a second ``fit`` on L1's run dir
+    (``resume_if_exists``) gets SIGTERM after its first step, returns, and
+    saves ``last``; a third resumes from it."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import threading
+    from unittest import mock
+
+    import torch
+
+    from mridc_tpu_torch import kernels
+    from mridc_tpu_torch.data import factory
+    from mridc_tpu_torch.launch import run_from_config
+    from mridc_tpu_torch.train import checkpoints
+    from mridc_tpu_torch.train.config import apply_overrides, load_config
+    from mridc_tpu_torch.train.trainer import Trainer
+
+    t_l = time.perf_counter()
+    train = d_volumes("d2", D2_TRAIN_VOLUMES, D2_SLICES, COILS, H, W, seed=22,
+                      masks=[masks[("d2", H, W, f"d2_{i}.h5")].result()[0] for i in range(D2_TRAIN_VOLUMES)])
+    val = d_volumes("d2_val", 1, D2_VAL_SLICES, COILS, H, W, seed=23,
+                    masks=[masks[("d2", H, W, "d2_val_0.h5")].result()[0]])
+    unmasked = lambda v: {f: (*a[:3], None) for f, a in v.items()}  # noqa: E731
+    vols = {"phantom/poisson2d/train": train, "phantom/poisson2d/val": val,
+            "phantom/1d/train": unmasked(train), "phantom/1d/val": unmasked(val)}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_launch_"))
+    record = {"marks": [], "counts": [], "steps_before": [], "sigterm_after": None}
+    step = Trainer.training_batch
+
+    def recording(self, batch):
+        record["marks"].append(time.perf_counter())
+        record["steps_before"].append(self.state.step if self.state is not None else 0)
+        before = kernels.launch_counts()
+        out = step(self, batch)
+        after = kernels.launch_counts()
+        record["counts"].append({k: after[k] - before[k] for k in after if after[k] != before[k]})
+        if record["sigterm_after"] == len(record["marks"]):
+            timer = threading.Timer(0.0, os.kill, (os.getpid(), signal.SIGTERM))
+            timer.start()
+            timer.join()
+        return out
+
+    def source(root, transform, **_):
+        return PhantomSource(vols[root], transform)
+
+    def launch(overrides):
+        record.update(marks=[], counts=[], steps_before=[])
+        return run_from_config(apply_overrides(LAUNCH_CFG, overrides))
+
+    launch_counts = {k: 0 for k in kernels.launch_counts()}
+    try:
+        with mock.patch.object(factory, "ReconstructionMRIDataset", source), \
+                mock.patch.object(Trainer, "training_batch", recording):
+            for run_name, (extra, root, p8) in L_RUNS.items():
+                profile_dir = tmp / run_name / "profile"
+                overrides = ["trainer.max_epochs=1", f"trainer.limit_train_batches={L_STEPS}",
+                             f'model.train_ds.data_path="{root}/train"',
+                             f'model.validation_ds.data_path="{root}/val"', f'model.test_ds.data_path="{root}/val"',
+                             f'trainer.profile_dir="{profile_dir}"', f'exp_manager.exp_dir="{tmp / run_name}"', *extra]
+                emit({"phase": "L", "run": run_name, "config": "projects/reconstruction/conf/base_cirim_train.yaml",
+                      "overrides": overrides, "batch": 1, "card": card})
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                trainer, history = launch(overrides)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                for k, v in kernels.launch_counts().items():
+                    launch_counts[k] += v
+                want = fed_per_step(p8)
+                steps = len(record["marks"])
+                bad = [c for c in record["counts"] if c != want]
+                marks = record["marks"][10:]  # after the profiler window (steps 3-7) and its stop
+                ms = (marks[-1] - marks[0]) / (len(marks) - 1) * 1e3
+                run_dir = trainer.exp_manager.log_dir
+                traces = sorted(p.name for p in profile_dir.glob("*.json"))
+                ckpts = sorted(p.name for p in (run_dir / "checkpoints").iterdir())
+                files = sorted(p.name for p in run_dir.iterdir())
+                d2 = d2_recs[("data_f32_full", "plain")]
+                emit({"l": run_name, "batch": 1, "steps": steps, "ms_per_step": ms, "slices_per_s": 1e3 / ms,
+                      "steps_timed": len(marks) - 1, "seconds": seconds,
+                      "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "launches_per_step": record["counts"][-1], "history": history, "traces": traces,
+                      "checkpoints": ckpts, "run_dir": files,
+                      "d2_data_f32_full_plain": {k: d2[k] for k in ("batch", "ms_per_step", "slices_per_s")},
+                      "note": "ms per step between the starts of consecutive steps after the profiler window: the "
+                              "plain loader's host pipeline and the step, at the config's batch size 1",
+                      "card": card})
+                if steps != L_STEPS or bad:
+                    raise AssertionError(f"{run_name}: {steps} steps; launches per step {bad[:1]} != {want}")
+                if not traces or not history or not all(np.isfinite(v) for v in history[-1].values()):
+                    raise AssertionError(f"{run_name}: no trace in {profile_dir} or no finite history {history}")
+                need = {"config.yaml", "hparams.yaml", "checkpoints", "cirim.mridc"}
+                if not need <= set(files) or "last" not in ckpts or not any(c.isdigit() for c in ckpts):
+                    raise AssertionError(f"{run_name}: run dir {files}, checkpoints {ckpts}")
+                if run_name != "launch_f32_full":
+                    del trainer
+                    continue
+
+                # the archive (the best monitored weights: those of the one
+                # validation, the final ones) restored on the card tests as
+                # the trained model does
+                restored, _, _ = checkpoints.restore_model(run_dir / "cirim.mridc", device="cuda")
+                val_loader = factory.build_dataloader(load_config(run_dir / "config.yaml")["model"]["validation_ds"],
+                                                      load_config(run_dir / "hparams.yaml"), shuffle=False,
+                                                      device=dev)
+                got, _ = Trainer(restored, device=dev).test(val_loader)
+                want_recons, _ = trainer.test(val_loader)
+                check("launch_archive_restored_test", torch.from_numpy(np.stack([got[k] for k in sorted(got)])),
+                      torch.from_numpy(np.stack([want_recons[k] for k in sorted(want_recons)])), *F32,
+                      note=f"{len(got)} volume(s) of {D2_VAL_SLICES} slices")
+                del restored, val_loader, trainer
+
+                # SIGTERM after the first step of a resumed fit, then resume again
+                resume = overrides + ["exp_manager.resume_if_exists=true", f'exp_manager.version="{run_dir.name}"',
+                                      f"trainer.limit_val_batches={L_VAL_LIMIT}"]
+                emit({"phase": "L", "run": "sigterm", "overrides": resume[len(overrides):], "card": card})
+                record["sigterm_after"] = 1
+                before = signal.getsignal(signal.SIGTERM)
+                _, history2 = launch(resume)
+                record["sigterm_after"] = None
+                last = checkpoints.StepCheckpointer(run_dir / "checkpoints").restore_last()
+                resumed_at = record["steps_before"][0]
+                emit({"l": "sigterm", "resumed_at": resumed_at, "steps": len(record["marks"]), "history": history2,
+                      "last_step": int(last["step"]), "handler_restored": signal.getsignal(signal.SIGTERM) == before,
+                      "card": card})
+                if (resumed_at != steps or len(record["marks"]) != 1 or int(last["step"]) != steps + 1
+                        or not isinstance(history2, list) or signal.getsignal(signal.SIGTERM) != before):
+                    raise AssertionError(f"sigterm: resumed at {resumed_at}, {len(record['marks'])} steps, last at "
+                                         f"{int(last['step'])}, history {history2}")
+                _, history3 = launch(resume + [f"trainer.max_steps={steps + 3}"])
+                emit({"l": "resume_after_sigterm", "steps_before": record["steps_before"], "history": history3,
+                      "card": card})
+                if record["steps_before"] != [steps + 1, steps + 2]:
+                    raise AssertionError(f"resume: steps {record['steps_before']}, expected from {steps + 1}")
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r in rows:
+        r["launch_launches"] = launch_counts.get(r["name"], 0)
+    missing = [k for k in set().union(*(fed_per_step(p8) for *_, p8 in L_RUNS.values())) if launch_counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the launch path: {missing}")
+    emit({"phase": "L", "seconds": time.perf_counter() - t_l})
 
 
 def main() -> int:
@@ -1494,24 +1729,37 @@ def run(t_start, masks) -> int:
         # column tile divides (200); a height that no row tile divides (40);
         # the fastMRI widths on the narrower tiles: 368 (16-byte copies) and
         # 396 (bf16: W % 8 != 0, 4-byte copies of s_c and eta, plain operator
-        # loads; f32: 2 stages); f32 also at 640 (the wide route; the bf16
-        # kernel refuses it); bench.py's 1D mask. The f32 launch setup is
-        # printed for each
+        # loads; f32: 2 stages); 640 in both dtypes (the wide routes, one block
+        # a 32 x 64 tile: the operator is staged in chunks for every coil); bench.py's
+        # 1D mask. Each dtype's launch setup and route are printed for each
         for label, (b, c, h, w) in {"one_coil": (2, 1, 64, 64), "w200": (2, COILS, 64, 200),
                                     "h40": (2, COILS, 40, 64), "w368": (1, 4, 48, 368),
-                                    "w396": (1, 4, 48, 396), "w640": (1, 2, 40, 640)}.items():
+                                    "w396": (1, 4, 48, 396), "w640": (1, 2, 40, 640),
+                                    "w640_c4": (1, 4, 48, 640)}.items():
             y_e, sens_e, mask_e = (t(a) for a in bench_data(b, c, h, w, seed=6))
             operands = (rand(b, h, w, 2), sens_e, psf1d_gauss_mats(mask_e[:, 0, 0, :], True, "ortho"),
                         k2.sens_reduce_plain(y_e, sens_e, mask_e, True, "ortho"))
             for dt, tol in ((torch.float32, F32), (torch.bfloat16, K1_BF16)):
-                if dt == torch.bfloat16 and w > 480:
-                    continue
                 args = [a.to(dt) for a in operands]
                 sym = K1[dt]
                 errors[sym].append(check(f"{sym}[{label}]", kernels.psf1d_dc(*args, 0.7),
                                          rounded_once(kernels.psf1d_dc_plain, *args, 0.7), *tol))
                 check_k1_bwd(label, b, c, h, w, dt)
+                if label == "w640_c4":  # the wide routes' times beside their bounds (forward; the
+                    # backward reads g [.., 4] and writes [.., 2]: the same bytes but z0's)
+                    es = args[0].element_size()
+                    nbytes = es * (b * h * w * 2 + b * c * h * w * 2 + b * 3 * w * w + b * h * w * 2 + b * h * w * 4)
+                    dname = str(dt).replace("torch.", "")
+                    bms, by = bound(nbytes, {PRODUCTS[dname]: 6 * b * c * h * w * w, "float32": 17 * b * c * h * w})
+                    bargs = (rand(b, h, w, 4).to(dt), args[1], args[2], 0.7)
+                    emit({"kernel": sym, "route": "wide", "shape": [b, c, h, w],
+                          "ms": time_ms(lambda: kernels.psf1d_dc(*args, 0.7)),
+                          "plain_ms": time_ms(lambda: kernels.psf1d_dc_plain(*args, 0.7)),
+                          "bwd_ms": time_ms(lambda: k1mod.psf1d_dc_bwd(*bargs)),
+                          "bwd_plain_ms": time_ms(lambda: k1mod.psf1d_dc_bwd_plain(*bargs)),
+                          "bound_ms": bms, "bound_by": by, "card": card})
             emit({"k1_f32_launch": label, "shape": [b, c, h, w], **k1mod.f32_setup(b, h, w, dev), "card": card})
+            emit({"k1_bf16_launch": label, "shape": [b, c, h, w], **k1mod.bf16_setup(b, h, w, dev), "card": card})
 
         # K3-f32 at the other widths projects/ uses (64 -> 128, 128 -> 128: the
         # latter takes a narrower pixel tile to fit shared memory), at
@@ -1547,6 +1795,68 @@ def run(t_start, masks) -> int:
                 check_k3_bwd(f"{ci}->{fo}/2x33x35", tuple(a.to(dt) for a in (g, x, hprev, out, wt, hh)))
                 emit({"k3_bwd_launch": f"{ci}->{fo}/2x33x35", "dtype": str(dt),
                       **k3mod.bwd_setup(dt, 2 * 33 * 35, ci, fo, dev), "card": card})
+
+        # K3 at widths and input kernels its kernels refused before their calls
+        # were split (kernels.k3_indrnn.plan: out-channel chunks, in-channel
+        # chunks in the backward, zero padding, a larger input kernel's patch
+        # channels): bf16 48 -> 200 (out-channels past 128), float32 64 -> 300
+        # (past 256), bf16 320 -> 64 (the backward's in-channels past 256), and
+        # a 3x3 input kernel at dilation 2, 64 -> 64, at the flagship's B=2
+        # 320x320 (576 patch channels). Forward through kernels.indrnn against
+        # the plain cell; backward through indrnn_bwd on the gathered patch
+        # channels autograd hands it; each call's launches are its plan's, and
+        # each planned backward launch's route is the one k3_indrnn_bwd_setup
+        # reports
+        for label, (dt, ci, fo, k, dil, (b, h, w)) in {
+            "bf16_48->200": (torch.bfloat16, 48, 200, 1, 1, (2, 33, 35)),
+            "f32_64->300": (torch.float32, 64, 300, 1, 1, (2, 33, 35)),
+            "bf16_320->64": (torch.bfloat16, 320, 64, 1, 1, (2, 33, 35)),
+            "f32_3x3_d2_64->64": (torch.float32, 64, 64, 3, 2, (2, H, W)),
+            "bf16_3x3_d2_64->64": (torch.bfloat16, 64, 64, 3, 2, (2, H, W)),
+        }.items():
+            plan = k3mod.plan(dt, ci, fo, k)
+            bwd_dt = getattr(torch, plan.bwd_dtype)  # float32 for a bf16 cell split by out-channels
+            routes = [k3mod.bwd_setup(bwd_dt, b * h * w, c1 - c0, f1 - f0, dev)["route"]
+                      for (f0, f1), (c0, c1), _ in plan.bwd]
+            emit({"k3_plan": label, "shape": [b, ci, h, w], **plan.as_dict(), "bwd_setup_routes": routes,
+                  "card": card})
+            if routes != [r for *_, r in plan.bwd] or plan.f_pad != fo:
+                raise AssertionError(f"k3 plan {label}: routes {routes} on the card, plan {plan.as_dict()}")
+            tol = F32 if dt == torch.float32 else K3_BF16
+            x, hprev = cl(rand(b, ci, h, w)).to(dt), cl(rand(b, fo, h, w, positive=True)).to(dt)
+            wt, bias = (rand(fo, ci, k, k) / np.sqrt(ci * k * k)).to(dt), (rand(fo) * 0.1).to(dt)
+            hh = rand(1, fo, 1, 1, positive=True).to(dt)
+            binding.reset_launch_counts()
+            got = kernels.indrnn(x, hprev, wt, bias, hh, dilation=dil)
+            launched = kernels.launch_counts()[K3[dt]]
+            errors.setdefault(K3[dt], []).append(check(f"{K3[dt]}[{label}]", got, rounded_once(
+                kernels.indrnn_plain, x, hprev, wt, bias, hh, dil), *tol))
+            xp, wp = k3mod._patches(x, wt, dil, plan.ci_pad) if (k > 1 or plan.ci_pad != ci) else (x, wt)
+            out, g = cl(torch.relu(rand(b, fo, h, w))).to(dt), cl(rand(b, fo, h, w)).to(dt)
+            binding.reset_launch_counts()
+            check_k3_bwd(label, (g, cl(xp), hprev, out, wp, hh))
+            launched_bwd = kernels.launch_counts()[K3_BWD[bwd_dt]]
+            emit({"k3_plan_launches": label, "forward": launched, "backward": launched_bwd, "card": card})
+            # times beside bounds: the forward as a call of the cell (gather,
+            # padding and chunks included) reads x and h and writes h'; the
+            # backward on the patch channels reads x, h, h' and g and writes dx
+            # and dh; products on the dtype's tensor-core route
+            es, p_ = x.element_size(), b * h * w
+            fwd_bound = bound(es * p_ * (ci + 2 * fo), {PRODUCTS[plan.dtype]: 2 * p_ * plan.ci * fo})
+            bwd_bound = bound(es * p_ * 2 * (plan.ci_pad + 2 * fo), {PRODUCTS[plan.dtype]: 4 * p_ * plan.ci * fo})
+            bargs = (g, cl(xp), hprev, out, wp, hh)
+            emit({"kernel": f"k3_plan[{label}]", "ms": time_ms(lambda: kernels.indrnn(
+                      x, hprev, wt, bias, hh, dilation=dil), iters=5, warmup=1),
+                  "plain_ms": time_ms(lambda: kernels.indrnn_plain(x, hprev, wt, bias, hh, dil), iters=5, warmup=1),
+                  "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+                  "bwd_ms": time_ms(lambda: k3mod.indrnn_bwd(*bargs), iters=5, warmup=1),
+                  "bwd_plain_ms": time_ms(lambda: k3mod.indrnn_bwd_plain(*bargs), iters=5, warmup=1),
+                  "bwd_bound_ms": bwd_bound[0], "bwd_bound_by": bwd_bound[1], "launches": list(plan.launches),
+                  "card": card})
+            del got, x
+            if (launched, launched_bwd) != plan.launches:
+                raise AssertionError(f"k3 plan {label}: launched {(launched, launched_bwd)}, planned {plan.launches}")
+            del xp, wp, out, g
         torch.cuda.synchronize()
 
     # 4. small model: kernels on the card against the plain path on the CPU
@@ -1971,7 +2281,10 @@ def run(t_start, masks) -> int:
     emit({"phase": "varnet", "seconds": time.perf_counter() - t_vn})
 
     # D1-D3. training and evaluating from a dataset
-    data_phases(dev, card, rows, state, state_small, small, {r["run"]: r for r in train_recs}, masks)
+    d2_recs = data_phases(dev, card, rows, state, state_small, small, {r["run"]: r for r in train_recs}, masks)
+
+    # L. the launch path: training from the config file at full width
+    launch_phase(dev, card, rows, masks, d2_recs)
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})

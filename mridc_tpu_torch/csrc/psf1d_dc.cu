@@ -90,6 +90,9 @@
 //     columns, and adds them into a coil sum in float32 registers, in coil
 //     order: no atomics, the same result from run to run.
 //   - Outputs go out as 16-byte (forward) or 8-byte (backward) pairs of pixels.
+//   - Widths no 64 x 32 tile holds (W > 480) take the wide route, the first
+//     version's kernel (tc::wide, 32 x 64 tiles, the operator staged in
+//     32-deep chunks for every coil): the launcher picks the route by shape.
 //   - mma.sync, not wgmma: on an H100 the product alone (no copies, no
 //     conversion) takes ~0.15 ms at B=8, 4.6x its four products' time at
 //     the card's bf16 peak; wgmma with TMA-fed, warp-specialised stages is
@@ -654,6 +657,190 @@ __device__ __forceinline__ void pair_sync(int pair) {
   asm volatile("bar.sync %0, 64;\n" ::"r"(1 + pair) : "memory");
 }
 
+// The wide route: the first version's design, one block of 4 warps per 32
+// rows h x 64 columns u x example, for the widths whose operator rows no
+// on-chip tile holds (W > 480). The tile keeps no [W, W] operator row on
+// chip: it loops over coils and, inside, over 32-deep chunks of v, staging
+// x = s_c*eta (formed in float32, rounded once to bf16) and the chunk's rows
+// of the operator (Cr, and Ci = (Cr+Ci) - Cr rounded once, again for every
+// coil) through registers, loaded one chunk ahead, with a block barrier on
+// each side of each chunk's four real products. Its shared memory (20 KB,
+// static) does not depend on W, so every W has a route. The rounding points,
+// the float32 accumulation and the coil sum in coil order are the on-chip
+// kernel's; only the order of the v sums differs.
+namespace wide {
+
+constexpr int TM = 32;        // rows h per block
+constexpr int TN = 64;        // output columns u per block
+constexpr int TK = 32;        // v per staged chunk (two k16 steps)
+constexpr int LDS = TK + 8;   // shared-memory row stride in bf16: 20 words, fragment loads hit 32 banks
+constexpr int THREADS = 128;  // 4 warps: 2 (h) x 2 (u), 16 x 32 outputs each
+constexpr int SMEM = (2 * TM + 2 * TN) * LDS * 2;  // static shared memory, bytes
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
+
+// 8 consecutive bf16 from global memory, the first n of them valid (zeros
+// after); one 16-byte load when the row layout keeps it aligned
+__device__ __forceinline__ uint4 load8(const bf16* p, int n, bool vec) {
+  if (vec && n >= 8) return __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = (2 * i < n ? (uint32_t)q[2 * i] : 0u) | ((2 * i + 1 < n ? (uint32_t)q[2 * i + 1] : 0u) << 16);
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// eta at pixels pix .. pix + 3 (the first n / 2 valid): 16 bytes of a
+// [.., 2] eta, or (backward) channels 2:4 of g [.., 4], four 4-byte loads
+template <bool BWD>
+__device__ __forceinline__ uint4 load_eta(const bf16* e, size_t pix, int n, bool vec) {
+  if (!BWD) return load8(e + pix * 2, n, vec);
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) w[i] = 2 * i < n ? ld32(e + (pix + i) * 4 + 2) : 0u;
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// One chunk's global data in registers, from its load (issued before the
+// previous chunk's MMAs) to its conversion into shared memory: each thread
+// owns two 4-pixel pieces of the x chunk (eta and s_c) and two 8-value
+// pieces of each operator plane.
+struct Stage {
+  uint4 eta[2], sens[2], cr[2], cs[2];
+};
+
+template <bool BWD>
+__global__ void __launch_bounds__(THREADS) psf1d_dc_bf16_kernel(
+    const bf16* __restrict__ eta, const bf16* __restrict__ sens, const bf16* __restrict__ mats,
+    const bf16* __restrict__ z0, bf16* __restrict__ out, int C, int H, int W, float inv_sigma2) {
+  __shared__ __align__(16) bf16 xr_s[TM][LDS];  // A = x[h][v], row-major
+  __shared__ __align__(16) bf16 xi_s[TM][LDS];
+  __shared__ __align__(16) bf16 cr_s[TN][LDS];  // B = C[u][v]: C^T column-major
+  __shared__ __align__(16) bf16 ci_s[TN][LDS];
+
+  const int b = blockIdx.z, h0 = blockIdx.y * TM, u0 = blockIdx.x * TN;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, t4 = lane & 3;
+  const int wm = (warp >> 1) * 16, wn = (warp & 1) * 32;
+  const size_t HW = (size_t)H * W;
+  const bool vec = W % 8 == 0;  // 16-byte loads stay aligned on every row
+  const bf16* eta_b = eta + (size_t)b * HW * (BWD ? 4 : 2);  // backward: g
+  const bf16* cr_g = mats + (size_t)b * 3 * W * W;
+  const bf16* cs_g = cr_g + (size_t)W * W;
+  const int nv = (W + TK - 1) / TK, iters = C * nv;
+
+  auto load = [&](Stage& st, int it) {
+    const int c = it / nv, v0 = (it % nv) * TK;
+    const bf16* s_bc = sens + ((size_t)b * C + c) * HW * 2;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int q = tid + THREADS * k;
+      const int h = h0 + (q >> 3), v = v0 + 4 * (q & 7);
+      const int n = h < H ? 2 * clamp_n(W - v, 4) : 0;
+      const size_t pix = (size_t)(h < H ? h : 0) * W + v;
+      st.eta[k] = load_eta<BWD>(eta_b, pix, n, vec);
+      st.sens[k] = load8(s_bc + pix * 2, n, vec);
+      const int u = u0 + (q >> 2), vc = v0 + 8 * (q & 3);
+      const int m = u < W ? clamp_n(W - vc, 8) : 0;
+      const size_t oc = (size_t)(u < W ? u : 0) * W + vc;
+      st.cr[k] = load8(cr_g + oc, m, vec);
+      st.cs[k] = load8(cs_g + oc, m, vec);
+    }
+  };
+  auto store = [&](const Stage& st) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int q = tid + THREADS * k;
+      const uint32_t e[4] = {st.eta[k].x, st.eta[k].y, st.eta[k].z, st.eta[k].w};  // (re, im) per word
+      const uint32_t s[4] = {st.sens[k].x, st.sens[k].y, st.sens[k].z, st.sens[k].w};
+      float xr[4], xi[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        xr[i] = re_of(e[i]) * re_of(s[i]) - im_of(e[i]) * im_of(s[i]);
+        xi[i] = re_of(e[i]) * im_of(s[i]) + im_of(e[i]) * re_of(s[i]);
+      }
+      *reinterpret_cast<uint2*>(&xr_s[q >> 3][4 * (q & 7)]) = make_uint2(pack(xr[0], xr[1]), pack(xr[2], xr[3]));
+      *reinterpret_cast<uint2*>(&xi_s[q >> 3][4 * (q & 7)]) = make_uint2(pack(xi[0], xi[1]), pack(xi[2], xi[3]));
+      const uint32_t r[4] = {st.cr[k].x, st.cr[k].y, st.cr[k].z, st.cr[k].w};
+      const uint32_t c[4] = {st.cs[k].x, st.cs[k].y, st.cs[k].z, st.cs[k].w};
+      uint32_t ci[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ci[i] = pack(re_of(c[i]) - re_of(r[i]), im_of(c[i]) - im_of(r[i]));
+      *reinterpret_cast<uint4*>(&cr_s[q >> 2][8 * (q & 3)]) = st.cr[k];
+      *reinterpret_cast<uint4*>(&ci_s[q >> 2][8 * (q & 3)]) = make_uint4(ci[0], ci[1], ci[2], ci[3]);
+    }
+  };
+
+  float gr[4][4], gi[4][4], ar[4][4], ai[4][4];  // [n tile][accumulator register]
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) gr[n][j] = gi[n][j] = ar[n][j] = ai[n][j] = 0.f;
+
+  Stage st;
+  load(st, 0);
+  for (int it = 0; it < iters; ++it) {
+    store(st);
+    __syncthreads();
+    if (it + 1 < iters) load(st, it + 1);  // in flight during this chunk's MMAs
+#pragma unroll
+    for (int kk = 0; kk < TK; kk += 16) {
+      // A fragments: rows wm+g and wm+g+8, columns kk+2*t4 (+1) and +8
+      const bf16* pr = &xr_s[wm + g][kk + 2 * t4];
+      const bf16* pi = &xi_s[wm + g][kk + 2 * t4];
+      const uint32_t a_r[4] = {ld32(pr), ld32(pr + 8 * LDS), ld32(pr + 8), ld32(pr + 8 * LDS + 8)};
+      const uint32_t a_i[4] = {ld32(pi), ld32(pi + 8 * LDS), ld32(pi + 8), ld32(pi + 8 * LDS + 8)};
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        // B fragments: column (u) wn+8n+g, rows (v) kk+2*t4 (+1) and +8
+        const bf16* qr = &cr_s[wn + 8 * n + g][kk + 2 * t4];
+        const bf16* qi = &ci_s[wn + 8 * n + g][kk + 2 * t4];
+        const uint32_t br0 = ld32(qr), br1 = ld32(qr + 8);
+        const uint32_t bi0 = ld32(qi), bi1 = ld32(qi + 8);
+        mma_bf16(ar[n], a_r, br0, br1);
+        mma_bf16(ar[n], a_i, bi0 ^ SIGN2, bi1 ^ SIGN2);  // - xi * Ci
+        mma_bf16(ai[n], a_i, br0, br1);
+        mma_bf16(ai[n], a_r, bi0, bi1);
+      }
+    }
+    __syncthreads();
+
+    if (it % nv == nv - 1) {
+      // coil sum of conj(s_c) * (C s_c eta); accumulator register j of n tile n
+      // sits at row wm+g (+8 for j >= 2), column wn+8n+2*t4+(j&1)
+      const bf16* s_bc = sens + ((size_t)b * C + it / nv) * HW * 2;
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int h = h0 + wm + g + (j >= 2 ? 8 : 0), u = u0 + wn + 8 * n + 2 * t4 + (j & 1);
+          if (h < H && u < W) {
+            const size_t o = ((size_t)h * W + u) * 2;
+            const float sr = __bfloat162float(s_bc[o]), si = __bfloat162float(s_bc[o + 1]);
+            gr[n][j] += sr * ar[n][j] + si * ai[n][j];
+            gi[n][j] += sr * ai[n][j] - si * ar[n][j];
+          }
+          ar[n][j] = ai[n][j] = 0.f;
+        }
+    }
+  }
+
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int h = h0 + wm + g + (j >= 2 ? 8 : 0), u = u0 + wn + 8 * n + 2 * t4 + (j & 1);
+      if (h >= H || u >= W) continue;
+      if (BWD)
+        write_bwd(eta_b, out + (size_t)b * HW * 2, (size_t)h * W + u, gr[n][j], gi[n][j], inv_sigma2);
+      else
+        write_out(eta_b, z0 + (size_t)b * HW * 2, out + (size_t)b * HW * 4, (size_t)h * W + u, gr[n][j],
+                  gi[n][j], inv_sigma2);
+    }
+}
+
+}  // namespace wide
+
 // A tile is TM = 64 rows h by TN = 16 * WN columns u. Warp pair q owns rows
 // 16q .. 16q + 15; its warps take the left and right WN n tiles. Between the
 // block barriers at a tile's start (the operator and eta staged) the pairs
@@ -904,10 +1091,13 @@ __global__ void __launch_bounds__(THREADS) psf1d_dc_bf16_kernel(
 
 using Kernel = void (*)(const bf16*, const bf16*, const bf16*, const bf16*, bf16*, int, int, int, int, float);
 
-// a tile shape's kernel and shared memory at width W
+constexpr int ON_CHIP = 0, WIDE = 1;  // routes
+
+// a route's kernel (null for the wide route, launched on its own grid) and
+// its shared memory at width W
 struct Setup {
   Kernel kernel;
-  int threads, tm, tn;
+  int threads, tm, tn, route;
   size_t smem;
 
   bool fits() const { return smem <= (size_t)MAX_DYNAMIC_SMEM; }
@@ -918,23 +1108,25 @@ struct Setup {
 
 template <bool BWD, int WN>
 Setup make(int W) {
-  return {&psf1d_dc_bf16_kernel<BWD, WN>, THREADS, TM, 16 * WN, Layout(16 * WN, W).bytes()};
+  return {&psf1d_dc_bf16_kernel<BWD, WN>, THREADS, TM, 16 * WN, ON_CHIP, Layout(16 * WN, W).bytes()};
 }
 
-// 64 x 64 tiles; 64 x 32 where their shared memory would not fit (W > 320, up
-// to W = 480)
+// The route by shape alone: 64 x 64 tiles; 64 x 32 where their shared memory
+// would not fit (W > 320, up to W = 480); wider W takes the wide route.
 template <bool BWD>
 Setup pick(int W) {
-  Setup s = make<BWD, 4>(W);
-  if (!s.fits()) s = make<BWD, 2>(W);
-  return s;
+  const Setup tiles[] = {make<BWD, 4>(W), make<BWD, 2>(W)};
+  for (const Setup& s : tiles)
+    if (s.fits()) return s;
+  return {nullptr, wide::THREADS, wide::TM, wide::TN, WIDE, (size_t)wide::SMEM};
 }
 
 }  // namespace tc
 
 bool bad(int B, int C, int H, int W) { return B <= 0 || C <= 0 || H <= 0 || W <= 0 || B > 65535; }
 
-// the wide route's grid: one block a 32 x 64 tile
+// the wide routes' grid (both dtypes): one block a 32 x 64 tile
+static_assert(tf32::wide::TM == tc::wide::TM && tf32::wide::TN == tc::wide::TN, "one wide grid");
 dim3 wide_grid(int B, int H, int W) {
   return dim3((W + tf32::wide::TN - 1) / tf32::wide::TN, (H + tf32::wide::TM - 1) / tf32::wide::TM, B);
 }
@@ -965,14 +1157,18 @@ template <bool BWD>
 int launch_bf16(const void* eta, const void* sens, const void* mats, const void* z0, void* out, int B, int C, int H,
                 int W, float inv_sigma2, void* stream) {
   if (bad(B, C, H, W)) return (int)cudaErrorInvalidValue;
+  using tc::bf16;
   const tc::Setup s = tc::pick<BWD>(W);
-  if (!s.fits()) return (int)cudaErrorInvalidValue;
+  if (s.route == tc::WIDE) {
+    tc::wide::psf1d_dc_bf16_kernel<BWD><<<wide_grid(B, H, W), s.threads, 0, (cudaStream_t)stream>>>(
+        (const bf16*)eta, (const bf16*)sens, (const bf16*)mats, (const bf16*)z0, (bf16*)out, C, H, W, inv_sigma2);
+    return (int)cudaGetLastError();
+  }
   int device = 0, cap = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = s.cap(device, &cap);
   if (err != cudaSuccess) return (int)err;
   const int units = s.units(B, H, W);
-  using tc::bf16;
   s.kernel<<<units < cap ? units : cap, s.threads, s.smem, (cudaStream_t)stream>>>(
       (const bf16*)eta, (const bf16*)sens, (const bf16*)mats, (const bf16*)z0, (bf16*)out, B, C, H, W, inv_sigma2);
   return (int)cudaGetLastError();
@@ -1001,26 +1197,37 @@ extern "C" int k1_psf1d_dc_bwd_bf16(const void* g, const void* sens, const void*
   return launch_bf16<true>(g, sens, mats, nullptr, out, B, C, H, W, inv_sigma2, stream);
 }
 
-// Writes info[0..5] for k1_psf1d_dc_bf16 (bwd 0) or k1_psf1d_dc_bwd_bf16 (bwd 1)
-// at [B, H, W] on ``device``: blocks of the grid (one wave, at most one a
-// tile), shared memory a block in bytes, blocks an SM, threads a block, tile
-// rows h and tile columns u. Blocks 0 if the kernel does not take W; info[1]
-// is then the shared memory its narrowest tile would need.
+// Writes info[0..6] for k1_psf1d_dc_bf16 (bwd 0) or k1_psf1d_dc_bwd_bf16 (bwd 1)
+// at [B, H, W] on ``device``: blocks of the grid, shared memory a block in
+// bytes, blocks an SM, threads a block, tile rows h, tile columns u, and the
+// route (0: on chip, a persistent grid of one wave, at most one block a tile;
+// 1: wide, the first version's kernel, one block a tile). Every W has a route.
 extern "C" int k1_psf1d_dc_bf16_setup(int bwd, int B, int H, int W, int device, int* info) {
   const tc::Setup s = bwd ? tc::pick<true>(W) : tc::pick<false>(W);
-  for (int i = 0; i < 6; ++i) info[i] = 0;
-  info[1] = (int)s.smem;
-  if (bad(B, 1, H, W) || !s.fits()) return (int)cudaSuccess;
-  int cap = 0, sms = 0;
-  cudaError_t err = s.cap(device, &cap);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  for (int i = 0; i < 7; ++i) info[i] = 0;
+  if (bad(B, 1, H, W)) return (int)cudaSuccess;
+  int cap = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  const int units = s.units(B, H, W);
-  info[0] = units < cap ? units : cap;
-  info[2] = cap / (sms > 0 ? sms : 1);
+  if (s.route == tc::WIDE) {
+    const dim3 grid = wide_grid(B, H, W);
+    const void* kernel =
+        bwd ? (const void*)tc::wide::psf1d_dc_bf16_kernel<true> : (const void*)tc::wide::psf1d_dc_bf16_kernel<false>;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, s.threads, 0);
+    info[0] = (int)(grid.x * grid.y * grid.z);
+  } else {
+    err = s.cap(device, &cap);
+    const int units = s.units(B, H, W);
+    info[0] = units < cap ? units : cap;
+    per_sm = cap / (sms > 0 ? sms : 1);
+  }
+  if (err != cudaSuccess) return (int)err;
+  info[1] = (int)s.smem;
+  info[2] = per_sm;
   info[3] = s.threads;
   info[4] = s.tm;
   info[5] = s.tn;
+  info[6] = s.route;
   return (int)cudaSuccess;
 }
 

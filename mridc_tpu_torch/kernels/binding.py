@@ -76,10 +76,9 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
 # stream and is not counted
 QUERIES: Dict[str, Dict[str, tuple]] = {
     "psf1d_dc": {
-        # bwd (0 or 1), B, H, W, device index, out: int[6] (blocks, shared memory bytes, blocks per SM,
-        # threads, tile rows, tile columns)
+        # bwd (0 or 1), B, H, W, device index, out: int[7] (blocks, shared memory bytes, blocks per SM,
+        # threads, tile rows, tile columns, route: 0 on chip, 1 wide)
         "k1_psf1d_dc_bf16_setup": (_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)),
-        # the same, int[7]: and the route (0 on chip, 1 wide)
         "k1_psf1d_dc_f32_setup": (_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)),
     },
     "indrnn_bwd": {

@@ -58,29 +58,21 @@ def _setup(symbol: str, b: int, h: int, w: int, device: torch.device, bwd: bool,
     return _SETUPS[key]
 
 
-def bf16_setup(b: int, h: int, w: int, device: torch.device, bwd: bool = False) -> Dict[str, int]:
+def bf16_setup(b: int, h: int, w: int, device: torch.device, bwd: bool = False) -> Dict[str, object]:
     """The bf16 kernel's launch at [B, H, W] on ``device`` (cached): grid
-    blocks (0: W not taken), shared memory a block, blocks per SM, threads a
-    block, and the tile's rows h and columns u."""
-    return dict(zip(SETUP_KEYS, _setup("k1_psf1d_dc_bf16_setup", b, h, w, device, bwd, len(SETUP_KEYS))))
+    blocks, shared memory a block, blocks per SM, threads a block, the tile's
+    rows h and columns u, and its route: ``on_chip`` (the operator's tile rows
+    held in shared memory, W <= 480) or ``wide`` (the first version's kernel,
+    any W)."""
+    info = _setup("k1_psf1d_dc_bf16_setup", b, h, w, device, bwd, len(SETUP_KEYS) + 1)
+    return {**dict(zip(SETUP_KEYS, info)), "route": ROUTES[info[-1]]}
 
 
 def f32_setup(b: int, h: int, w: int, device: torch.device, bwd: bool = False) -> Dict[str, object]:
     """The float32 kernel's launch at [B, H, W] on ``device`` (cached), as
-    :func:`bf16_setup`, and its route: ``on_chip`` (the operator's tile rows
-    held in shared memory, W <= 416) or ``wide`` (the first version's kernel, any W)."""
+    :func:`bf16_setup`; its on-chip route takes W <= 416."""
     info = _setup("k1_psf1d_dc_f32_setup", b, h, w, device, bwd, len(SETUP_KEYS) + 1)
     return {**dict(zip(SETUP_KEYS, info)), "route": ROUTES[info[-1]]}
-
-
-def _check_width(name, dtype, w, dev, bwd):
-    """The bf16 kernel holds a tile's rows of the [W, W] operator in shared
-    memory, which bounds W (480); the float32 kernel takes any W (wider ones
-    on its wide route)."""
-    setup = bf16_setup(1, 1, w, dev, bwd) if dtype == torch.bfloat16 else None
-    if setup is not None and setup["blocks"] == 0:
-        raise ValueError(f"{name}: the bf16 kernel does not take W = {w}: its narrowest tile needs "
-                         f"{setup['smem_bytes']} bytes of shared memory, more than a block can have")
 
 
 def _shape(name, sens, dtype):
@@ -95,7 +87,6 @@ def _forward_kernel(eta, sens, mats, z0, sigma, dev) -> torch.Tensor:
     check_operand("psf1d_dc.eta", eta, (b, h, w, 2), dts)
     check_operand("psf1d_dc.mats", mats, (b, 3, w, w), dts)
     check_operand("psf1d_dc.z0", z0, (b, h, w, 2), dts)
-    _check_width("psf1d_dc", sens.dtype, w, dev, False)
     out = torch.empty((b, h, w, 4), dtype=sens.dtype, device=dev)
     launch(
         "psf1d_dc", SYMBOLS[sens.dtype], dev,
@@ -116,7 +107,6 @@ def psf1d_dc_bwd(g, sens, mats, sigma: float = 1.0) -> torch.Tensor:
     check_operand("psf1d_dc_bwd.sens", sens, (b, c, h, w, 2), dts)
     check_operand("psf1d_dc_bwd.g", g, (b, h, w, 4), dts)
     check_operand("psf1d_dc_bwd.mats", mats, (b, 3, w, w), dts)
-    _check_width("psf1d_dc_bwd", sens.dtype, w, dev, True)
     out = torch.empty((b, h, w, 2), dtype=sens.dtype, device=dev)
     launch("psf1d_dc", BWD_SYMBOLS[sens.dtype], dev, g.data_ptr(), sens.data_ptr(), mats.data_ptr(), out.data_ptr(),
            b, c, h, w, 1.0 / sigma**2)

@@ -1,0 +1,273 @@
+"""Entry point: ``python -m mridc_tpu_torch.launch --config-path conf
+--config-name x.yaml [k=v ...]`` (counterpart of ``mridc_tpu/launch.py``): the
+``model:/trainer:/exp_manager:/mode:`` config, ``mode: train`` validates and
+then fits, any other mode tests and writes the reconstructions.
+
+The run is on the card unless ``run_from_config`` is given ``device="cpu"``
+or the config says ``trainer.accelerator: cpu``; the configs' ``tpu`` means the
+card here. Reconstruction models only: the segmentation, multitask and
+quantitative branches raise, naming their ROADMAP.md items. ``pretrained:
+true`` takes a ``.mridc`` archive path, of the reference torch format or
+``mridc_tpu``'s.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+from pathlib import Path
+
+from mridc_tpu_torch.train.config import load_config, save_config
+from mridc_tpu_torch.utils.logging import get_logger
+
+logger = get_logger()
+
+__all__ = ["model_task", "run_from_config", "main", "maybe_init_distributed"]
+
+SEGMENTATION_MODELS = {
+    "SEGMENTATIONUNET", "SEGMENTATION2DUNET", "SEGMENTATION3DUNET",
+    "SEGMENTATIONATTENTIONUNET", "SEGMENTATIONLAMBDAUNET", "SEGMENTATIONVNET",
+    "SEGMENTATIONDYNUNET", "SEGMENTATIONUNETR",
+}
+MULTITASK_MODELS = {"MTLRS", "JRSCIRIM", "IDSLR", "IDSLRUNET", "SEGNET", "RECSEGNET", "RECSEGUNET", "SERANET"}
+_UNPORTED_TASKS = {"segmentation": "M11", "multitask": "M12", "quantitative": "M10"}
+
+
+def model_task(model_name: str) -> str:
+    name = str(model_name).upper()
+    if name in SEGMENTATION_MODELS:
+        return "segmentation"
+    if name in MULTITASK_MODELS:
+        return "multitask"
+    if name.startswith("Q"):
+        return "quantitative"
+    return "reconstruction"
+
+
+def _check_task(task: str) -> None:
+    if task in _UNPORTED_TASKS:
+        raise NotImplementedError(f"the {task} task is not ported to mridc_tpu_torch yet: ROADMAP.md "
+                                  f"{_UNPORTED_TASKS[task]}")
+
+
+def _build_task_loader(task, ds_cfg, model_cfg, shuffle, device):
+    from mridc_tpu_torch.data.factory import build_dataloader
+
+    _check_task(task)
+    return build_dataloader(ds_cfg, model_cfg, shuffle=shuffle, device=device)
+
+
+def maybe_init_distributed(trainer_cfg: dict, device):
+    """Join the process group from the standard env vars when the config asks
+    for several nodes or ``WORLD_SIZE`` > 1 (``parallel/multihost.py``)."""
+    from mridc_tpu_torch.parallel.multihost import initialize, process_info
+
+    num_nodes = trainer_cfg.get("num_nodes", 1)
+    if (num_nodes and num_nodes > 1) or int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        if initialize(device):
+            rank, count = process_info()
+            logger.info(f"torch.distributed initialized: process {rank}/{count}")
+
+
+_PSF1D_MASK_TYPES = {"random1d", "equispaced1d", "gaussian1d"}
+_PSF1D_MODELS = {"CIRIM", "RIM", "MTLRS", "JRSCIRIM", "VN", "E2EVN", "VARNET"}
+# VarNet's reduced-state psf1d cascade also needs the DC term and SENSE
+_PSF1D_VN_NAMES = {"VN", "E2EVN", "VARNET"}
+
+
+def _auto_dc_mode(model_cfg: dict) -> dict:
+    """``dc_mode: psf1d`` (the exact 1D-mask DC) when the data config
+    guarantees 1D column masks: every dataset block draws a 1D mask type,
+    loads no mask files and applies no partial-Fourier half-scan, and SSDU and
+    noise2recon are off. An explicit ``dc_mode`` wins."""
+    name = str(model_cfg.get("model_name", "")).upper()
+    if "dc_mode" in model_cfg or name not in _PSF1D_MODELS:
+        return model_cfg
+    if model_cfg.get("ssdu") or model_cfg.get("n2r"):
+        return model_cfg
+    if name in _PSF1D_VN_NAMES and (
+        model_cfg.get("no_dc") or str(model_cfg.get("coil_combination_method", "SENSE")).upper() != "SENSE"
+    ):
+        return model_cfg
+    blocks = [
+        model_cfg.get(k)
+        for k in ("train_ds", "validation_ds", "test_ds")
+        if isinstance(model_cfg.get(k), dict) and model_cfg[k].get("data_path")
+    ]
+    if not blocks:
+        return model_cfg
+    for ds in blocks:
+        mask_args = ds.get("mask_args") or {}
+        if str(mask_args.get("type", "")).lower() not in _PSF1D_MASK_TYPES:
+            return model_cfg
+        if ds.get("mask_path") or ds.get("half_scan_percentage") or ds.get("ssdu"):
+            return model_cfg
+    model_cfg = dict(model_cfg)
+    model_cfg["dc_mode"] = "psf1d"
+    logger.info("1D column masks detected: enabling dc_mode=psf1d (exact DC fast path)")
+    return model_cfg
+
+
+def _pretrained_state(ckpt):
+    """The weights of a ``pretrained: true`` checkpoint: a ``.mridc`` archive
+    path. Registered names and URLs are ``models/pretrained.py``'s (M13)."""
+    if ckpt in (None, "", "None", "null"):
+        raise ValueError("pretrained: true requires checkpoint: <path of a .mridc archive>")
+    if not Path(str(ckpt)).is_file():
+        raise NotImplementedError(f"checkpoint {ckpt!r} is not a file: registered pretrained names and URLs "
+                                  "(models/pretrained.py) are not ported to mridc_tpu_torch yet: ROADMAP.md M13")
+    from mridc_tpu_torch.train.checkpoints import load_archive
+
+    _, state = load_archive(str(ckpt))
+    logger.info(f"Loaded pretrained weights from {ckpt}")
+    return state
+
+
+def run_from_config(cfg: dict, device=None):
+    """Train (``mode: train``) or test a model from a run config; returns
+    ``(trainer, history)`` or ``(trainer, test metrics)``. On the card unless
+    ``device="cpu"`` or ``trainer.accelerator: cpu``."""
+    from mridc_tpu_torch.models import build_model
+    from mridc_tpu_torch.train.exp_manager import ExpManager
+    from mridc_tpu_torch.train.trainer import Trainer, _limit_batches
+    from mridc_tpu_torch.utils.typecheck import resolve_device
+
+    model_cfg = dict(cfg.get("model") or {})
+    trainer_cfg = dict(cfg.get("trainer") or {})
+    exp_cfg = dict(cfg.get("exp_manager") or {})
+    mode = cfg.get("mode", "train")
+    if device is None and str(trainer_cfg.get("accelerator", "")).lower() == "cpu":
+        device = "cpu"
+    dev = resolve_device(device)
+
+    task = model_task(model_cfg.get("model_name", ""))
+    _check_task(task)
+    maybe_init_distributed(trainer_cfg, dev)
+    model_cfg = _auto_dc_mode(model_cfg)
+    model = build_model(model_cfg, device=dev)
+
+    ckpt_params = exp_cfg.get("checkpoint_callback_params") or {}
+    exp = ExpManager(
+        exp_dir=exp_cfg.get("exp_dir", "experiments"),
+        name=exp_cfg.get("name", model_cfg.get("model_name", "run")),
+        version=exp_cfg.get("version"),
+        resume_if_exists=exp_cfg.get("resume_if_exists", False),
+        create_tensorboard_logger=exp_cfg.get("create_tensorboard_logger", False),
+        checkpoint_monitor=ckpt_params.get("monitor", "val_loss"),
+        checkpoint_mode=ckpt_params.get("mode", "min"),
+        save_top_k=ckpt_params.get("save_top_k", 3),
+        model_config=model_cfg,
+        map_location=dev,
+    )
+    save_config(cfg, exp.log_dir / "config.yaml")
+
+    ema_cfg = exp_cfg.get("ema")
+    if ema_cfg is True:  # `ema: true` shorthand for `ema: {enable: true}`
+        ema_cfg = {"enable": True}
+    use_ema = bool(ema_cfg.get("enable", False)) if isinstance(ema_cfg, dict) else False
+    trainer = Trainer(
+        model,
+        optim_cfg=model_cfg.get("optim"),
+        trainer_cfg=trainer_cfg,
+        loss_type=model_cfg.get("train_loss_fn", model_cfg.get("loss_fn", "l1")),
+        val_loss_type=model_cfg.get("val_loss_fn"),
+        use_ema=use_ema,
+        loss_regularization_factor=float(model_cfg.get("reconstruction_loss_regularization_factor", 1.0)),
+        exp_manager=exp,
+        ssdu=bool(model_cfg.get("ssdu", False)),
+        kspace_reconstruction_loss=bool(model_cfg.get("kspace_reconstruction_loss", False)),
+        log_images=bool(model_cfg.get("log_images", True)),
+        device=dev,
+    )
+    pretrained = _pretrained_state(cfg.get("checkpoint")) if cfg.get("pretrained") else None
+
+    def _first_batch(loader):
+        # a first batch of a fresh iteration, where the JAX launcher takes one
+        # (it advances a shuffled loader's epoch)
+        it = iter(loader)
+        next(it)
+        getattr(it, "close", lambda: None)()
+
+    def _install_pretrained(loader):
+        _first_batch(loader)
+        if trainer.schedule is None:
+            trainer.setup_optimization(num_samples=len(getattr(loader, "dataset", [])) or 1,
+                                       batch_size=getattr(loader, "batch_size", 1))
+        model.load_state_dict(pretrained)
+        trainer.init_state()
+
+    if mode == "train":
+        train_loader = _build_task_loader(task, model_cfg["train_ds"], model_cfg, True, dev)
+        val_ds = model_cfg.get("validation_ds")
+        val_loader = (_build_task_loader(task, val_ds, model_cfg, False, dev)
+                      if val_ds and val_ds.get("data_path") else None)
+        trainer.setup_optimization(num_samples=len(train_loader.dataset), batch_size=train_loader.batch_size)
+        if pretrained is not None:
+            _install_pretrained(train_loader)
+        if exp_cfg.get("resume_if_exists") and trainer.state is None:
+            # restore before the initial validation and fit, or a preempted
+            # run would restart from fresh weights in its own run dir
+            _first_batch(train_loader)
+            trainer.init_state()
+            exp.maybe_resume(trainer)
+        if val_loader is not None:
+            # the starting point on record: validate before fit
+            if trainer.state is None:
+                _first_batch(val_loader)
+                trainer.init_state()
+            initial = trainer.validate(val_loader,
+                                       limit=_limit_batches(trainer_cfg.get("limit_val_batches", 1.0), val_loader))
+            logger.info("initial validation: " + " ".join(f"{k}={v:.5f}" for k, v in initial.items()))
+            for k, v in initial.items():
+                exp.log_scalar(k, v, trainer.state.step)
+        history = trainer.fit(train_loader, val_loader, max_epochs=trainer_cfg.get("max_epochs", 1))
+        return trainer, history
+    # test / eval
+    test_loader = _build_task_loader(task, model_cfg["test_ds"], model_cfg, False, dev)
+    if trainer.state is None:
+        if pretrained is not None:
+            _install_pretrained(test_loader)
+        else:
+            _first_batch(test_loader)
+            trainer.setup_optimization()
+            trainer.init_state()
+            exp.maybe_resume(trainer)
+    recons, means = trainer.test(test_loader)
+    logger.info("Test metrics: " + " ".join(f"{k}={v:.4f}" for k, v in means.items()))
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError("writing the reconstructions (mode: test) needs h5py (pip install h5py)") from e
+    import numpy as np
+
+    out_dir = exp.log_dir / "reconstructions"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for fname, vol in recons.items():
+        with h5py.File(out_dir / fname, "w") as hf:
+            hf.create_dataset("reconstruction", data=np.asarray(vol))
+    return trainer, means
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="mridc_tpu_torch launcher")
+    parser.add_argument("--config-path", default=".", help="Directory containing the config file")
+    parser.add_argument("--config-name", required=True, help="YAML config file name")
+    parser.add_argument("overrides", nargs="*", help="key=value dotlist overrides")
+    parser.add_argument("--skip-validation", action="store_true",
+                        help="Skip structured-schema validation of trainer/optim/exp_manager blocks")
+    args = parser.parse_args(argv)
+
+    cfg_file = Path(args.config_path) / args.config_name
+    if not cfg_file.suffix:
+        cfg_file = cfg_file.with_suffix(".yaml")
+    cfg = load_config(cfg_file, args.overrides)
+    if not args.skip_validation:
+        from mridc_tpu_torch.train.schemas import validate_config
+
+        validate_config(cfg)
+    run_from_config(cfg)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

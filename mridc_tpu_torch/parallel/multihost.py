@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["process_info", "shard_indices", "all_sum_scalars", "reduce_mean_stats"]
+__all__ = ["process_info", "initialize", "shard_indices", "all_sum_scalars", "reduce_mean_stats"]
 
 
 def _distributed() -> bool:
@@ -35,6 +35,21 @@ def process_info() -> tuple:
     if not _distributed():
         return 0, 1
     return dist.get_rank(), dist.get_world_size()
+
+
+def initialize(device: torch.device) -> bool:
+    """Join the default process group from the standard env vars (``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``) when ``WORLD_SIZE`` > 1:
+    NCCL on the card (one device a process, by ``LOCAL_RANK``), gloo on the
+    CPU. False, and nothing done, for one process or a group already joined."""
+    import os
+
+    if _distributed() or int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return False
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo", init_method="env://")
+    return True
 
 
 def shard_indices(n: int, process_index: int, process_count: int) -> np.ndarray:

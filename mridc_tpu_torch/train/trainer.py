@@ -24,17 +24,29 @@ sets the next step's rate after each validation. Batches may come from any
 loader stage: numpy leaves are copied to the device, leaves already on it are
 taken as they are, and bfloat16/float16 leaves are upcast to float32 there.
 
+With an ``exp_manager`` (``train/exp_manager.py``) ``fit`` logs the training
+loss on logging steps, saves a top-k checkpoint and logs the metrics after
+each validation, logs target/reconstruction/error images of the first
+``log_images_limit`` validation batches when ``log_images`` is set, and saves
+``last`` and the ``.mridc`` archive when it ends. On SIGTERM ``fit`` ends after
+the step it is in, saves ``last`` (with an ``exp_manager``) and returns its
+history; the previous handler is put back. ``trainer_cfg["profile_dir"]``
+traces steps [``profile_start_step`` (3), + ``profile_steps`` (5)) with
+``torch.profiler`` into a Chrome trace there. :meth:`Trainer.state_dict` and
+:meth:`Trainer.load_state_dict` carry the model, optimizer, plateau
+scheduler, step, epoch and EMA weights (the step checkpoints).
+
 Not ported yet (each raises): the noise2recon and SSDU branches and gradient
-accumulation (ROADMAP.md M5), and the ``exp_manager`` hooks with
-checkpointing on SIGTERM (M7). The trainer runs on the CUDA device unless it
+accumulation (ROADMAP.md M5). The trainer runs on the CUDA device unless it
 is given ``device="cpu"``.
 """
 
 from __future__ import annotations
 
-import logging
+import signal
 import time
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
@@ -45,9 +57,10 @@ from mridc_tpu_torch.parallel.multihost import reduce_mean_stats
 from mridc_tpu_torch.train.losses import process_reconstruction_loss
 from mridc_tpu_torch.train.optim import get_optimizer, parse_optimizer_args
 from mridc_tpu_torch.train.schedulers import ReduceLROnPlateau, prepare_lr_schedule
+from mridc_tpu_torch.utils.logging import get_logger
 from mridc_tpu_torch.utils.typecheck import resolve_device
 
-logger = logging.getLogger("mridc_tpu_torch")
+logger = get_logger()
 
 __all__ = ["TrainState", "Trainer"]
 
@@ -125,14 +138,16 @@ class Trainer:
         exp_manager=None,
         ssdu: bool = False,
         kspace_reconstruction_loss: bool = False,
+        log_images: bool = True,
+        log_images_limit: int = 4,
         device=None,
     ):
         if ssdu:
             raise NotImplementedError("the SSDU training branch is not ported to mridc_tpu_torch yet: ROADMAP.md M5")
-        if exp_manager is not None:
-            raise NotImplementedError(
-                "the exp_manager hooks (logging, checkpoints, checkpointing on SIGTERM) are not ported to "
-                "mridc_tpu_torch yet: ROADMAP.md M7")
+        self.exp_manager = exp_manager
+        self.log_images = bool(log_images)
+        self.log_images_limit = int(log_images_limit)
+        self.epoch = 0
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.optim_cfg = dict(optim_cfg or {"name": "adam", "lr": 1e-3})
@@ -181,6 +196,33 @@ class Trainer:
             ema = {k: p.detach().clone() for k, p in self.model.named_parameters()}
         self.state = TrainState(step=0, optimizer=opt, ema_params=ema)
         return self.state
+
+    def state_dict(self) -> Dict:
+        """The training state a step checkpoint holds: the model's and the
+        optimizer's state dicts, the plateau scheduler's state, the step, the
+        epoch and the EMA weights."""
+        if self.state is None:
+            self.init_state()
+        return {
+            "model": self.model.state_dict(),
+            "optimizer": self.state.optimizer.state_dict(),
+            "scheduler": None if self.plateau is None else dict(vars(self.plateau)),
+            "step": self.state.step,
+            "epoch": self.epoch,
+            "ema": self.state.ema_params,
+        }
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Continue from a :meth:`state_dict` (on this trainer's device)."""
+        self.model.load_state_dict(state["model"])
+        self.init_state()
+        self.state.optimizer.load_state_dict(state["optimizer"])
+        self.state.step = int(state["step"])
+        self.epoch = int(state.get("epoch", 0))
+        if state.get("ema") is not None:
+            self.state.ema_params = {k: v.detach().to(self.device).clone() for k, v in state["ema"].items()}
+        if state.get("scheduler") is not None and self.plateau is not None:
+            vars(self.plateau).update(state["scheduler"])
 
     def _lr(self, step: int) -> float:
         if self.schedule is None:
@@ -331,53 +373,128 @@ class Trainer:
             sanity = self.validate(val_loader, limit=sanity_steps)
             logger.info("sanity check: " + " ".join(f"{k}={v:.5f}" for k, v in sanity.items()))
 
-        for epoch in range(max_epochs):
-            epoch_start = time.perf_counter()
-            losses = []
-            for batch_idx, batch in enumerate(train_loader):
+        # on SIGTERM (a preempted job) end after the current step, save "last"
+        # and return, so that resume_if_exists picks the run up
+        preempted = {"flag": False}
+
+        def _on_sigterm(signum, frame):  # noqa: ARG001
+            preempted["flag"] = True
+            logger.warning("SIGTERM received: checkpointing before exit")
+
+        try:
+            prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
+        except ValueError:
+            prev_handler = None  # not in the main thread: no handler
+
+        # trainer.profile_dir traces steps [profile_start_step, + profile_steps)
+        profile_dir = self.trainer_cfg.get("profile_dir")
+        profile_start = int(self.trainer_cfg.get("profile_start_step", 3))
+        profile_len = int(self.trainer_cfg.get("profile_steps", 5))
+        profiler = None
+
+        try:
+            for epoch in range(max_epochs):
+                self.epoch = epoch
+                epoch_start = time.perf_counter()
+                losses = []
+                for batch_idx, batch in enumerate(train_loader):
+                    if step >= max_steps:
+                        break
+                    if limit_train is not None and batch_idx >= limit_train:
+                        break
+                    if profile_dir is not None:
+                        if profiler is None and step == profile_start:
+                            profiler = self._start_profiler()
+                        elif profiler is not None and step >= profile_start + profile_len:
+                            self._stop_profiler(profiler, profile_dir, profile_start)
+                            profiler = None
+                    t0 = time.perf_counter()
+                    metrics = self.training_batch(batch)
+                    # the loss stays on the device: reading it would make the host
+                    # wait for the card every step
+                    losses.append(metrics["loss"])
+                    step += 1
+                    if step % log_every_n_steps == 0:
+                        loss = metrics["loss"].item()
+                        logger.info(f"epoch {epoch} step {step} loss {loss:.5f} "
+                                    f"step_time {time.perf_counter() - t0:.3f}s")
+                        if self.exp_manager is not None:
+                            self.exp_manager.log_scalar("train_loss", loss, step)
+                    if val_interval_steps and val_loader is not None and step % val_interval_steps == 0:
+                        val = self._run_validation(val_loader, step, limit_val)
+                        logger.info(f"step {step} validation: " + " ".join(f"{k}={v:.5f}" for k, v in val.items()))
+                    if step >= max_steps or preempted["flag"]:
+                        break
+                if preempted["flag"]:
+                    if self.exp_manager is not None:
+                        # the unmanaged "last": a save without a metric stays
+                        # out of the top-k bookkeeping
+                        self.exp_manager.checkpointer.save_last(self.state_dict())
+                    break
+                epoch_metrics = {
+                    "epoch": epoch,
+                    "train_loss": float(np.mean(_host(torch.stack(losses)))) if losses else float("nan"),
+                }
+                if val_loader is not None and (epoch + 1) % check_val_every == 0:
+                    epoch_metrics.update(self._run_validation(val_loader, step, limit_val))
+                logger.info(
+                    f"epoch {epoch} done in {time.perf_counter() - epoch_start:.1f}s: "
+                    + " ".join(f"{k}={v:.5f}" for k, v in epoch_metrics.items() if isinstance(v, float))
+                )
+                history.append(epoch_metrics)
                 if step >= max_steps:
                     break
-                if limit_train is not None and batch_idx >= limit_train:
-                    break
-                t0 = time.perf_counter()
-                metrics = self.training_batch(batch)
-                # the loss stays on the device: reading it would make the host
-                # wait for the card every step
-                losses.append(metrics["loss"])
-                step += 1
-                if step % log_every_n_steps == 0:
-                    loss = metrics["loss"].item()
-                    logger.info(f"epoch {epoch} step {step} loss {loss:.5f} step_time {time.perf_counter() - t0:.3f}s")
-                if val_interval_steps and val_loader is not None and step % val_interval_steps == 0:
-                    val = self._run_validation(val_loader, limit_val)
-                    logger.info(f"step {step} validation: " + " ".join(f"{k}={v:.5f}" for k, v in val.items()))
-                if step >= max_steps:
-                    break
-            epoch_metrics = {
-                "epoch": epoch,
-                "train_loss": float(np.mean(_host(torch.stack(losses)))) if losses else float("nan"),
-            }
-            if val_loader is not None and (epoch + 1) % check_val_every == 0:
-                epoch_metrics.update(self._run_validation(val_loader, limit_val))
-            logger.info(
-                f"epoch {epoch} done in {time.perf_counter() - epoch_start:.1f}s: "
-                + " ".join(f"{k}={v:.5f}" for k, v in epoch_metrics.items() if isinstance(v, float))
-            )
-            history.append(epoch_metrics)
-            if step >= max_steps:
-                break
+        finally:
+            if profiler is not None:
+                self._stop_profiler(profiler, profile_dir, profile_start)
+            if prev_handler is not None:
+                signal.signal(signal.SIGTERM, prev_handler)
+            if self.exp_manager is not None:
+                self.exp_manager.on_train_end(self)
         return history
 
-    def _run_validation(self, val_loader, limit_val=None) -> Dict[str, float]:
-        """Validate, then let ReduceLROnPlateau set the rate of the next steps
-        (shared by epoch-end and mid-epoch ``val_check_interval`` validation)."""
+    def _start_profiler(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler, profile_dir, start: int) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        path = Path(profile_dir) / f"trace_steps{start}-{self.state.step}.pt.trace.json"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        profiler.export_chrome_trace(str(path))
+        logger.info(f"Wrote profiler trace to {path}")
+
+    def _run_validation(self, val_loader, step: int, limit_val=None) -> Dict[str, float]:
+        """Validate, let ReduceLROnPlateau set the rate of the next steps, and
+        call the experiment manager's hook (shared by epoch-end and mid-epoch
+        ``val_check_interval`` validation)."""
         val = self.validate(val_loader, limit=limit_val)
         if self.plateau is not None:
             old_lr = self.plateau.lr
             self.plateau.update(val["val_loss"])
             if self.plateau.lr != old_lr:
                 logger.info(f"ReduceLROnPlateau: lr {old_lr:.2e} -> {self.plateau.lr:.2e}")
+        if self.exp_manager is not None:
+            self.exp_manager.on_validation_end(self, val, step)
         return val
+
+    def _maybe_log_val_images(self, batch_idx: int, target_mag: np.ndarray, pred_mag: np.ndarray):
+        """Target/reconstruction/|error| panels of the first two slices of the
+        first ``log_images_limit`` validation batches."""
+        if self.exp_manager is None or not self.log_images or batch_idx >= self.log_images_limit:
+            return
+        step = self.state.step if self.state is not None else 0
+        for i in range(min(target_mag.shape[0], 2)):
+            t, p = target_mag[i], pred_mag[i]
+            while t.ndim > 2:  # consecutive-slice volumes: the middle slice
+                t, p = t[t.shape[0] // 2], p[p.shape[0] // 2]
+            self.exp_manager.log_image_triplet(f"val/batch{batch_idx}_{i}", t, p, step)
 
     def validate(self, val_loader: Iterable, use_ema: Optional[bool] = None,
                  limit: Optional[int] = None) -> Dict[str, float]:
@@ -397,6 +514,7 @@ class Trainer:
             t = t / (t.max() or 1.0)
             p = p / (p.max() or 1.0)
             losses.append(_host_val_loss(t, p, self.val_loss_type))
+            self._maybe_log_val_images(batch_idx, t, p)
             for i in range(t.shape[0]):
                 metrics.push(t[i : i + 1], p[i : i + 1])
         # cross-process reduction (reference DistributedMetricSum sums metric

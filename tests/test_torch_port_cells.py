@@ -157,12 +157,22 @@ def test_cells_match_flax(kind, k, d):
     _close(got, want)
 
 
-def test_indrnn_larger_input_kernel_runs_plain_only_on_the_cpu():
-    """K3 takes a 1x1 input kernel: a 3x3 IndRNN cell is plain on CPU tensors
-    (checked against flax above) and raises on any other device."""
-    cell = tcells.make_cell("IndRNN", 6, 8, 3, 1, True).to("meta")
+def test_indrnn_larger_input_kernel_runs_plain_only_on_the_cpu(monkeypatch):
+    """A 3x3 IndRNN cell runs K3 on its gathered patch channels: on CPU
+    tensors each launch of its plan takes the plain version (checked against
+    flax above), and on a device that is neither the CPU nor a card it raises,
+    as every kernel wrapper does."""
+    from mridc_tpu_torch.kernels import k3_indrnn as k3
+
+    calls = []
+    orig = k3.indrnn_plain
+    monkeypatch.setattr(k3, "indrnn_plain", lambda *a, **kw: calls.append(a[2].shape) or orig(*a, **kw))
+    cell = tcells.make_cell("IndRNN", 6, 8, 3, 1, True)
+    cell(torch.randn(1, 6, 5, 5), torch.rand(1, 8, 5, 5))
+    assert calls == [(8, 54, 1, 1)] and k3.plan(torch.float32, 6, 8, 3).launches == (1, 1)
+    cell = cell.to("meta")
     x, h = torch.empty(1, 6, 5, 5, device="meta"), torch.empty(1, 8, 5, 5, device="meta")
-    with pytest.raises(NotImplementedError, match="K3"):
+    with pytest.raises(ValueError, match="meta"):
         cell(x, h)
 
 

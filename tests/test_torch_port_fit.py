@@ -197,9 +197,13 @@ def test_fit_initialises_from_a_first_batch_like_jax(dataset_dir):
 
 
 def test_unported_hooks_raise_with_their_roadmap_item():
+    """The exp_manager hooks are ported (M7): a Trainer takes one. The SSDU
+    branch and gradient accumulation still raise, naming M5."""
     model = build_model(_model_cfg("psf1d"), device="cpu")
-    with pytest.raises(NotImplementedError, match="M7"):
-        Trainer(model, exp_manager=object(), device="cpu")
+    em = object()
+    assert Trainer(model, exp_manager=em, device="cpu").exp_manager is em
+    with pytest.raises(NotImplementedError, match="M5"):
+        Trainer(model, ssdu=True, device="cpu")
     with pytest.raises(NotImplementedError, match="M5"):
         Trainer(model, trainer_cfg={"accumulate_grad_batches": 2}, device="cpu").fit([])
 
@@ -275,3 +279,88 @@ def test_chip_smoke_data_per_step_counts_hold_on_the_cpu_path(monkeypatch):
         assert counts == chip_smoke.data_per_step(name), name
         assert {k: v for k, v in counts.items() if not k.startswith("k2_")} == {
             k: v for k, v in chip_smoke.PER_STEP[p8].items() if not k.startswith("k2_")}
+
+
+def _hooked_trainer(dataset_dir, tmp_path, trainer_cfg, exp=True, writer=None):
+    """A small CIRIM trainer on the psf1d fixture data with an experiment
+    manager in ``tmp_path`` (its writer replaced by ``writer``)."""
+    from mridc_tpu_torch.train.exp_manager import ExpManager
+
+    train, val = _ds(dataset_dir, "psf1d")
+    cfg = _model_cfg("psf1d")
+    em = ExpManager(exp_dir=str(tmp_path), name="cirim", model_config=cfg) if exp else None
+    if writer is not None:
+        em.writer = writer
+    model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    tt = Trainer(model, optim_cfg=OPTIM, trainer_cfg=trainer_cfg, exp_manager=em, log_images_limit=1, device="cpu")
+    return tt, factory.build_dataloader(train, device="cpu"), factory.build_dataloader(val, device="cpu")
+
+
+def test_sigterm_ends_fit_returns_its_history_and_saves_last(dataset_dir, tmp_path):
+    """SIGTERM during step 1 (sent in this process): fit ends after that step,
+    returns its history, saves ``last`` at step 1, and puts the previous
+    handler back (F4)."""
+    import os
+    import signal
+
+    from mridc_tpu_torch.train.checkpoints import StepCheckpointer
+
+    tt, train, val = _hooked_trainer(dataset_dir, tmp_path, {"max_epochs": 2})
+    step = tt.training_batch
+    tt.training_batch = lambda b: (os.kill(os.getpid(), signal.SIGTERM), step(b))[1]
+    before = signal.getsignal(signal.SIGTERM)
+    history = tt.fit(train, val)
+    assert history == [] and tt.state.step == 1
+    assert signal.getsignal(signal.SIGTERM) is before
+    ckpt = StepCheckpointer(tt.exp_manager.checkpoint_dir)
+    assert int(ckpt.restore_last()["step"]) == 1
+    assert (tt.exp_manager.log_dir / "cirim.mridc").exists()
+
+
+def test_profile_dir_writes_a_trace(dataset_dir, tmp_path):
+    """trainer.profile_dir traces steps [profile_start_step, + profile_steps)
+    into a Chrome trace there, on the CPU too (F4)."""
+    tt, train, _ = _hooked_trainer(dataset_dir, tmp_path, {
+        "max_steps": 3, "profile_dir": str(tmp_path / "profile"), "profile_start_step": 1, "profile_steps": 1},
+        exp=False)
+    tt.fit(train)
+    traces = list((tmp_path / "profile").glob("*.json"))
+    assert len(traces) == 1 and traces[0].stat().st_size > 0
+
+
+class _Writer:
+    def __init__(self):
+        self.scalars, self.images = [], []
+
+    def add_scalar(self, tag, value, step):
+        self.scalars.append((tag, float(value), int(step)))
+
+    def add_image(self, tag, img, step, dataformats="CHW"):
+        self.images.append((tag, img.shape, int(step)))
+
+    def flush(self):
+        pass
+
+
+def test_exp_manager_logs_scalars_images_and_checkpoints(dataset_dir, tmp_path):
+    """With an experiment manager: train_loss on every logging step, the
+    validation metrics and a top-k checkpoint at each validation, image
+    triplets of the first log_images_limit batches, and at the end ``last``
+    and the archive of the best weights."""
+    writer = _Writer()
+    tt, train, val = _hooked_trainer(dataset_dir, tmp_path, {"max_epochs": 1, "log_every_n_steps": 1},
+                                     writer=writer)
+    tt.fit(train, val)
+    steps = tt.state.step
+    assert [s for t, _, s in writer.scalars if t == "train_loss"] == list(range(1, steps + 1))
+    val_tags = {t for t, _, s in writer.scalars if s == steps and t != "train_loss"}
+    assert val_tags == {"val_loss", "val_MSE", "val_NMSE", "val_PSNR", "val_SSIM"}
+    assert writer.images and all(t.startswith("val/batch0_") and shape[0] == 1 for t, shape, _ in writer.images)
+    ckpts = sorted(p.name for p in tt.exp_manager.checkpoint_dir.iterdir())
+    assert ckpts == sorted([str(steps), "last"])
+    from mridc_tpu_torch.train.checkpoints import restore_model
+
+    model, _, cfg = restore_model(tt.exp_manager.log_dir / "cirim.mridc", device="cpu")
+    assert cfg == _model_cfg("psf1d")
+    for k, v in tt.model.state_dict().items():
+        assert torch.equal(model.state_dict()[k], v), k

@@ -125,7 +125,9 @@ def _check(name, got, want):
     assert share < 1.0, name
 
 
-SHAPES = {"flagship_b1": (1, 15, 320, 320), "odd": (2, 3, 37, 45)}
+# w640: a width no on-chip tile holds, the wide route's (32 x 64 tiles, the
+# operator staged in 32-deep chunks: the same rounding points and 16-deep steps)
+SHAPES = {"flagship_b1": (1, 15, 320, 320), "odd": (2, 3, 37, 45), "w640": (1, 4, 24, 640)}
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -150,6 +152,39 @@ def test_k1_bf16_arithmetic_meets_its_limits(shape, direction):
         ref = g[..., :2] + torch.from_numpy(np.array(jax_a))
     _check(f"{tag} vs rounded_once(plain)", got, _bf(plain))
     _check(f"{tag} vs mridc_tpu float32", got, ref)
+
+
+def _bf16_on_chip_bytes(tn: int, w: int) -> int:
+    """Shared memory of the bf16 on-chip tile of 64 rows by ``tn`` columns at
+    width ``w`` (``csrc/psf1d_dc.cu``, ``tc::Layout``)."""
+    tk, lx, stages, pairs, tm = 32, 40, 2, 4, 64
+    kp = -(-w // tk) * tk
+    lk, le = kp + 8, 2 * tn + 16
+    per_pair = stages * 16 * tk * 2 + 2 * 2 * 16 * lx + 16 * le
+    return 2 * (2 * tn * lk + tm * kp * 2 + pairs * per_pair)
+
+
+@pytest.mark.parametrize("w", [320, 396, 480, 481, 640, 1024])
+def test_k1_bf16_route_by_width(w):
+    """Every W has a bf16 route: 64 x 64 tiles up to 320, 64 x 32 up to 480
+    (their operator rows in shared memory), the wide route above; the
+    wrapper refuses no width."""
+    fits = [tn for tn in (64, 32) if _bf16_on_chip_bytes(tn, w) <= 232448]
+    want = 64 if w <= 320 else 32 if w <= 480 else None
+    assert (fits[0] if fits else None) == want
+    assert not hasattr(k1, "_check_width")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [640, 1024])
+def test_k1_bf16_wide_route_setup_on_the_card(w):
+    """The launcher's setup query reports the wide route and a grid at W =
+    640 and 1024, forward and backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the setup query runs on the card")
+    for bwd in (False, True):
+        setup = k1.bf16_setup(2, 48, w, torch.device("cuda"), bwd)
+        assert setup["route"] == "wide" and setup["blocks"] == 2 * 2 * -(-w // 64), setup
 
 
 def test_k1_bf16_check_catches_a_plane_mix_up():

@@ -263,3 +263,110 @@ def test_f32_backward_arithmetic_meets_its_limits(cin, f, tp, terms):
         assert close["dx"] and close["dW"], close
     else:
         assert not close["dx"] and not close["dW"], close
+
+
+orig_fwd = k3.indrnn_plain  # the plain cell, before a test counts its calls
+
+# Widths the kernels refused before their calls were split (plan), and larger
+# input kernels: (dtype whose plan runs, in-channels, out-channels, kernel, dilation)
+PLAN_CASES = {
+    "bf16_48_200": (torch.bfloat16, 48, 200, 1, 1),
+    "f32_64_300": (torch.float32, 64, 300, 1, 1),
+    "bf16_bwd_320_64": (torch.bfloat16, 320, 64, 1, 1),
+    "f32_fwd_400_256": (torch.float32, 400, 256, 1, 1),
+    "bf16_pad_24_12": (torch.bfloat16, 24, 12, 1, 1),
+    "f32_pad_6_10": (torch.float32, 6, 10, 1, 1),
+    "f32_3x3_d1": (torch.float32, 64, 64, 3, 1),
+    "f32_3x3_d2": (torch.float32, 64, 64, 3, 2),
+    "bf16_3x3_d1": (torch.bfloat16, 64, 64, 3, 1),
+    "bf16_3x3_d2": (torch.bfloat16, 64, 64, 3, 2),
+}
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_planned_launches_equal_the_plain_cell(case, monkeypatch):
+    """The plan's data movement is exact: the patch gather, the zero padding
+    and the out- and in-channel chunks of ``case``'s dtype, each launch run by
+    the plain per-launch function on float32 CPU tensors, give the plain
+    cell's forward and every gradient (x, h, W, b, u) at rtol 1e-5 / atol 1e-6
+    of the largest magnitude; the launches are the plan's."""
+    dt, ci, f, k, d = PLAN_CASES[case]
+    p = k3.plan(dt, ci, f, k)
+    orig_plan = k3.plan
+    monkeypatch.setattr(k3, "plan", lambda _dt, *a: orig_plan(dt, *a))  # the case's plan on float32 operands
+    launches = {"fwd": 0, "bwd": 0}
+    for name, key in (("indrnn_plain", "fwd"), ("indrnn_bwd_plain", "bwd")):
+        fn = getattr(k3, name)
+        monkeypatch.setattr(k3, name, lambda *a, _fn=fn, _key=key, **kw: launches.__setitem__(
+            _key, launches[_key] + 1) or _fn(*a, **kw))
+    gen = torch.Generator().manual_seed(ci + f + k + d)
+    cl = torch.channels_last
+    x = torch.randn(2, ci, 9, 11, generator=gen).contiguous(memory_format=cl)
+    h = torch.rand(2, f, 9, 11, generator=gen).contiguous(memory_format=cl)
+    w = torch.randn(f, ci, k, k, generator=gen) / np.sqrt(ci * k * k)
+    b, u = torch.randn(f, generator=gen) * 0.1, torch.rand(1, f, 1, 1, generator=gen)
+    g = torch.randn(2, f, 9, 11, generator=gen)
+
+    def run(fn):
+        args = [t.clone().requires_grad_(True) for t in (x, h, w, b, u)]
+        out = fn(*args)
+        out.backward(g)
+        return [out.detach()] + [a.grad for a in args]
+
+    got = run(lambda *a: k3.indrnn(*a, dilation=d))
+    launches_seen = dict(launches)
+    want = run(lambda *a: orig_fwd(*a, dilation=d))
+    assert launches_seen == {"fwd": len(p.fwd), "bwd": len(p.bwd)}, (launches_seen, p.as_dict())
+    for name, a, e in zip(("out", "dx", "dh", "dW", "db", "du"), got, want):
+        assert a.shape == e.shape, name
+        np.testing.assert_allclose(a.numpy(), e.numpy(), rtol=1e-5, atol=1e-6 * max(1.0, float(e.abs().max())),
+                                   err_msg=f"{case}: {name}")
+
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ci", [64, 128])
+def test_flagship_widths_plan_one_launch(dt, ci):
+    """The flagship's 64 -> 64 and 128 -> 64 cells take one launch each way,
+    unpadded, on the tensor cores (phases 5, 8 and 9 count them)."""
+    p = k3.plan(dt, ci, 64)
+    assert p.launches == (1, 1) and (p.ci_pad, p.f_pad) == (ci, 64)
+    assert p.bwd[0][2] == "tensor cores"
+
+
+def test_refused_widths_plan_the_launches_chip_smoke_prints():
+    """The plans phase 3 runs on the card: chunks, padding and routes."""
+    p = k3.plan(torch.bfloat16, 48, 200)
+    # a bf16 backward split by out-channels would sum dx from bf16-rounded
+    # partials: it runs on the float32 kernel, dx rounded once
+    assert p.fwd == ((0, 104), (104, 200)) and p.bwd_dtype == "float32" and p.launches == (2, 1)
+    assert k3.plan(torch.float32, 64, 300).launches == (2, 2)
+    assert [c for _, c, _ in k3.plan(torch.bfloat16, 320, 64).bwd] == [(0, 160), (160, 320)]
+    p = k3.plan(torch.float32, 64, 64, 3)
+    assert p.ci == 576 and p.fwd == ((0, 32), (32, 64)) and {r for *_, r in p.bwd} == {"wide"}
+    p = k3.plan(torch.bfloat16, 64, 64, 3)
+    assert p.launches == (1, 3) and {r for *_, r in p.bwd} == {"tensor cores"}
+    assert k3.plan(torch.bfloat16, 24, 12).as_dict()["ci_pad"] == 32
+    with pytest.raises(ValueError, match="1192"):
+        k3.plan(torch.float32, 133, 64, 3)
+
+
+@pytest.mark.parametrize("dilation", [1, 2])
+def test_indrnn_3x3_cell_matches_flax(dilation):
+    """The IndRNN cell with a 3x3 input kernel (K3 on its patch channels)
+    against ``mridc_tpu``'s cell on the same weights, forward, rtol 1e-5 /
+    atol 1e-6 of the largest magnitude."""
+    b, hh_, ww, cin, f = 2, 7, 9, 16, 24
+    x, hid = _nhwc((b, hh_, ww, cin), 5), np.abs(_nhwc((b, hh_, ww, f), 6))
+    jmod = jcells.make_cell("IndRNN", f, 3, dilation, True)
+    params = jmod.init(jax.random.PRNGKey(4), jnp.asarray(x), jnp.asarray(hid))["params"]
+    params = jax.tree_util.tree_map(lambda a: np.asarray(a) * 10.0, params)
+    want = np.asarray(jmod.apply({"params": params}, jnp.asarray(x), jnp.asarray(hid)))
+    tmod = tcells.make_cell("IndRNN", cin, f, 3, dilation, True)
+    with torch.no_grad():
+        tmod.ih.weight.copy_(torch.from_numpy(hwio_to_oihw(np.array(params["Conv_0"]["kernel"]))))
+        tmod.ih.bias.copy_(torch.from_numpy(np.array(params["Conv_0"]["bias"])))
+        tmod.hh.copy_(torch.from_numpy(np.transpose(np.array(params["hh"]), (0, 3, 1, 2))))
+    to_port = lambda a: torch.from_numpy(a).permute(0, 3, 1, 2)  # noqa: E731
+    got = tmod(to_port(x), to_port(hid)).detach().permute(0, 2, 3, 1).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6 * max(1.0, float(np.abs(want).max())))

@@ -1,0 +1,144 @@
+"""Port parity: running from a config. ``python -m mridc_tpu_torch run -c
+projects/reconstruction/conf/base_cirim_train.yaml`` (the port's CLI) against
+``mridc_tpu.launch.run_from_config`` of the same config on the CPU, on
+``tests/fixtures.py:create_dataset`` h5 volumes, both starting from one
+``pretrained: true`` archive that ``mridc_tpu`` wrote.
+
+The config is cut to size by overrides (1 cascade, 2 time steps, 8 filters,
+4 coils, 32 x 32, one epoch). Per-step losses, the initial and final
+validation metrics and ``mode: test``'s written reconstructions are held at
+rtol 2e-3 / atol 2e-4 (``tests/test_torch_parity.py``'s tolerance); the run
+dirs hold the same file names. ``_auto_dc_mode`` and ``model_task`` agree
+with the JAX launcher's on every ``projects/`` config's model block.
+"""
+
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from mridc_tpu import launch as jlaunch
+from mridc_tpu.models import build_model as jax_build_model
+from mridc_tpu.train import checkpoints as jckpt
+from mridc_tpu.train import config as jconfig
+from mridc_tpu.train.trainer import Trainer as JTrainer
+from mridc_tpu_torch import cli, launch
+from mridc_tpu_torch.train.trainer import Trainer
+
+from fixtures import create_dataset
+
+ROOT = Path(__file__).resolve().parent.parent
+YAML = ROOT / "projects/reconstruction/conf/base_cirim_train.yaml"
+CONFIGS = sorted(ROOT.glob("projects/*/conf/*.yaml"))
+RTOL, ATOL = 2e-3, 2e-4
+SMALL = ["model.num_cascades=1", "model.time_steps=2", "model.conv_filters=[8,8,2]",
+         "model.recurrent_filters=[8,8,0]", "trainer.max_epochs=1", "trainer.log_every_n_steps=1",
+         "trainer.accelerator=cpu"]
+
+
+def _close(got, want, what=""):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL * max(1.0, float(np.abs(want).max())),
+                               err_msg=what)
+
+
+@pytest.fixture(scope="module")
+def setup(tmp_path_factory):
+    """Fixture volumes (train: 2 files, validation and test: 1 each; 2 slices,
+    4 coils, 32 x 32) and a ``mridc_tpu`` archive of the small CIRIM."""
+    root = tmp_path_factory.mktemp("port_launch")
+    for split, n, seed in (("train", 2, 0), ("val", 1, 1), ("test", 1, 2)):
+        create_dataset(root / split, n_files=n, slices=2, coils=4, h=32, w=32, seed=seed)
+    data = [f"model.train_ds.data_path={root / 'train'}", f"model.validation_ds.data_path={root / 'val'}",
+            f"model.test_ds.data_path={root / 'test'}"]
+    cfg = jconfig.load_config(YAML, SMALL + data)
+    model = jax_build_model(cfg["model"])
+    y = np.zeros((1, 4, 32, 32, 2), np.float32)
+    params = model.init(jax.random.PRNGKey(3), y, np.ones((1, 4, 32, 32, 2), np.float32),
+                        np.ones((1, 1, 32, 32, 1), np.float32))["params"]
+    params = jax.tree_util.tree_map(lambda a: np.asarray(a) * 1.0, params)
+    archive = jckpt.save_archive(root / "jax_cirim.mridc", cfg["model"], params)
+    return root, data + ["pretrained=true", f"checkpoint={archive}"]
+
+
+def _recording(monkeypatch, cls, losses, vals):
+    step, validate = cls.training_batch, cls.validate
+
+    def training_batch(self, batch):
+        out = step(self, batch)
+        losses.append(float(out["loss"]))
+        return out
+
+    def val(self, *a, **kw):
+        out = validate(self, *a, **kw)
+        vals.append(dict(out))
+        return out
+
+    monkeypatch.setattr(cls, "training_batch", training_batch)
+    monkeypatch.setattr(cls, "validate", val)
+
+
+def _run_dir(exp_dir):
+    (run,) = (Path(exp_dir) / "cirim").iterdir()
+    return run
+
+
+def test_config_run_matches_jax(setup, monkeypatch):
+    root, common = setup
+    runs = {}
+    for name, cls, run in (
+        ("jax", JTrainer, lambda o: jlaunch.run_from_config(jconfig.load_config(YAML, o))),
+        ("port", Trainer, lambda o: cli.main(["run", "-c", str(YAML), *o])),
+    ):
+        losses, vals = [], []
+        with monkeypatch.context() as m:
+            _recording(m, cls, losses, vals)
+            run(SMALL + common + [f"exp_manager.exp_dir={root / name}"])
+        runs[name] = (losses, vals)
+    (jl, jv), (pl, pv) = runs["jax"], runs["port"]
+    assert len(pl) == len(jl) == 4  # 2 volumes x 2 slices at batch 1
+    _close(pl, jl, "per-step losses")
+    assert len(pv) == len(jv) == 2  # the initial validation and the epoch's
+    for p, j in zip(pv, jv):
+        assert set(p) == set(j)
+        for k in j:
+            _close(p[k], j[k], k)
+    jdir, pdir = _run_dir(root / "jax"), _run_dir(root / "port")
+    assert sorted(p.name for p in pdir.iterdir()) == sorted(p.name for p in jdir.iterdir())
+    assert sorted(p.name for p in (pdir / "checkpoints").iterdir()) == sorted(
+        p.name for p in (jdir / "checkpoints").iterdir())
+    # the port's config.yaml and hparams.yaml (JSON text) read back as written
+    assert jconfig.load_config(pdir / "config.yaml") == launch.load_config(pdir / "config.yaml")
+    assert jconfig.load_config(pdir / "hparams.yaml")["model_name"] == "CIRIM"
+
+
+@pytest.mark.parametrize("path", CONFIGS, ids=lambda p: f"{p.parent.parent.name}/{p.stem}")
+def test_auto_dc_mode_and_task_match_jax(path):
+    model = jconfig.load_config(path).get("model") or {}
+    model = {**model, **{k: {**model[k], "data_path": "/data"} for k in ("train_ds", "validation_ds", "test_ds")
+                         if isinstance(model.get(k), dict)}}
+    assert launch._auto_dc_mode(dict(model)) == jlaunch._auto_dc_mode(dict(model))
+    assert launch.model_task(model.get("model_name", "")) == jlaunch.model_task(model.get("model_name", ""))
+
+
+@pytest.mark.parametrize("name,item", [("SEGMENTATIONUNET", "M11"), ("MTLRS", "M12"), ("QCIRIM", "M10")])
+def test_unported_tasks_raise_naming_their_item(name, item):
+    cfg = {"model": {"model_name": name}, "trainer": {"accelerator": "cpu"}}
+    with pytest.raises(NotImplementedError, match=item):
+        launch.run_from_config(cfg)
+
+
+def test_pretrained_name_or_url_raises_naming_m13(tmp_path):
+    with pytest.raises(NotImplementedError, match="M13"):
+        launch._pretrained_state("cirim_knee_registered_name")
+
+
+def test_without_cpu_accelerator_and_without_a_card_it_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = jconfig.load_config(YAML)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch.run_from_config(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch.run_from_config({**cfg, "trainer": {**cfg["trainer"], "accelerator": "gpu"}})

@@ -8,7 +8,10 @@ check cannot work in a process where JAX is already imported.
 
 import ast
 import ctypes
+import os
 import re
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -109,3 +112,59 @@ def test_weights_come_from_the_generator_alone():
     b = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(3)).state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert all(p.is_contiguous(memory_format=torch.channels_last) for k, p in a.items() if p.ndim == 4)
+
+
+def test_launch_modules_import_without_h5py_yaml_msgpack_or_tensorboard(tmp_path):
+    """In a fresh interpreter where jax, h5py, PyYAML, msgpack and tensorboard
+    cannot be imported (optional packages a GPU host may lack): the
+    launch path's modules import; configs the port writes (JSON text) read
+    back; JSON override values parse; an experiment manager asked for
+    TensorBoard warns and logs nowhere; a torch archive saves and restores;
+    and each optional package, where it is needed, raises an ImportError that
+    names it."""
+    code = f"""
+import sys, tarfile, io, logging
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "h5py", "yaml", "msgpack", "tensorboard"):
+    sys.modules[name] = None
+import mridc_tpu_torch.launch, mridc_tpu_torch.cli, mridc_tpu_torch.evaluate, mridc_tpu_torch.utils.logging
+import mridc_tpu_torch.train.schemas
+from mridc_tpu_torch.train import checkpoints, config
+from mridc_tpu_torch.train.exp_manager import ExpManager
+from pathlib import Path
+tmp = Path({str(tmp_path)!r})
+cfg = config.apply_overrides({{"a": {{"b": 1}}}}, ['a.b=1e-3', 'a.c="x/y"', 'a.d=[1, 2]', 'a.e=null', 'a.f=true'])
+assert cfg == {{"a": {{"b": 1e-3, "c": "x/y", "d": [1, 2], "e": None, "f": True}}}}, cfg
+config.save_config(cfg, tmp / "c.yaml")
+assert config.load_config(tmp / "c.yaml") == cfg
+em = ExpManager(exp_dir=str(tmp), name="x", create_tensorboard_logger=True, model_config={{"model_name": "CIRIM"}})
+assert em.writer is None and (em.log_dir / "hparams.yaml").exists()
+from mridc_tpu_torch.models import build_model
+import torch
+model = build_model({{"model_name": "CIRIM", "num_cascades": 1, "time_steps": 1, "conv_filters": [4, 4, 2],
+                      "recurrent_filters": [4, 4, 0]}}, device="cpu")
+path = checkpoints.save_archive(tmp / "m.mridc", {{"model_name": "CIRIM", "num_cascades": 1, "time_steps": 1,
+                                "conv_filters": [4, 4, 2], "recurrent_filters": [4, 4, 0]}}, model.state_dict())
+restored, _, _ = checkpoints.restore_model(path, device="cpu")
+assert all(torch.equal(restored.state_dict()[k], v) for k, v in model.state_dict().items())
+def raises(fn, word):
+    try:
+        fn()
+    except ImportError as exc:
+        assert word in str(exc), exc
+    else:
+        raise AssertionError("no ImportError for " + word)
+(tmp / "y.yaml").write_text("a: b\\n")
+raises(lambda: config.load_config(tmp / "y.yaml"), "PyYAML")
+raises(lambda: config.parse_value("plain words"), "PyYAML")
+raises(lambda: mridc_tpu_torch.evaluate.evaluate(tmp, tmp), "h5py")
+with tarfile.open(tmp / "f.mridc", "w:gz") as tar:
+    for n, d in (("model_config.yaml", b'{{"model_name": "CIRIM"}}'), ("model_weights.msgpack", b"x")):
+        info = tarfile.TarInfo(n); info.size = len(d); tar.addfile(info, io.BytesIO(d))
+raises(lambda: checkpoints.load_archive(tmp / "f.mridc"), "msgpack")
+assert not any(sys.modules.get(m) is not None for m in ("jax", "h5py", "yaml", "msgpack", "tensorboard"))
+print("ok")
+"""
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300, env=env,
+                         cwd=tmp_path)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-3000:]
