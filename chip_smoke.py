@@ -118,12 +118,29 @@ Phases (any failure raises; no phase catches its own):
      (config.yaml, hparams.yaml, top-k checkpoints, last, cirim.mridc); L1's
      archive restored on the card tests as the trained model; a resumed fit
      sent SIGTERM after its first step saves ``last`` there, and a third
-     resumes from it.
+     resumes from it;
+  Z. the zoo at its projects/reconstruction/conf widths (``ZOO_CFGS``: ZF,
+     ProximalGradient, UNet 64 x 4 pools, ResNet 10 unrolls x 15 blocks x 64
+     channels, CG 10) on bench_data at B=8: the CG's normal operator against
+     its plain version, each model's serving (ms, slices/s, launches per
+     forward against ``ZOO_PER_FORWARD``) and its prediction against K2's
+     plain twins on the card, traced ResNet forward and CG solve;
+  Z8. a training step of each (ResNet at B=1 and B=2): loss and gradients
+     against K2's plain twins, ms, slices/s, peak memory, launches per step
+     against ``ZOO_PER_STEP``, a traced ResNet step; UNet's gradient
+     accumulation (``zoo_phases``);
+  S. ``python -m mridc_tpu_torch run -c`` (``cli.main``) of
+     projects/unselfsupervised/conf's base_ssdu_train.yaml (ResNet) and
+     base_n2r_train.yaml (UNet) as written, at batch 1 on phantom volumes:
+     ms per step, slices/s, peak memory, launches per step against
+     ``S_PER_STEP``, the run dir, the host pipeline alone and a traced step
+     (``selfsup_phase``).
 
 The poisson2d masks of D1 and D2 (pure-Python dart throwing: minutes a mask
 at 320x320) are drawn at the start, in worker processes that run beside
-phases 2-V4, by the transform's own masker with the seed its ``use_seed``
-gives each volume, and the source hands them to the transform as an h5
+phases 2-V4, and S's beside Z and Z8, each by the transform's own masker
+with the seed its ``use_seed`` gives each volume, and the source hands them
+to the transform as an h5
 volume's ``mask`` dataset would: the masked k-space and masks are the ones
 the transform draws itself (``tests/test_torch_port_data.py`` holds them
 equal); only the batch's ``acceleration`` leaf reads the mask's sampled
@@ -299,6 +316,112 @@ L_RUNS = {
 }
 L_STEPS = 24  # training steps of a launch run (trainer.limit_train_batches): half of D2's 48 slices
 L_VAL_LIMIT = 2  # validation batches of the resumed runs
+
+
+# Z, Z8: the zoo's models as projects/reconstruction/conf's base_{zf,pg,unet,
+# resnet}_train.yaml configure them (uncentered backward FFT, SENSE; the
+# model keys, tests/test_torch_port_zoo.py holds them against the YAMLs), on
+# bench_data at 15 coils, 320x320, with random weights from a seed
+ZOO_COMMON = {"coil_combination_method": "SENSE", "use_sens_net": False, "fft_centered": False,
+              "fft_normalization": "backward", "spatial_dims": [-2, -1], "coil_dim": 1}
+ZOO_CFGS = {
+    "zf": {"model_name": "ZF"},
+    "pg": {"model_name": "ProximalGradient", "conjugate_gradient_iterations": 10, "penalization_weight": 0.05},
+    "unet": {"model_name": "UNet", "channels": 64, "pooling_layers": 4, "padding_size": 11, "normalize": True,
+             "dropout_probability": 0.0},
+    "resnet": {"model_name": "ResNet", "unrolled_iterations": 10, "residual_blocks": 15, "channels": 64,
+               "regularization_factor": 0.1, "conjugate_gradient_dc": True, "conjugate_gradient_iterations": 10,
+               "penalization_weight": 0.05},
+}
+# launches per forward: the SENSE zero-filled image is sens_reduce (uncentered,
+# no mask: the inverse FFT and one reduce); a CG iteration applies the normal
+# operator once (expand, mask, reduce): PG 10 iterations, ResNet 10 unrolls x 10
+ZOO_PER_FORWARD = {
+    "zf": {"k2_reduce": 1},
+    "unet": {"k2_reduce": 1},
+    "pg": {"k2_reduce": 11, "k2_expand": 10, "k2_mask": 10},
+    "resnet": {"k2_reduce": 101, "k2_expand": 100, "k2_mask": 100},
+}
+# launches per training step: the forward's, and the normal operator once more
+# in the backward of every call whose input takes a gradient: all 100 of
+# ResNet's; PG's but the first (its input, the zero-filled image, takes none;
+# only mu does). y takes no gradient, so the zero-filled image has no backward
+ZOO_PER_STEP = {
+    "train_zf": {"k2_reduce": 1},
+    "train_unet": {"k2_reduce": 1},
+    "train_pg": {"k2_reduce": 20, "k2_expand": 19, "k2_mask": 19},
+    "train_resnet": {"k2_reduce": 201, "k2_expand": 200, "k2_mask": 200},
+}
+ZOO_TRAIN_BATCH = {"zf": 8, "unet": 8, "pg": 8, "resnet": 1}  # base_resnet_train.yaml trains at batch 1
+ZOO_SEED = 0  # the generator of the zoo's random weights
+
+# S: projects/unselfsupervised/conf/base_ssdu_train.yaml and base_n2r_train.yaml
+# as written (tests/test_torch_port_selfsup.py holds them equal to the YAMLs)
+_S_DS = {
+    "data_path": "???", "sense_path": None, "mask_path": None, "dataset_format": "stanford_knees",
+    "challenge": "multicoil", "batch_size": 1, "sample_rate": 1, "volume_sample_rate": None, "consecutive_slices": 1,
+    "data_saved_per_slice": False, "complex_data": True, "apply_prewhitening": False, "apply_gcc": False,
+    "coil_combination_method": "SENSE", "dimensionality": 2,
+    "mask_args": {"type": "poisson2d", "accelerations": [12], "center_fractions": [0.7], "scale": 0.02,
+                  "shift_mask": False, "use_seed": True},
+    "half_scan_percentage": 0.0, "remask": False, "ssdu": False, "crop_size": None, "kspace_crop": False,
+    "crop_before_masking": True, "kspace_zero_filling_size": None, "normalize_inputs": True, "max_norm": True,
+    "fft_centered": True, "fft_normalization": "ortho", "spatial_dims": [-2, -1], "coil_dim": 1, "use_seed": True,
+    "shuffle": True, "drop_last": False,
+}
+_S_SSDU_DS = {**_S_DS, "ssdu": True, "ssdu_mask_type": "Uniform", "ssdu_rho": 0.4, "ssdu_acs_block_size": [4, 4],
+              "ssdu_gaussian_std_scaling_factor": 4.0, "ssdu_outer_kspace_fraction": 0.0}
+_S_N2R_DS = {**_S_DS, "n2r": True, "n2r_supervised_rate": 0.2, "n2r_probability": 0.2, "n2r_std_devs": [0.0, 0.0],
+             "n2r_rhos": [0.4, 0.4], "n2r_use_mask": True}
+
+
+def _val(ds, **kw):
+    return {**ds, "mask_args": {**ds["mask_args"], "use_seed": False}, "use_seed": False, "shuffle": False, **kw}
+
+
+def _s_cfg(name, model, train_ds, val_ds):
+    return {
+        "pretrained": False, "checkpoint": None, "mode": "train",
+        "model": {**model, "train_ds": train_ds, "validation_ds": val_ds,
+                  "optim": {"name": "adam", "lr": 0.001, "betas": [0.9, 0.999], "weight_decay": 0.0001,
+                            "sched": {"name": "InverseSquareRootAnnealing", "min_lr": 0.0, "warmup_ratio": 0.1}}},
+        "trainer": {"max_epochs": 20, "max_steps": -1, "accelerator": "tpu", "devices": -1, "precision": "highest",
+                    "gradient_clip_val": 0.0, "log_every_n_steps": 50},
+        "exp_manager": {"exp_dir": "output", "name": name, "create_tensorboard_logger": True,
+                        "resume_if_exists": False,
+                        "checkpoint_callback_params": {"monitor": "val_loss", "mode": "min", "save_top_k": 3},
+                        "ema": {"enable": False, "decay": 0.999}},
+    }
+
+
+_S_MODEL = {"dimensionality": 2, "coil_combination_method": "SENSE", "fft_centered": True,
+            "fft_normalization": "ortho", "spatial_dims": [-2, -1], "coil_dim": 1, "use_sens_net": False,
+            "consecutive_slices": 1, "log_images": True, "train_loss_fn": "l1", "val_loss_fn": "l1"}
+SSDU_CFG = _s_cfg("ssdu_resnet", {
+    "model_name": "ResNet", "unrolled_iterations": 5, "residual_blocks": 5, "channels": 64,
+    "regularization_factor": 1.0, "penalization_weight": 0.0, "conjugate_gradient_dc": True,
+    "conjugate_gradient_iterations": 10, **_S_MODEL, "ssdu": True, "n2r": False, "kspace_reconstruction_loss": True,
+    "reconstruction_loss_regularization_factor": 1.0}, _S_SSDU_DS, _val(_S_SSDU_DS))
+N2R_CFG = _s_cfg("n2r_unet", {
+    "model_name": "UNet", "channels": 32, "pooling_layers": 4, "in_channels": 2, "out_channels": 2,
+    "padding_size": 11, "dropout": 0.0, "normalize": True, "norm_groups": 2, **_S_MODEL, "ssdu": False, "n2r": True,
+    "kspace_reconstruction_loss": False, "reconstruction_loss_regularization_factor": 0.9,
+    "n2r_loss_regularization_factor": 0.1}, _S_N2R_DS, _val(_S_N2R_DS, n2r_supervised_rate=0.0))
+# S's phantom volumes (15 coils, 320x320; each with the poisson2d mask the
+# train_ds masker draws for it, premade): 3 training volumes, so that the
+# dataset's rule picks round(0.2 x 3) = 1 of them as n2r-supervised, and 1
+# validation volume; a run takes S_STEPS training steps and S_VAL_LIMIT
+# validation batches
+S_TRAIN_VOLUMES, S_SLICES, S_VAL_SLICES, S_STEPS, S_VAL_LIMIT = 3, 2, 2, 6, 2
+# launches per training step of the S runs (centered FFT: the zero-filled
+# image loads k-space to FFT order; ResNet 5 unrolls x 10 CG iterations, each
+# normal operator forward and backward); UNet's second forward (the
+# consistency term) reduces once more
+S_PER_STEP = {
+    "ssdu_resnet": {"k2_load": 1, "k2_reduce": 101, "k2_expand": 100, "k2_mask": 100},
+    "n2r_unet_supervised": {"k2_load": 1, "k2_reduce": 1},
+    "n2r_unet_consistency": {"k2_load": 2, "k2_reduce": 2},
+}
 
 
 def fed_per_step(phase8_run: str) -> dict:
@@ -512,7 +635,7 @@ def held_max_normalisation(losses, hold=True):
     orig = losses._norm_mag
 
     def norm_mag(x):
-        mag = losses.cabs(x) if x.shape[-1] == 2 else x.abs()
+        mag = losses._mag(x) if x.shape[-1] == 2 else x.abs()
         return mag / torch.clamp(mag.amax().detach(), min=1e-12)
 
     if hold:
@@ -634,10 +757,10 @@ def kernel_category(name: str) -> str:
         return "K3 indrnn backward"
     if "indrnn" in n:
         return "K3 indrnn"
-    if "anonymous namespace" in n and any(k in n for k in ("mask_kernel", "reduce_acc_kernel")):
+    if "anonymous namespace" in n and "reduce_acc_kernel" in n:
         return "K2 backward stages"
     if "anonymous namespace" in n and any(k in n for k in ("expand_kernel", "residual_kernel", "load_kernel",
-                                                            "reduce_kernel")):
+                                                            "reduce_kernel", "mask_kernel")):
         return "K2 stages"
     if "welford" in n:
         return "InstanceNorm statistics"
@@ -652,13 +775,17 @@ def kernel_category(name: str) -> str:
         return "conv and GEMM (cuDNN, cuBLAS)"
     if "multi_tensor" in n or "adam" in n:
         return "optimizer (Adam)"
+    if "dot_kernel" in n or "reduce_1block" in n:
+        return "dot products (cuBLAS)"
+    if "reduce_kernel" in n:
+        return "reductions (ATen)"
     return "elementwise: pad, cast, add, copy"
 
 
 def trace_call(fn, ms_per_call):
-    """Device time of one call of ``fn`` (a forward or a training step) by
-    kernel and by layer, from torch.profiler's CUDA kernel events (CUPTI),
-    beside the unprofiled wall time of a call."""
+    """Device time and kernel launches of one call of ``fn`` (a forward or a
+    training step) by kernel and by layer, from torch.profiler's CUDA kernel
+    events (CUPTI), beside the unprofiled wall time of a call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -667,18 +794,21 @@ def trace_call(fn, ms_per_call):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    by_name: dict = {}
+    by_name, calls = {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    by_cat: dict = {}
+            calls[e.name] = calls.get(e.name, 0) + 1
+    by_cat, launches = {}, {}
     for name, ms in by_name.items():
         by_cat[kernel_category(name)] = by_cat.get(kernel_category(name), 0.0) + ms
+        launches[kernel_category(name)] = launches.get(kernel_category(name), 0) + calls[name]
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"device_ms": busy, "wall_ms": ms_per_call,
             "device_busy_share": busy / ms_per_call if ms_per_call else None,
             "by_layer_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
+            "by_layer_launches": dict(sorted(launches.items(), key=lambda kv: -kv[1])),
             "top_kernels_ms": [[name[:120], ms] for name, ms in top]}
 
 
@@ -1052,10 +1182,11 @@ class PhantomSource:
     ``ReconstructionMRIDataset.__getitem__`` does after its h5 read: it
     calls the transform with the slice's k-space, the maps, the volume's
     mask (None without one), no initial prediction, the target, the
-    attributes, the file name and the slice index."""
+    attributes (``n2r_supervised`` for the files in ``supervised``), the file
+    name and the slice index."""
 
-    def __init__(self, volumes, transform):
-        self.volumes, self.transform = volumes, transform
+    def __init__(self, volumes, transform, supervised=()):
+        self.volumes, self.transform, self.supervised = volumes, transform, set(supervised)
         self.examples = [(fname, s) for fname in sorted(volumes) for s in range(volumes[fname][0].shape[0])]
 
     def __len__(self):
@@ -1067,7 +1198,7 @@ class PhantomSource:
         h, w = kspace.shape[-2:]
         attrs = {"max": float(target.max()), "norm": float(np.linalg.norm(target)), "acquisition": "CORPD_FBK",
                  "padding_left": 0, "padding_right": 0, "encoding_size": (2 * h, w, 1), "recon_size": (h, w, 1),
-                 "n2r_supervised": False}
+                 "n2r_supervised": fname in self.supervised}
         return self.transform(kspace[s], sens, mask, np.array([]), target[s], attrs, fname, s)
 
 
@@ -1551,6 +1682,452 @@ def launch_phase(dev, card, rows, masks, d2_recs) -> None:
     emit({"phase": "L", "seconds": time.perf_counter() - t_l})
 
 
+@contextlib.contextmanager
+def plain_k2():
+    """While active, K2's stage wrappers are their plain versions (the same
+    index arithmetic in PyTorch ops) whatever device the tensors lie on: the
+    oracle of a model's forward and training step on the card. They launch
+    nothing, so they count nothing."""
+    from mridc_tpu_torch.kernels import k2_full_dc as k2
+
+    names = ("expand", "residual", "load", "reduce", "apply_mask", "reduce_acc")
+    saved = {n: getattr(k2, n) for n in names}
+    for n in names:
+        setattr(k2, n, getattr(k2, f"{n}_plain"))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(k2, n, fn)
+
+
+def zoo_phases(dev, card, rows) -> None:
+    """Phases Z and Z8: ZF, ProximalGradient, UNet and ResNet at the widths of
+    their projects/reconstruction/conf configs (``ZOO_CFGS``), on
+    ``bench_data`` at 15 coils, 320x320, with random weights from a seed.
+
+    Z: the CG's normal operator (``normal_op``, K2's expand, mask and reduce
+    around cuFFT) against its plain version at B=8, forward and backward (x's
+    and mu's gradients), uncentered backward and centered ortho (F32); each
+    model serving B=8 (2 warm-up, 5 timed forwards: ms, slices/s, launches
+    per forward against ``ZOO_PER_FORWARD``), its prediction against the same
+    forward with K2's plain twins on the card (F32); one traced ResNet
+    forward by layer, and one traced CG solve (its launches by layer: K2
+    stages, cuFFT and the CG's elementwise, dot-product and reduction
+    launches).
+
+    Z8: one training step each through ``Trainer`` (Adam under
+    InverseSquareRootAnnealing, the configs' optim block): ZF, UNet and PG at
+    B=8, ResNet at its config's B=1 and at B=2; first the loss and each
+    parameter's gradient against the same step with K2's plain twins on the
+    card (loss at F32; gradients at relative l2 1e-3 a parameter: a relu or
+    leaky-relu kink that a 1e-7 change of an activation flips moves a
+    gradient elementwise, V1); then 2 warm-up and 3 timed steps (ms,
+    slices/s, peak memory, launches per step against ``ZOO_PER_STEP``); ZF's
+    loss finite and its grad_norm 0; one traced ResNet step at B=1. Then
+    accumulation: UNet with ``accumulate_grad_batches=2`` over the two B=4
+    halves of the B=8 batch against one optimizer step on the mean of the
+    halves' gradients (the B=8 step of a loss that averages its halves; the
+    reconstruction loss normalises by the batch's maximum, so the B=8 loss
+    itself is not that mean): the mean gradient at F32, the parameters after
+    the step at F32 where |g| > 1e-3 x max (Adam's first step is a sign step)."""
+    import torch
+
+    from mridc_tpu_torch import kernels
+    from mridc_tpu_torch.kernels import binding
+    from mridc_tpu_torch.kernels import k2_full_dc as k2
+    from mridc_tpu_torch.models import build_model
+    from mridc_tpu_torch.models.recon import resnet as tresnet
+    from mridc_tpu_torch.train.losses import process_reconstruction_loss
+    from mridc_tpu_torch.train.trainer import Trainer
+
+    t_z = time.perf_counter()
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    y, sens, mask = (t(a) for a in bench_data(BATCH, COILS, H, W))
+    cfgs = {name: {**ZOO_COMMON, **cfg} for name, cfg in ZOO_CFGS.items()}
+
+    def fresh(name):
+        return build_model(cfgs[name], device=dev, generator=torch.Generator().manual_seed(ZOO_SEED))
+
+    # Z. the normal operator against its plain version, forward and backward
+    gen = torch.Generator().manual_seed(21)
+    x0, g0 = (torch.randn(BATCH, H, W, 2, generator=gen).to(dev) for _ in range(2))
+    for centered, norm in ((False, "backward"), (True, "ortho")):
+        tag = f"{'c' if centered else 'u'}-{norm}"
+        res = {}
+        for which, fn in (("kernel", k2.normal_op), ("plain", k2.normal_op_plain)):
+            x = x0.clone().requires_grad_(True)
+            mu = torch.tensor([0.05], device=dev, requires_grad=True)
+            out = fn(x, sens, mask, mu, centered, norm)
+            out.backward(g0)
+            res[which] = (out.detach(), x.grad, mu.grad)
+        for i, part in enumerate(("forward", "dx", "dmu")):
+            check(f"normal_op[{part}/{tag}]", res["kernel"][i], res["plain"][i], *F32)
+        with torch.inference_mode():
+            emit({"function": "normal_op", "fft": tag, "shape": tuple(x0.shape),
+                  "ms": time_ms(lambda: k2.normal_op(x0, sens, mask, 0.05, centered, norm)),
+                  "plain_ms": time_ms(lambda: k2.normal_op_plain(x0, sens, mask, 0.05, centered, norm)),
+                  "note": "K2 expand, mask, reduce around cuFFT and one addcmul; launches counted under the stages",
+                  "card": card})
+    del res, x, out
+
+    # Z. serving at B=8; the counters zeroed before each model and read after
+    zoo_counts = {k: 0 for k in binding.LAUNCHES}
+    serve_ms = {}
+    for name in cfgs:
+        model = fresh(name)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with torch.inference_mode():
+            for _ in range(WARMUP):
+                model(y, sens, mask)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ITERS):
+                pred = model(y, sens, mask).prediction
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        delta = {k: v for k, v in kernels.launch_counts().items() if v}
+        want = {k: v * (WARMUP + ITERS) for k, v in ZOO_PER_FORWARD[name].items()}
+        serve_ms[name] = dt / ITERS * 1e3
+        emit({"run": f"zoo_{name}", "config": f"projects/reconstruction/conf/base_{name}_train.yaml",
+              "batch": BATCH, "forwards_timed": ITERS, "seconds": dt, "slices_per_s": ITERS * BATCH / dt,
+              "ms_per_forward": serve_ms[name],
+              "launches_per_forward": {k: v / (WARMUP + ITERS) for k, v in delta.items()}, "card": card})
+        if delta != want:
+            raise AssertionError(f"zoo_{name}: launches {delta} != expected {want}")
+        if not bool(torch.isfinite(pred).all()) or tuple(pred.shape) != (BATCH, H, W, 2):
+            raise AssertionError(f"zoo_{name}: prediction not finite or of shape {tuple(pred.shape)}")
+        for k, v in delta.items():
+            zoo_counts[k] += v
+        with torch.inference_mode(), plain_k2():
+            plain = model(y, sens, mask).prediction
+        check(f"zoo[{name}]", pred, plain, *F32, note="the same forward with K2's plain twins on the card")
+        if name == "resnet":
+            with torch.inference_mode():
+                emit({"trace": "zoo_resnet", **trace_call(lambda: model(y, sens, mask), serve_ms[name]),
+                      "card": card})
+                rhs, its = model.zero_filled(y, sens), ZOO_CFGS["resnet"]["conjugate_gradient_iterations"]
+
+                def solve():
+                    return tresnet.conjugate_gradient(rhs, sens, mask, model.mu, its, False, "backward")
+
+                emit({"trace": "zoo_resnet_cg_solve", "iterations": its,
+                      "solves_per_forward": ZOO_CFGS["resnet"]["unrolled_iterations"], **trace_call(solve, None),
+                      "card": card})
+        del model, pred, plain
+        torch.cuda.empty_cache()
+    emit({"phase": "Z", "seconds": time.perf_counter() - t_z})
+
+    # Z8. one training step each
+    t_z8 = time.perf_counter()
+    target8 = t(train_target(BATCH, H, W))
+    zoo_train_counts = {k: 0 for k in binding.LAUNCHES}
+    for name in cfgs:
+        for b in ((1, 2) if name == "resnet" else (ZOO_TRAIN_BATCH[name],)):
+            run = f"train_{name}" + (f"_b{b}" if name == "resnet" else "")
+            batch = {"masked_kspace": y[:b], "sensitivity_maps": sens[:b], "mask": mask[:b], "target": target8[:b]}
+            first = {}
+            for which, ctx in (("kernel", contextlib.nullcontext), ("plain", plain_k2)):
+                model = fresh(name)
+                with ctx():
+                    loss = process_reconstruction_loss(model(y[:b], sens[:b], mask[:b], train=True), target8[:b], "l1")
+                    if loss.requires_grad:
+                        loss.backward()
+                first[which] = (loss.detach(), {k: p.grad.detach().clone() for k, p in model.named_parameters()})
+                del model, loss
+            check(f"zoo_train_loss[{run}]", first["kernel"][0], first["plain"][0], *F32)
+            if first["plain"][1]:
+                gd, gc = first["kernel"][1], first["plain"][1]
+                rel = {k: float((gd[k] - gc[k]).norm() / gc[k].norm()) if float(gc[k].norm()) > 0
+                       else float(gd[k].norm()) for k in gc}
+                worst = max(rel, key=rel.get)
+                emit({"check": f"zoo_train_grads[{run}]", "entries": len(rel), "worst": worst,
+                      "max_rel_l2": rel[worst], "limit": 1e-3, "ok": rel[worst] <= 1e-3})
+                if rel[worst] > 1e-3:
+                    raise AssertionError(f"zoo_train_grads[{run}]: {worst} at relative l2 {rel[worst]}")
+            del first
+            model = fresh(name)
+            trainer = Trainer(model, optim_cfg=TRAIN_OPTIM, trainer_cfg=TRAIN_CFG, device=dev)
+            before = {k: v.detach().clone() for k, v in model.named_parameters()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            for _ in range(TRAIN_WARMUP):
+                trainer.training_batch(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_ITERS):
+                metrics = trainer.training_batch(batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            delta = {k: v for k, v in kernels.launch_counts().items() if v}
+            steps = TRAIN_WARMUP + TRAIN_ITERS
+            want = {k: v * steps for k, v in ZOO_PER_STEP[f"train_{name}"].items()}
+            moved = max((float((p.detach() - before[k]).abs().max()) for k, p in model.named_parameters()),
+                        default=0.0)
+            rec = {"run": run, "batch": b, "steps_timed": TRAIN_ITERS, "seconds": dt,
+                   "slices_per_s": TRAIN_ITERS * b / dt, "ms_per_step": dt / TRAIN_ITERS * 1e3,
+                   "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                   "max_param_change": moved, "launches_per_step": {k: v / steps for k, v in delta.items()},
+                   "card": card}
+            emit(rec)
+            if delta != want:
+                raise AssertionError(f"{run}: launches {delta} != expected {want}")
+            if not np.isfinite(rec["loss"]) or (name == "zf") != (moved == 0.0):
+                raise AssertionError(f"{run}: loss {rec['loss']} not finite or parameters moved {moved}")
+            if name == "zf" and rec["grad_norm"] != 0.0:
+                raise AssertionError(f"{run}: grad_norm {rec['grad_norm']} of a model without parameters")
+            for k, v in delta.items():
+                zoo_train_counts[k] += v
+            if run == "train_resnet_b1":
+                emit({"trace": run, **trace_call(lambda: trainer.training_batch(batch), rec["ms_per_step"]),
+                      "card": card})
+            del trainer, model, batch, before
+            torch.cuda.empty_cache()
+
+    # Z8. accumulation: two B=4 micro-steps against one step on their mean gradient
+    half = BATCH // 2
+    halves = [{"masked_kspace": y[i:i + half], "sensitivity_maps": sens[i:i + half], "mask": mask[i:i + half],
+               "target": target8[i:i + half]} for i in (0, half)]
+    model = fresh("unet")
+    trainer = Trainer(model, optim_cfg=TRAIN_OPTIM, trainer_cfg={**TRAIN_CFG, "accumulate_grad_batches": 2},
+                      device=dev)
+    for h in halves:
+        trainer.training_batch(h)
+    acc = {k: (p.grad.detach().clone(), p.detach().clone()) for k, p in model.named_parameters()}
+    ref_model = fresh("unet")
+    ref = Trainer(ref_model, optim_cfg=TRAIN_OPTIM, trainer_cfg=TRAIN_CFG, device=dev)
+    ref.init_state()
+    grads = []
+    for h in halves:
+        ref_model.zero_grad(set_to_none=True)
+        process_reconstruction_loss(ref_model(h["masked_kspace"], h["sensitivity_maps"], h["mask"], train=True),
+                                    h["target"], "l1").backward()
+        grads.append({k: p.grad.detach().clone() for k, p in ref_model.named_parameters()})
+    params = list(ref_model.parameters())
+    for k, p in ref_model.named_parameters():
+        p.grad = (grads[0][k] + grads[1][k]) / 2
+    ref._optimizer_step(ref.state.optimizer, params)
+    rp = dict(ref_model.named_parameters())
+    check_all("zoo_accumulation_mean_gradient[unet, 2 x B=4]", {k: v[0] for k, v in acc.items()},
+              {k: p.grad for k, p in rp.items()}, *F32)
+    sure = {k: p.grad.abs() > 1e-3 * float(p.grad.abs().max()) for k, p in rp.items()}
+    check_all("zoo_accumulation_params[unet, 2 x B=4]", {k: v[1][sure[k]] for k, v in acc.items()},
+              {k: p.detach()[sure[k]] for k, p in rp.items()}, *F32,
+              note=f"state.step {trainer.state.step}, optimizer steps {trainer.state.gradient_step}")
+    if (trainer.state.step, trainer.state.gradient_step) != (2, 1):
+        raise AssertionError(f"accumulation: steps {trainer.state.step}, "
+                             f"optimizer steps {trainer.state.gradient_step}")
+    del model, trainer, ref_model, ref, grads, acc, halves
+    torch.cuda.empty_cache()
+
+    for r in rows:
+        r["zoo_launches"] = zoo_counts.get(r["name"], 0)
+        r["zoo_train_launches"] = zoo_train_counts.get(r["name"], 0)
+    missing = [k for k in set().union(*ZOO_PER_FORWARD.values()) if zoo_counts[k] == 0]
+    missing += [k for k in set().union(*ZOO_PER_STEP.values()) if zoo_train_counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the zoo's paths: {missing}")
+    emit({"phase": "Z8", "seconds": time.perf_counter() - t_z8})
+
+
+def empty_noise_mask_step(run_cfg, batches, dev, card, step) -> None:
+    """Phase S, after the n2r_unet run: one consistency step, from a fresh
+    model of the run's config, on one of the run's consistency batches with
+    its noisier input masked to nothing. The config's noise std is 0, so that
+    is what its n2r masker draws with probability 0.2, and from the init's
+    zero biases the second forward predicts exactly 0: the loss, the gradient
+    norm and every parameter after the step must be finite (the magnitude's
+    gradient at 0, train/losses.py:_mag). ``step`` is the package's own
+    ``Trainer.training_batch``: phase S records the runs' steps in its place."""
+    import torch
+
+    from mridc_tpu_torch.models import build_model
+    from mridc_tpu_torch.train.trainer import Trainer
+
+    model_cfg = run_cfg["model"]
+    batch = next(b for b in batches if "n2r_masked_kspace" in b
+                 and not any(a.get("n2r_supervised", False) for a in b.get("attrs") or []))
+    batch = dict(batch, n2r_masked_kspace=batch["n2r_masked_kspace"] * 0, n2r_mask=batch["n2r_mask"] * 0)
+    trainer = Trainer(build_model(model_cfg, device=dev), optim_cfg=model_cfg["optim"],
+                      trainer_cfg={"n2r_loss_weight": float(model_cfg["n2r_loss_regularization_factor"])},
+                      loss_type=model_cfg["train_loss_fn"], device=dev,
+                      loss_regularization_factor=float(model_cfg["reconstruction_loss_regularization_factor"]))
+    trainer.setup_optimization()
+    y, sens, _, init_pred = trainer._model_inputs(batch)
+    with torch.no_grad():
+        noisy = trainer.model(y * 0, sens, trainer._tensor(batch["n2r_mask"]), init_pred).prediction
+    out = step(trainer, batch)
+    rec = {"s": "n2r_unet_empty_noise_mask", "loss": float(out["loss"]), "grad_norm": float(out["grad_norm"]),
+           "noisy_prediction_max_abs": float(noisy.abs().max()),
+           "parameters_finite": all(bool(torch.isfinite(p).all()) for p in trainer.model.parameters()),
+           "card": card}
+    emit(rec)
+    if not (np.isfinite([rec["loss"], rec["grad_norm"]]).all() and rec["parameters_finite"]):
+        raise AssertionError(f"a consistency step on an empty noise mask: {rec}")
+
+
+def selfsup_phase(dev, card, rows, masks) -> None:
+    """Phase S: ``python -m mridc_tpu_torch run -c`` (``cli.main``) of
+    projects/unselfsupervised/conf/base_ssdu_train.yaml (``ssdu_resnet``:
+    ResNet 5 x 5 x 64, CG 10, mu 0, centered ortho, the k-space loss on the
+    SSDU loss mask) and base_n2r_train.yaml (``n2r_unet``: UNet 32 channels x
+    4 pools, a consistency step's two forwards) as written (``SSDU_CFG``,
+    ``N2R_CFG``, given to the CLI as JSON text: the card has no PyYAML), at
+    their batch size 1, one epoch cut to ``S_STEPS`` steps and ``S_VAL_LIMIT``
+    validation batches, on the card. The h5 read is replaced as in phase L by
+    phantom volumes (15 coils, 320x320; 3 training volumes, of which the
+    dataset's rule makes one n2r-supervised, and 1 validation volume) with
+    their premade poisson2d masks (acceleration 12, centre 0.7, scale 0.02);
+    the transform draws the SSDU split and the noise masks itself. ms per
+    step (between the starts of consecutive steps), slices/s, peak memory,
+    launches per step against ``S_PER_STEP`` (an n2r step is supervised or a
+    consistency step), the validations, and the run dir (``last``, the
+    archive); then the host pipeline's ms per batch alone and one traced step
+    by layer (the device's idle share beside the ms per step). Every step's
+    loss and gradient norm must be finite; after the n2r run,
+    ``empty_noise_mask_step``."""
+    import json as json_mod
+    import random
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    import torch
+
+    from mridc_tpu_torch import cli, kernels
+    from mridc_tpu_torch.data import factory
+    from mridc_tpu_torch.train.config import apply_overrides
+    from mridc_tpu_torch.train.trainer import Trainer
+
+    t_s = time.perf_counter()
+    train = d_volumes("s", S_TRAIN_VOLUMES, S_SLICES, COILS, H, W, seed=31,
+                      masks=[masks[("s", H, W, f"s_{i}.h5")].result()[0] for i in range(S_TRAIN_VOLUMES)])
+    val = d_volumes("s_val", 1, S_VAL_SLICES, COILS, H, W, seed=32,
+                    masks=[masks[("s", H, W, "s_val_0.h5")].result()[0]])
+    vols = {"phantom/s/train": train, "phantom/s/val": val}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_selfsup_"))
+    record = {"marks": [], "counts": [], "consistency": [], "outs": [], "trainer": None, "validations": []}
+    step, validate = Trainer.training_batch, Trainer.validate
+
+    def validating(self, *a, **kw):
+        out = validate(self, *a, **kw)
+        record["validations"].append(dict(out))
+        return out
+
+    def recording(self, batch):
+        record["trainer"] = self
+        record["consistency"].append("n2r_masked_kspace" in batch and not any(
+            a.get("n2r_supervised", False) for a in batch.get("attrs") or []))
+        record["marks"].append(time.perf_counter())
+        before = kernels.launch_counts()
+        out = step(self, batch)
+        after = kernels.launch_counts()
+        record["counts"].append({k: after[k] - before[k] for k in after if after[k] != before[k]})
+        record["outs"].append(out)
+        return out
+
+    def source(root, transform, n2r_supervised_rate=0.0, **_):
+        # the dataset's rule (data/loaders.py): a seeded sample of the files
+        files = sorted(vols[root])
+        chosen = random.Random(1234).sample(files, int(np.round(n2r_supervised_rate * len(files)))) \
+            if n2r_supervised_rate else []
+        return PhantomSource(vols[root], transform, chosen)
+
+    selfsup_counts = {k: 0 for k in kernels.launch_counts()}
+    try:
+        with mock.patch.object(factory, "ReconstructionMRIDataset", source), \
+                mock.patch.object(Trainer, "training_batch", recording), \
+                mock.patch.object(Trainer, "validate", validating):
+            for run, cfg, yaml_name in (("ssdu_resnet", SSDU_CFG, "base_ssdu_train"),
+                                        ("n2r_unet", N2R_CFG, "base_n2r_train")):
+                cfg_path = tmp / f"{yaml_name}.json"
+                cfg_path.write_text(json_mod.dumps(cfg))
+                overrides = ["trainer.max_epochs=1", f"trainer.limit_train_batches={S_STEPS}",
+                             f"trainer.limit_val_batches={S_VAL_LIMIT}",
+                             'model.train_ds.data_path="phantom/s/train"',
+                             'model.validation_ds.data_path="phantom/s/val"', f'exp_manager.exp_dir="{tmp / run}"']
+                emit({"phase": "S", "run": run, "config": f"projects/unselfsupervised/conf/{yaml_name}.yaml",
+                      "overrides": overrides, "batch": 1, "card": card})
+                record.update(marks=[], counts=[], consistency=[], outs=[], trainer=None, validations=[])
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                cli.main(["run", "-c", str(cfg_path), *overrides])
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                for k, v in kernels.launch_counts().items():
+                    selfsup_counts[k] += v
+                trainer = record["trainer"]
+                marks = record["marks"]
+                ms = (marks[-1] - marks[0]) / (len(marks) - 1) * 1e3
+                kinds = [S_PER_STEP["ssdu_resnet"] if run == "ssdu_resnet" else
+                         S_PER_STEP[f"n2r_unet_{'consistency' if cons else 'supervised'}"]
+                         for cons in record["consistency"]]
+                bad = [(c, k) for c, k in zip(record["counts"], kinds) if c != k]
+                run_dir = trainer.exp_manager.log_dir
+                ckpts = sorted(p.name for p in (run_dir / "checkpoints").iterdir())
+                files = sorted(p.name for p in run_dir.iterdir())
+                rec = {"s": run, "batch": 1, "steps": len(marks), "ms_per_step": ms, "slices_per_s": 1e3 / ms,
+                       "steps_timed": len(marks) - 1, "seconds": seconds,
+                       "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       "launches_per_step": record["counts"],
+                       "consistency_steps": sum(record["consistency"]),
+                       "n2r_loss_weight": trainer.trainer_cfg.get("n2r_loss_weight"),
+                       "losses": [float(o["loss"]) for o in record["outs"]],
+                       "grad_norms": [float(o["grad_norm"]) for o in record["outs"]],
+                       "validations": record["validations"],
+                       "checkpoints": ckpts, "run_dir": files,
+                       "note": "ms per step between the starts of consecutive steps: the plain loader's host pipeline "
+                               "(the SSDU split, the noise masks) and the step, at the config's batch size 1",
+                       "card": card}
+                emit(rec)
+                # where a step's time goes: the host pipeline alone (a fresh
+                # iteration of the run's training loader), then one traced
+                # step on one of its batches (the idle share: 1 - device ms /
+                # ms per step)
+                run_cfg = apply_overrides(cfg, overrides)
+                loader = factory.build_dataloader(run_cfg["model"]["train_ds"], run_cfg["model"], shuffle=True,
+                                                  device=dev)
+                t0 = time.perf_counter()
+                batches = [b for _, b in zip(range(S_STEPS), loader)]
+                host_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+                traced = trace_call(lambda: step(trainer, batches[-1]), ms)
+                emit({"trace": run, "host_pipeline_ms_per_batch": host_ms,
+                      "device_idle_share": None if traced.get("device_ms") is None else 1 - traced["device_ms"] / ms,
+                      **traced, "card": card})
+                if run == "n2r_unet":
+                    empty_noise_mask_step(run_cfg, batches, dev, card, step)
+                del loader, batches
+                if len(marks) != S_STEPS or bad:
+                    raise AssertionError(f"{run}: {len(marks)} steps; launches per step, expected: {bad[:1]}")
+                if not np.isfinite(rec["losses"] + rec["grad_norms"]).all():
+                    raise AssertionError(f"{run}: losses {rec['losses']}, gradient norms {rec['grad_norms']}")
+                if "last" not in ckpts or f"{cfg['exp_manager']['name']}.mridc" not in files:
+                    raise AssertionError(f"{run}: run dir {files}, checkpoints {ckpts}")
+                if len(rec["validations"]) != 2 or not all(np.isfinite(v) for val in rec["validations"]
+                                                           for v in val.values()):
+                    raise AssertionError(f"{run}: validations {rec['validations']} (the initial and the epoch's)")
+                if run == "n2r_unet" and (trainer.trainer_cfg.get("n2r_loss_weight") != 0.1
+                                          or not 0 < rec["consistency_steps"] < S_STEPS):
+                    raise AssertionError(f"{run}: n2r loss weight {trainer.trainer_cfg.get('n2r_loss_weight')}, "
+                                         f"{rec['consistency_steps']} consistency steps of {S_STEPS}")
+                del trainer
+                record["trainer"] = None
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r in rows:
+        r["selfsup_launches"] = selfsup_counts.get(r["name"], 0)
+    missing = [k for k in set().union(*S_PER_STEP.values()) if selfsup_counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the self-supervised paths: {missing}")
+    emit({"phase": "S", "seconds": time.perf_counter() - t_s})
+
+
 def main() -> int:
     import torch
 
@@ -1561,7 +2138,8 @@ def main() -> int:
     import mridc_tpu_torch  # noqa: F401  (raises outside a checkout of the repository)
 
     t_start = time.perf_counter()
-    # the poisson2d masks of D1-D3, drawn beside phases 2-V4 (module docstring)
+    # the poisson2d masks of D1-D3, drawn beside phases 2-V4, and of S, beside
+    # Z and Z8 (module docstring)
     # at a lower priority than the kernel build and the phases they run beside
     mask_pool = ProcessPoolExecutor(max_workers=D2_TRAIN_VOLUMES + 1 + D1_VOLUMES,
                                     mp_context=multiprocessing.get_context("spawn"), initializer=os.nice,
@@ -1570,14 +2148,21 @@ def main() -> int:
         masks = {key: mask_pool.submit(poisson2d_mask, TRAIN_DS, *key[1:]) for key in
                  [("d2", H, W, f"d2_{i}.h5") for i in range(D2_TRAIN_VOLUMES)] + [("d2", H, W, "d2_val_0.h5")]
                  + [("d1", D1_HW, D1_HW, f"d1_{i}.h5") for i in range(D1_VOLUMES)]}
-        return run(t_start, masks)
+
+        def s_masks():
+            # phase S's masks, drawn beside phases Z and Z8 (after the host-bound
+            # phases that D's masks run beside)
+            return {key: mask_pool.submit(poisson2d_mask, _S_DS, *key[1:]) for key in
+                    [("s", H, W, f"s_{i}.h5") for i in range(S_TRAIN_VOLUMES)] + [("s", H, W, "s_val_0.h5")]}
+
+        return run(t_start, masks, s_masks)
     finally:
         mask_pool.shutdown(cancel_futures=True)
 
 
-def run(t_start, masks) -> int:
-    """Phases 1-V4 and D1-D3; ``masks`` are the futures of the poisson2d
-    masks."""
+def run(t_start, masks, s_masks) -> int:
+    """Every phase; ``masks`` are the futures of D's poisson2d masks,
+    ``s_masks()`` submits S's and returns their futures."""
     import torch
 
     from mridc_tpu_torch import kernels
@@ -1965,7 +2550,7 @@ def run(t_start, masks) -> int:
     z0 = kernels.sens_reduce(y, sens, mask, True, "ortho")
     rows = []
 
-    def row(sym, source, replaces, fn, plain, args, nbytes, flops, tol, launches=None, per="forward"):
+    def row(sym, source, replaces, fn, plain, args, nbytes, flops, tol, launches=None, per="forward", library=None):
         # the oracle first: k2_residual overwrites its first operand; tol None:
         # the caller has checked the kernel
         if tol is not None:
@@ -1973,14 +2558,16 @@ def run(t_start, masks) -> int:
             errors.setdefault(sym, []).append(check(f"{sym}[main_b{args[0].shape[0]}]", fn(*args), want, *tol))
         ms = time_ms(lambda: fn(*args))
         plain_ms = time_ms(lambda: plain(*args))
+        library_ms = None if library is None else time_ms(library)
         bound_ms, by = bound(nbytes, flops)
         table = PER_FORWARD if per == "forward" else PER_STEP
         rows.append({"name": sym, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": (main_counts if launches is None else launches).get(sym, 0),
                      "max_abs_err": max(errors[sym]), "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": by, "library_ms": None})
+                     "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms})
         emit({"kernel": sym, "shape": tuple(args[0].shape), "dtype": str(args[0].dtype), "ms": ms,
-              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes, "flops": flops,
+              "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes,
+              "flops": flops,
               f"launches_per_{per}": {r: table[r].get(sym, 0) for r in table}, "card": card})
 
     with torch.inference_mode():
@@ -2009,15 +2596,23 @@ def run(t_start, masks) -> int:
         coil = b * c * hw * 8  # one complex64 / real-view float32 coil tensor
         src = "mridc_tpu_torch/csrc/full_dc.cu"
         rep = "mridc_tpu/nn/dc.py:81 (log_likelihood_gradient)"
-        # bytes: what each stage must read and write once; a few flops per element
+        # bytes: what each stage must read and write once; a few flops per
+        # element. library_ms: the one PyTorch call that computes the stage's
+        # function in the uncentered order (no shift) on these operands:
+        # expand a complex mul, load a mul by the mask, reduce
+        # linalg.vecdot(s, P, dim=1) = sum_c conj(s_c) P_c (reduce's [eta,
+        # grad] concatenation left out); residual, m * (k - y), takes two
+        sens_cx, y_cx, eta_cx = (torch.view_as_complex(a) for a in (sens, y, eta))
         row("k2_expand", src, rep, k2.expand, k2.expand_plain, (eta, sens, True),
-            2 * coil + b * hw * 8, {"float32": 6 * b * c * hw}, F32)
+            2 * coil + b * hw * 8, {"float32": 6 * b * c * hw}, F32,
+            library=lambda: torch.mul(eta_cx.unsqueeze(1), sens_cx))
         row("k2_residual", src, rep, k2.residual, k2.residual_plain, (k_c, y, mask, True),
             3 * coil + b * hw * 4, {"float32": 4 * b * c * hw}, F32)
         row("k2_reduce", src, rep, k2.reduce, k2.reduce_plain, (p_c, sens, eta, True),
-            2 * coil + b * hw * 8 + b * hw * 16, {"float32": 8 * b * c * hw}, F32)
+            2 * coil + b * hw * 8 + b * hw * 16, {"float32": 8 * b * c * hw}, F32,
+            library=lambda: torch.linalg.vecdot(sens_cx, p_c, dim=1))
         row("k2_load", src, "mridc_tpu/nn/dc.py:59 (sens_reduce)", k2.load, k2.load_plain, (y, mask, True),
-            2 * coil + b * hw * 4, {"float32": 2 * b * c * hw}, F32)
+            2 * coil + b * hw * 4, {"float32": 2 * b * c * hw}, F32, library=lambda: torch.mul(y_cx, mask))
         del x_c, k_c, p_c
 
         for dt, dname, es, tol in ((torch.float32, "float32", 4, F32), (torch.bfloat16, "bfloat16", 2, K3_BF16)):
@@ -2243,7 +2838,8 @@ def run(t_start, masks) -> int:
         coil = b * c * hw * 8
         src, rep = "mridc_tpu_torch/csrc/full_dc.cu", "mridc_tpu/nn/dc.py:81 (log_likelihood_gradient, backward)"
         row("k2_mask", src, rep, k2.apply_mask, k2.apply_mask_plain, (k_c, mk, centered),
-            2 * coil + b * hw * 4, {"float32": 2 * b * c * hw}, F32, train_counts, "step")
+            2 * coil + b * hw * 4, {"float32": 2 * b * c * hw}, F32, train_counts, "step",
+            library=lambda: torch.mul(k_c, mk))
         row("k2_reduce_acc", src, rep, k2.reduce_acc, k2.reduce_acc_plain, (p_c, sk, g, centered, sigma),
             2 * coil + b * hw * 16 + b * hw * 8, {"float32": 8 * b * c * hw + 2 * b * hw}, F32, train_counts, "step")
         del k_c, p_c
@@ -2285,6 +2881,14 @@ def run(t_start, masks) -> int:
 
     # L. the launch path: training from the config file at full width
     launch_phase(dev, card, rows, masks, d2_recs)
+
+    # Z, Z8. the zoo: ZF, ProximalGradient, UNet and ResNet serving and training,
+    # beside the draws of S's masks
+    masks.update(s_masks())
+    zoo_phases(dev, card, rows)
+
+    # S. the self-supervised branches from their config files
+    selfsup_phase(dev, card, rows, masks)
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})

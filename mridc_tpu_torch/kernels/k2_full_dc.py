@@ -38,6 +38,17 @@ swapped one ("backward" <-> "forward", "ortho" itself), so
     d_x (sens_expand) = reduce(ifft2(load(g)), s)   [ifft2 adjoint-normalised]
     d_k (sens_reduce) = m * fft2(expand(g, s))       [fft2 adjoint-normalised]
 
+The normal operator of the conjugate-gradient data consistency
+(``mridc_tpu/models/recon/resnet.py:67-71`` ``ehe``) is the same chain without
+y, plus a learned multiple of its input:
+
+    normal_op(x) = reduce(ifft2(apply_mask(fft2(expand(x, s)))), s) + mu * x
+
+It is Hermitian too, so its backward is itself applied to the upstream g, and
+mu's gradient is the real inner product of x and g. Its Function saves the maps
+and the mask (the same tensors at every CG iteration) and, when mu takes a
+gradient, the image-sized x: no coil-sized tensor is kept per call.
+
 Each stage has a wrapper (plain version for CPU tensors, kernel for CUDA
 tensors) and a plain version written with the same index arithmetic as its
 kernel; :func:`full_dc`, :func:`sens_expand` and :func:`sens_reduce` take the
@@ -56,12 +67,12 @@ from mridc_tpu_torch.kernels.binding import launch
 from mridc_tpu_torch.kernels.common import check_operand, dense, device_of, refuse_grads
 from mridc_tpu_torch.nn import dc
 from mridc_tpu_torch.ops.cplx import cmul, cmul_conj
-from mridc_tpu_torch.ops.fft import _norm
+from mridc_tpu_torch.ops.fft import _norm, fft2_rv, ifft2_rv
 
 __all__ = [
     "full_dc", "full_dc_plain", "full_dc_bwd", "full_dc_bwd_plain", "sens_reduce", "sens_reduce_plain",
     "sens_reduce_bwd", "sens_reduce_bwd_plain", "sens_expand", "sens_expand_plain", "sens_expand_bwd",
-    "sens_expand_bwd_plain", "to_fft_order", "from_fft_order",
+    "sens_expand_bwd_plain", "to_fft_order", "from_fft_order", "normal_op", "normal_op_plain",
     "expand", "residual", "load", "reduce", "apply_mask", "reduce_acc",
     "expand_plain", "residual_plain", "load_plain", "reduce_plain", "apply_mask_plain", "reduce_acc_plain",
 ]
@@ -512,3 +523,55 @@ def from_fft_order(kspace, fft_centered: bool) -> torch.Tensor:
     """The inverse of :func:`to_fft_order` (fftshift)."""
     device_of("from_fft_order", kspace)
     return _Reorder.apply(kspace, True) if fft_centered else kspace
+
+
+# ---- the normal operator of the conjugate-gradient DC ----
+
+
+def normal_op_plain(x, sens, mask, mu, fft_centered=False, fft_normalization="backward") -> torch.Tensor:
+    """Plain PyTorch version, the JAX package's ``ehe``: ``sum_c conj(s_c)
+    F^-1(m F(s_c x)) + mu x`` with ``x`` [B, H, W, 2], ``mask`` broadcastable
+    to [B, 1, H, W] and ``mu`` a float or a tensor broadcastable to ``x``."""
+    m = mask[..., None]
+    k = fft2_rv(cmul(x[:, None], sens), fft_centered, fft_normalization)
+    img = ifft2_rv(k * m, fft_centered, fft_normalization)
+    return cmul_conj(img, sens).sum(dim=1) + mu * x
+
+
+def _normal_op_apply(x, sens, mask, mu, fft_centered, fft_normalization) -> torch.Tensor:
+    """The operator on ``x``: the plain version for CPU tensors, the stages
+    around cuFFT on the card (expand, mask, reduce; mu x added by one
+    ``addcmul``)."""
+    if x.device.type == "cpu":
+        return normal_op_plain(x, sens, mask, mu, fft_centered, fft_normalization)
+    norm = _norm(fft_normalization)
+    k = torch.fft.fft2(expand(dense("normal_op", x), sens, fft_centered), norm=norm)
+    p = torch.fft.ifft2(apply_mask(k, mask, fft_centered), norm=norm)
+    del k
+    return torch.addcmul(reduce(p, sens, None, fft_centered), mu, x)
+
+
+class _NormalOp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sens, mask, mu, fft_centered, fft_normalization):
+        ctx.save_for_backward(sens, mask, mu, x if ctx.needs_input_grad[3] else None)
+        ctx.args = (fft_centered, fft_normalization)
+        return _normal_op_apply(x, sens, mask, mu, fft_centered, fft_normalization)
+
+    @staticmethod
+    def backward(ctx, g):
+        refuse_grads("normal_op", ctx.needs_input_grad, {1: "sens", 2: "mask"})
+        sens, mask, mu, x = ctx.saved_tensors
+        d_x = _normal_op_apply(g, sens, mask, mu, *ctx.args) if ctx.needs_input_grad[0] else None
+        d_mu = (x * g).sum().reshape(mu.shape) if ctx.needs_input_grad[3] else None
+        return d_x, None, None, d_mu, None, None
+
+
+def normal_op(x, sens, mask, mu, fft_centered=False, fft_normalization="backward") -> torch.Tensor:
+    """``A(x) = sum_c conj(s_c) IFFT2(m FFT2(s_c x)) + mu x`` ([B, H, W, 2] ->
+    [B, H, W, 2], float32; ``mask`` broadcastable to [B, 1, H, W], ``mu`` a
+    float or a float32 tensor broadcastable to x, e.g. a (1,) parameter);
+    differentiable in x and mu."""
+    dev = device_of("normal_op", x, sens, mask)
+    mu = torch.as_tensor(mu, dtype=torch.float32, device=dev)
+    return _NormalOp.apply(x, sens, mask, mu, fft_centered, fft_normalization)

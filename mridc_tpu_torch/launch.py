@@ -166,6 +166,11 @@ def run_from_config(cfg: dict, device=None):
     if ema_cfg is True:  # `ema: true` shorthand for `ema: {enable: true}`
         ema_cfg = {"enable": True}
     use_ema = bool(ema_cfg.get("enable", False)) if isinstance(ema_cfg, dict) else False
+    # the unselfsupervised configs use the reference's `loss_fn` /
+    # `n2r_loss_regularization_factor` / `reconstruction_loss_regularization_factor`
+    # spellings (reference nn/base.py:86-92)
+    if "n2r_loss_regularization_factor" in model_cfg:
+        trainer_cfg.setdefault("n2r_loss_weight", float(model_cfg["n2r_loss_regularization_factor"]))
     trainer = Trainer(
         model,
         optim_cfg=model_cfg.get("optim"),

@@ -67,7 +67,12 @@ class BaseReconModel(nn.Module):
         self.coil_combination_method = coil_combination_method
 
     def zero_filled(self, y: torch.Tensor, sens: torch.Tensor) -> torch.Tensor:
-        """SENSE/RSS combine of the zero-filled reconstruction -> [B, H, W, 2]."""
+        """SENSE/RSS combine of the zero-filled reconstruction -> [B, H, W, 2].
+        SENSE is :func:`sens_reduce` (the inverse FFT and ``ccombine``'s sum
+        over coils of conj(s_c) x_c; on the card K2's load and reduce stages
+        around cuFFT); RSS stays plain."""
+        if self.coil_combination_method.upper() == "SENSE":
+            return self.sense_init(y, sens)
         img = ifft2_rv(y, self.fft_centered, self.fft_normalization, self.spatial_dims)
         return ccombine(img, sens, self.coil_combination_method, self.coil_dim)
 

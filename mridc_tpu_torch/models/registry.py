@@ -10,23 +10,28 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from mridc_tpu_torch.models.recon.cirim import CIRIM
+from mridc_tpu_torch.models.recon.resnet import ProximalGradient, ResNet
+from mridc_tpu_torch.models.recon.unet import UNet
 from mridc_tpu_torch.models.recon.vn import VarNet
+from mridc_tpu_torch.models.recon.zf import ZF
 from mridc_tpu_torch.utils.typecheck import resolve_device
 
 __all__ = ["MODEL_REGISTRY", "PENDING_MODELS", "build_model", "available_models"]
 
 MODEL_REGISTRY: Dict[str, Callable] = {
+    "ZF": ZF.from_config, "UNET": UNet.from_config,
     "CIRIM": CIRIM.from_config, "RIM": CIRIM.from_config,
     "VN": VarNet.from_config, "VARNET": VarNet.from_config, "E2EVN": VarNet.from_config,
+    "PROXIMALGRADIENT": ProximalGradient.from_config, "PG": ProximalGradient.from_config,
+    "RESNET": ResNet.from_config,
 }
 
 _M9, _M10, _M11, _M12 = "M9 (reconstruction zoo)", "M10 (quantitative)", "M11 (segmentation)", "M12 (multitask)"
 PENDING_MODELS: Dict[str, str] = {
     **dict.fromkeys(
         (
-            "ZF", "UNET", "CASCADENET", "CCNN", "CRNNET", "CRNN", "CS", "PICS", "JOINTICNET", "PROXIMALGRADIENT",
-            "PG", "RESNET", "RVN", "RECURRENTVARNET", "KIKINET", "LPDNET", "LPD", "MULTIDOMAINNET", "MULTIDOMAIN",
-            "XPDNET", "VSNET", "DUNET",
+            "CASCADENET", "CCNN", "CRNNET", "CRNN", "CS", "PICS", "JOINTICNET", "RVN", "RECURRENTVARNET",
+            "KIKINET", "LPDNET", "LPD", "MULTIDOMAINNET", "MULTIDOMAIN", "XPDNET", "VSNET", "DUNET",
         ),
         _M9,
     ),

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["Conv", "ConvTranspose", "ConvNonlinear", "InstanceNorm", "as_torch_dtype", "activation", "conv2d",
-           "cudnn_float32", "replicate_pad", "fan_in_truncated_normal_"]
+           "cudnn_float32", "replicate_pad", "fan_in_truncated_normal_", "fan_avg_truncated_normal_"]
 
 # std of a unit normal cut at +-2, by which flax's truncated_normal divides
 TRUNC_STD = 0.87962566103423978
@@ -43,6 +43,19 @@ def fan_in_truncated_normal_(
     whose variance is scale / fan_in (``kaiming_normal``: scale 2,
     ``lecun_normal``: scale 1). ``fan_in`` defaults to I*H*W of an OIHW kernel."""
     s = math.sqrt(scale / (weight[0].numel() if fan_in is None else fan_in)) / TRUNC_STD
+    return nn.init.trunc_normal_(weight, std=s, a=-2 * s, b=2 * s, generator=generator)
+
+
+def fan_avg_truncated_normal_(
+    weight: torch.Tensor, scale: float = 1.0, generator: Optional[torch.Generator] = None
+) -> torch.Tensor:
+    """flax ``variance_scaling(scale, "fan_avg", "truncated_normal")`` on an
+    OIHW kernel (``xavier_normal`` at scale 1): a normal with std s =
+    sqrt(scale / fan_avg) / TRUNC_STD cut at +-2s, fan_avg = (I + O) * H * W / 2;
+    not torch's ``xavier_normal_``, which neither truncates nor rescales."""
+    receptive = weight[0, 0].numel()
+    fan_avg = (weight.shape[0] + weight.shape[1]) * receptive / 2
+    s = math.sqrt(scale / fan_avg) / TRUNC_STD
     return nn.init.trunc_normal_(weight, std=s, a=-2 * s, b=2 * s, generator=generator)
 
 

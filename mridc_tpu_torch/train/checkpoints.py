@@ -106,7 +106,8 @@ def decode_flax_msgpack(data: bytes) -> Any:
 
 def _state_from_flax(cfg: Dict, tree: Any) -> Dict[str, torch.Tensor]:
     from mridc_tpu_torch.models.registry import MODEL_REGISTRY, PENDING_MODELS
-    from mridc_tpu_torch.utils.params import cirim_params_from_jax, varnet_params_from_jax
+    from mridc_tpu_torch.utils.params import (cirim_params_from_jax, resnet_params_from_jax, unet_params_from_jax,
+                                              varnet_params_from_jax)
 
     if isinstance(tree, dict) and set(tree) == {"params", "batch_stats"}:
         tree = tree["params"]  # live-BatchNorm archives
@@ -115,6 +116,12 @@ def _state_from_flax(cfg: Dict, tree: Any) -> Dict[str, torch.Tensor]:
         return cirim_params_from_jax(tree)
     if name in ("VN", "VARNET", "E2EVN"):
         return varnet_params_from_jax(tree)
+    if name == "UNET":
+        return unet_params_from_jax(tree)
+    if name in ("RESNET", "PROXIMALGRADIENT", "PG"):
+        return resnet_params_from_jax(tree)
+    if name == "ZF":
+        return {}
     if name in PENDING_MODELS and name not in MODEL_REGISTRY:
         raise NotImplementedError(f"model {name!r} is not ported to mridc_tpu_torch yet: ROADMAP "
                                   f"{PENDING_MODELS[name]}")

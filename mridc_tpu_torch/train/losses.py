@@ -17,7 +17,7 @@ import torch
 
 from mridc_tpu_torch.losses.ssim import ssim_loss
 from mridc_tpu_torch.models.base import ModelOutput
-from mridc_tpu_torch.ops.cplx import cabs, cmul
+from mridc_tpu_torch.ops.cplx import cabs2, cmul
 from mridc_tpu_torch.ops.fft import fft2_rv
 
 __all__ = ["base_loss_fn", "expand_op", "process_reconstruction_loss"]
@@ -30,10 +30,22 @@ def expand_op(x: torch.Tensor, sensitivity_maps: torch.Tensor, coil_dim: int = 1
     return cmul(x.unsqueeze(coil_dim), sensitivity_maps)
 
 
+def _mag(x: torch.Tensor) -> torch.Tensor:
+    """|x| of a [..., 2] real view: ``cabs``'s values, with a gradient of 0
+    where x is 0 (as ``torch.abs`` of a complex tensor has it). ``cabs``, like
+    the JAX package's, gives NaN there: a Noise2Recon consistency step whose
+    noise mask drew nothing (the configs' noise std is 0) feeds the UNet zeros,
+    its prediction is exactly 0 while the biases are, and sqrt's gradient at 0
+    would make every parameter NaN."""
+    m2 = cabs2(x)
+    nonzero = m2 > 0
+    return torch.where(nonzero, torch.sqrt(torch.where(nonzero, m2, 1.0)), 0.0)
+
+
 def _norm_mag(x: torch.Tensor) -> torch.Tensor:
     """Magnitude normalized by its max over the whole tensor (``amax``: tied
     maxima share the gradient, as in JAX); [..., 2] real views or real."""
-    mag = cabs(x) if x.shape[-1] == 2 else x.abs()
+    mag = _mag(x) if x.shape[-1] == 2 else x.abs()
     return mag / torch.clamp(mag.amax(), min=1e-12)
 
 

@@ -6,10 +6,9 @@ Typo'd or mistyped keys in these blocks fail loudly at load time instead of
 being silently ignored: plain key/type tables over the config dicts
 (``train/config.py``). The ``model:`` block itself is permissive (its keys are
 per-model) except for the nested ``optim``/``sched`` blocks, which are
-structural. Optimizer names are checked against every name the JAX package
-knows, those the port builds and those that raise when built
-(``train/optim.py``: ``PENDING_OPTIMIZERS``), so a config validates alike in both
-packages.
+structural. Optimizer names are checked against the optimizers the port
+builds (``train/optim.py``), every name the JAX package knows, so a config
+validates alike in both packages.
 """
 
 from __future__ import annotations
@@ -248,9 +247,9 @@ def validate_config(cfg: Dict, strict: bool = True) -> List[str]:
     if isinstance(optim, dict):
         name = optim.get("name")
         if isinstance(name, str):
-            from mridc_tpu_torch.train.optim import AVAILABLE_OPTIMIZERS, PENDING_OPTIMIZERS
+            from mridc_tpu_torch.train.optim import AVAILABLE_OPTIMIZERS
 
-            known = [*AVAILABLE_OPTIMIZERS, *PENDING_OPTIMIZERS]
+            known = list(AVAILABLE_OPTIMIZERS)
             if name.lower() not in known:
                 problems.append(f"model.optim.name: unknown optimizer {name!r}.{_suggest(name.lower(), known)}")
         sched = optim.get("sched")

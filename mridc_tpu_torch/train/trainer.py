@@ -1,19 +1,38 @@
 """Training engine (counterpart of ``mridc_tpu/train/trainer.py``): one
-supervised training step (forward, loss, backward, gradient clipping, the
-optimizer under its schedule, EMA), the prediction step, and the
-``fit``/``validate``/``test`` loops with host metrics at skimage parity.
+training step (forward, loss, backward, gradient clipping, gradient
+accumulation, the optimizer under its schedule, EMA), the prediction step,
+and the ``fit``/``validate``/``test`` loops with host metrics at skimage
+parity.
 
-The step matches ``_build_train_step``'s supervised branch and
-``_optimizer_tail``: the loss and gradients of
-:func:`~mridc_tpu_torch.train.losses.process_reconstruction_loss` on the
-model's train-mode output; ``clip_by_global_norm`` when
+The step matches ``_build_train_step`` and ``_optimizer_tail``: the loss and
+gradients of :func:`~mridc_tpu_torch.train.losses.process_reconstruction_loss`
+on the model's train-mode output; ``clip_by_global_norm`` when
 ``gradient_clip_val`` is set (g / |g| * clip where |g| >= clip, as optax); the
 optimizer at the schedule's rate for update k, ``sched(k)`` from k = 0; then
 ``ema = decay * ema + (1 - decay) * params``. It returns ``{"loss",
-"grad_norm"}``, the norm of the gradients before clipping. Batches carry the
-JAX package's keys (``masked_kspace``, ``sensitivity_maps``, ``mask``,
+"grad_norm"}``, the norm of the step's gradients before clipping (0 for a
+model without parameters, which takes no optimizer). Batches carry the JAX
+package's keys (``masked_kspace``, ``sensitivity_maps``, ``mask``,
 ``target``, optional ``initial_prediction``) as numpy arrays or tensors, with
 consecutive slices folded into the batch as ``_model_inputs`` folds them.
+
+The self-supervised branches follow the JAX step's gating. SSDU batches
+carry ``mask`` [B, 2, 1, H, W]: the model takes the train mask ``mask[:, 0]``
+and the loss gates the prediction's k-space with the loss mask ``mask[:, 1]``.
+A batch with ``n2r_masked_kspace``/``n2r_mask`` (Noise2Recon) trains on
+exactly one term: the (pseudo-)supervised loss, in k-space when ``ssdu``,
+when ``ssdu`` is set or any slice's ``attrs["n2r_supervised"]`` is true;
+otherwise the consistency loss of a second forward on the noisier k-space
+against the first forward's prediction (gradients through both), weighted by
+``trainer_cfg["n2r_loss_weight"]``. The term that is not chosen is not
+computed: its value reaches neither the loss nor a gradient.
+
+``accumulate_grad_batches`` = k > 1 is ``optax.MultiSteps``: each micro-step
+adds its gradients to a running mean (acc + (g - acc) / (n + 1)); every k-th
+the mean is clipped and the optimizer steps at the schedule's rate for the
+count of such updates. ``state.step`` and the EMA advance on every
+micro-step, and ``max_steps`` counts optimizer steps (``fit`` runs k times as
+many micro-steps).
 
 ``fit`` takes the JAX trainer's knobs from ``trainer_cfg`` (``max_epochs``,
 ``max_steps``, ``limit_train_batches``, ``limit_val_batches``,
@@ -34,11 +53,9 @@ history; the previous handler is put back. ``trainer_cfg["profile_dir"]``
 traces steps [``profile_start_step`` (3), + ``profile_steps`` (5)) with
 ``torch.profiler`` into a Chrome trace there. :meth:`Trainer.state_dict` and
 :meth:`Trainer.load_state_dict` carry the model, optimizer, plateau
-scheduler, step, epoch and EMA weights (the step checkpoints).
+scheduler, step, epoch, accumulation and EMA state (the step checkpoints).
 
-Not ported yet (each raises): the noise2recon and SSDU branches and gradient
-accumulation (ROADMAP.md M5). The trainer runs on the CUDA device unless it
-is given ``device="cpu"``.
+The trainer runs on the CUDA device unless it is given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -47,12 +64,13 @@ import signal
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
 
 from mridc_tpu_torch.metrics.reconstruction import METRIC_FUNCS, ReconstructionMetrics, ssim
+from mridc_tpu_torch.models.base import ModelOutput
 from mridc_tpu_torch.parallel.multihost import reduce_mean_stats
 from mridc_tpu_torch.train.losses import process_reconstruction_loss
 from mridc_tpu_torch.train.optim import get_optimizer, parse_optimizer_args
@@ -114,11 +132,23 @@ def _host_mag(x) -> np.ndarray:
     return np.abs(x)
 
 
+def _global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """optax.global_norm: the l2 norm of all the gradients together."""
+    return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+
+
 @dataclass
 class TrainState:
+    """``step`` counts micro-steps, ``gradient_step`` optimizer steps (the
+    schedule's count), ``mini_step`` the micro-steps in the running mean
+    ``acc_grads``; ``optimizer`` is None for a model without parameters."""
+
     step: int
-    optimizer: torch.optim.Optimizer
+    optimizer: Optional[torch.optim.Optimizer]
     ema_params: Optional[Dict[str, torch.Tensor]] = field(default=None)
+    gradient_step: int = 0
+    mini_step: int = 0
+    acc_grads: Optional[List[torch.Tensor]] = field(default=None)
 
 
 class Trainer:
@@ -142,8 +172,6 @@ class Trainer:
         log_images_limit: int = 4,
         device=None,
     ):
-        if ssdu:
-            raise NotImplementedError("the SSDU training branch is not ported to mridc_tpu_torch yet: ROADMAP.md M5")
         self.exp_manager = exp_manager
         self.log_images = bool(log_images)
         self.log_images_limit = int(log_images_limit)
@@ -159,6 +187,7 @@ class Trainer:
         self.use_ema = use_ema
         self.ema_decay = ema_decay
         self.loss_regularization_factor = loss_regularization_factor
+        self.ssdu = bool(ssdu)
         self.kspace_reconstruction_loss = bool(kspace_reconstruction_loss)
         self.schedule: Optional[Callable] = None
         self.plateau: Optional[ReduceLROnPlateau] = None
@@ -168,11 +197,6 @@ class Trainer:
 
     def setup_optimization(self, num_samples: int = 1, batch_size: int = 1) -> Optional[Callable]:
         """The learning-rate schedule (reference modelPT.setup_optimization)."""
-        accum = self.trainer_cfg.get("accumulate_grad_batches", 1)
-        if accum and accum > 1:
-            raise NotImplementedError(
-                "gradient accumulation (accumulate_grad_batches > 1) is not ported to mridc_tpu_torch yet: "
-                "ROADMAP.md M5")
         sched = prepare_lr_schedule(self.optim_cfg, num_samples, batch_size, self.trainer_cfg)
         if isinstance(sched, ReduceLROnPlateau):
             # keep a live plateau (its reduced rate and patience bookkeeping)
@@ -189,13 +213,20 @@ class Trainer:
         if self.schedule is None:
             self.setup_optimization()
         params = [p for p in self.model.parameters() if p.requires_grad]
-        opt = get_optimizer(self.optim_cfg.get("name", "adam"), params, self._lr(0),
-                            **parse_optimizer_args(self.optim_cfg))
+        opt = None
+        if params:  # a model without parameters (ZF) trains nothing: optax's empty tree
+            opt = get_optimizer(self.optim_cfg.get("name", "adam"), params, self._lr(0),
+                                **parse_optimizer_args(self.optim_cfg))
         ema = None
         if self.use_ema:
             ema = {k: p.detach().clone() for k, p in self.model.named_parameters()}
         self.state = TrainState(step=0, optimizer=opt, ema_params=ema)
         return self.state
+
+    @property
+    def accumulate(self) -> int:
+        """Micro-steps per optimizer step (``accumulate_grad_batches``)."""
+        return max(1, int(self.trainer_cfg.get("accumulate_grad_batches", 1) or 1))
 
     def state_dict(self) -> Dict:
         """The training state a step checkpoint holds: the model's and the
@@ -203,21 +234,30 @@ class Trainer:
         epoch and the EMA weights."""
         if self.state is None:
             self.init_state()
+        st = self.state
         return {
             "model": self.model.state_dict(),
-            "optimizer": self.state.optimizer.state_dict(),
+            "optimizer": None if st.optimizer is None else st.optimizer.state_dict(),
             "scheduler": None if self.plateau is None else dict(vars(self.plateau)),
-            "step": self.state.step,
+            "step": st.step,
             "epoch": self.epoch,
-            "ema": self.state.ema_params,
+            "ema": st.ema_params,
+            "gradient_step": st.gradient_step,
+            "mini_step": st.mini_step,
+            "acc_grads": st.acc_grads,
         }
 
     def load_state_dict(self, state: Dict) -> None:
         """Continue from a :meth:`state_dict` (on this trainer's device)."""
         self.model.load_state_dict(state["model"])
         self.init_state()
-        self.state.optimizer.load_state_dict(state["optimizer"])
+        if self.state.optimizer is not None:
+            self.state.optimizer.load_state_dict(state["optimizer"])
         self.state.step = int(state["step"])
+        self.state.gradient_step = int(state.get("gradient_step", self.state.step))
+        self.state.mini_step = int(state.get("mini_step", 0))
+        if state.get("acc_grads") is not None:
+            self.state.acc_grads = [a.detach().to(self.device).clone() for a in state["acc_grads"]]
         self.epoch = int(state.get("epoch", 0))
         if state.get("ema") is not None:
             self.state.ema_params = {k: v.detach().to(self.device).clone() for k, v in state["ema"].items()}
@@ -262,11 +302,8 @@ class Trainer:
     # ------------------------------------------------------------------ steps
 
     def training_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        """One training step on ``batch``: ``{"loss", "grad_norm"}`` as 0-d
-        tensors on the device (reading them syncs the host)."""
-        if "n2r_masked_kspace" in batch:
-            raise NotImplementedError("the noise2recon training branch is not ported to mridc_tpu_torch yet: "
-                                      "ROADMAP.md M5")
+        """One training (micro-)step on ``batch``: ``{"loss", "grad_norm"}`` as
+        0-d tensors on the device (reading them syncs the host)."""
         if self.state is None:
             self.init_state()
         slices = self._num_slices(batch)
@@ -280,35 +317,75 @@ class Trainer:
             loss_mask = raw_mask[:, 1, 0] if raw_mask.ndim == 5 else raw_mask[:, 1]
             if slices > 1 and loss_mask.shape[0] * slices == y.shape[0]:
                 loss_mask = torch.repeat_interleave(loss_mask, slices, dim=0)
+        n2r = "n2r_masked_kspace" in batch
+        fc = bool(getattr(self.model, "fft_centered", False))
+        fn = str(getattr(self.model, "fft_normalization", "backward"))
 
-        opt = self.state.optimizer
-        opt.zero_grad(set_to_none=True)
+        def loss_of(out, tgt, kspace_loss):
+            return process_reconstruction_loss(
+                out, tgt, self.loss_type, self.loss_regularization_factor, loss_mask, sensitivity_maps=sens,
+                kspace_loss=kspace_loss, fft_centered=fc, fft_normalization=fn)
+
         out = self.model(y, sens, mask, init_pred, train=True)
-        loss = process_reconstruction_loss(
-            out, target, self.loss_type, self.loss_regularization_factor, loss_mask,
-            sensitivity_maps=sens, kspace_loss=self.kspace_reconstruction_loss,
-            fft_centered=bool(getattr(self.model, "fft_centered", False)),
-            fft_normalization=str(getattr(self.model, "fft_normalization", "backward")),
-        )
-        loss.backward()
-        grads = [p.grad for group in opt.param_groups for p in group["params"] if p.grad is not None]
-        grad_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-        clip = self.trainer_cfg.get("gradient_clip_val", 0)
-        if clip:
-            # optax.clip_by_global_norm: g / |g| * clip where |g| >= clip, without a host sync
-            scale = torch.where(grad_norm < clip, torch.ones_like(grad_norm), clip / grad_norm)
-            torch._foreach_mul_(grads, scale)
-        for group in opt.param_groups:
-            group["lr"] = self._lr(self.state.step)
-        opt.step()
-        if self.state.ema_params is not None:
+        supervised = not n2r or self.ssdu or any(bool(a.get("n2r_supervised", False))
+                                                 for a in (batch.get("attrs") or []))
+        if supervised:
+            loss = loss_of(out, target, self.kspace_reconstruction_loss or (self.ssdu and n2r))
+        else:
+            out_n = self.model(self._tensor(batch["n2r_masked_kspace"]), sens, self._tensor(batch["n2r_mask"]),
+                               init_pred, train=True)
+            loss = float(self.trainer_cfg.get("n2r_loss_weight", 1.0)) * loss_of(
+                ModelOutput(prediction=out_n.prediction), out.prediction, self.kspace_reconstruction_loss)
+        st = self.state
+        opt = st.optimizer
+        if opt is None:  # no parameters: the loss, and the norm of no gradients
+            grad_norm = torch.zeros((), device=self.device)
+        else:
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            params = [p for group in opt.param_groups for p in group["params"]]
+            grad_norm = _global_norm([p.grad for p in params if p.grad is not None])
+            if self.accumulate > 1:
+                # optax.MultiSteps: a running mean of the micro-steps' gradients
+                # (a parameter without a gradient adds zeros, as in optax)
+                if st.acc_grads is None:
+                    st.acc_grads = [torch.zeros_like(p) for p in params]
+                for p, acc in zip(params, st.acc_grads):
+                    g = p.grad if p.grad is not None else torch.zeros_like(p)
+                    acc.add_((g - acc) / (st.mini_step + 1))
+                st.mini_step += 1
+                if st.mini_step == self.accumulate:
+                    for p, acc in zip(params, st.acc_grads):
+                        p.grad = acc.clone()
+                        acc.zero_()
+                    st.mini_step = 0
+                    self._optimizer_step(opt, params)
+            else:
+                self._optimizer_step(opt, params, grad_norm)
+        if st.ema_params is not None:
             d = self.ema_decay
             with torch.no_grad():
                 for k, p in self.model.named_parameters():
-                    e = self.state.ema_params[k]
+                    e = st.ema_params[k]
                     e.mul_(d).add_(p, alpha=1 - d)
-        self.state.step += 1
+        st.step += 1
         return {"loss": loss.detach(), "grad_norm": grad_norm.detach()}
+
+    def _optimizer_step(self, opt: torch.optim.Optimizer, params: List[torch.Tensor],
+                        norm: Optional[torch.Tensor] = None) -> None:
+        """Clip the gradients in ``params``' ``.grad`` by their global norm
+        (``norm`` when the caller has it; ``gradient_clip_val``) and step the
+        optimizer at the schedule's rate for this optimizer step."""
+        clip = self.trainer_cfg.get("gradient_clip_val", 0)
+        if clip:
+            grads = [p.grad for p in params if p.grad is not None]
+            norm = _global_norm(grads) if norm is None else norm
+            # optax.clip_by_global_norm: g / |g| * clip where |g| >= clip, without a host sync
+            torch._foreach_mul_(grads, torch.where(norm < clip, torch.ones_like(norm), clip / norm))
+        for group in opt.param_groups:
+            group["lr"] = self._lr(self.state.gradient_step)
+        opt.step()
+        self.state.gradient_step += 1
 
     def predict_batch(self, batch: Dict, use_ema: bool = False) -> np.ndarray:
         """The model's (inference) prediction for ``batch``, in eval mode and
@@ -336,7 +413,8 @@ class Trainer:
         epoch metrics per epoch (``train_loss`` and the validation metrics)."""
         max_epochs = max_epochs or self.trainer_cfg.get("max_epochs", 1)
         ms = self.trainer_cfg.get("max_steps")
-        max_steps = float("inf") if ms is None or float(ms) < 0 else float(ms)
+        # max_steps counts optimizer steps (PTL); the loop counts micro-steps
+        max_steps = (float("inf") if ms is None or float(ms) < 0 else float(ms)) * self.accumulate
         # PTL-compatible knobs (reference core/conf/trainer.py TrainerConfig)
         log_every_n_steps = int(self.trainer_cfg.get("log_every_n_steps", log_every_n_steps))
         check_val_every = int(self.trainer_cfg.get("check_val_every_n_epoch", 1) or 1)

@@ -14,6 +14,15 @@ over or missing raises.
 param tree (numpy arrays) and returns the port's ``state_dict``, whose keys are
 the reference torch names that importer reads.
 
+:func:`unet_params_from_jax` takes the UNet model's ``NormUnet_0/Unet_0`` to
+``unet.unet...``; :func:`resnet_params_from_jax` takes ResNet's
+``ResidualNetwork_0/Conv_k`` (flax's creation order: Conv_0 the first conv,
+per block Conv_{2i+1} the outer and Conv_{2i+2} the inner conv, then the last
+two; the reference's ``conv1``, ``layers2.{i}``, ``layers1.{i}``,
+``last_layer``, ``final_layer``, as ``mridc_tpu``'s
+``import_residual_network_params`` reads them) and the CG weight ``mu``,
+which is all ProximalGradient has.
+
 The flax scope names depend on ``remat_mode``: a rematerialised scan is named
 ``ScanCheckpoint_*``, a plain one ``Scan_*`` — ``step+cascade`` gives
 ``ScanCheckpoint_Cascade_0/RIMBlock_0/ScanCheckpoint_RIMStep_0``, ``none``
@@ -31,7 +40,7 @@ import numpy as np
 import torch
 
 __all__ = ["cirim_params_from_jax", "rim_block_params_from_jax", "normunet_params_from_jax", "varnet_params_from_jax",
-           "hwio_to_oihw", "hwio_to_iohw_flipped"]
+           "unet_params_from_jax", "resnet_params_from_jax", "hwio_to_oihw", "hwio_to_iohw_flipped"]
 
 _CELL_SCOPE = re.compile(r"^(IndRNNCell|ConvGRUCell|ConvMGUCell)_(\d+)$")
 
@@ -194,5 +203,39 @@ def varnet_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         i += 1
     if i == 0:
         raise KeyError("VarNet params: no _VarNetBlock_0/dc_weight in the param tree")
+    leaves.done()
+    return state
+
+
+def unet_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Port :class:`~mridc_tpu_torch.models.recon.unet.UNet` ``state_dict``
+    from a flax UNet param tree (``{"NormUnet_0": {"Unet_0": ...}}``)."""
+    leaves = _Leaves(_unwrap(tree), "UNet params")
+    state = _normunet_state(leaves, "NormUnet_0/Unet_0/", "unet.")
+    leaves.done()
+    return state
+
+
+def resnet_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Port :class:`~mridc_tpu_torch.models.recon.resnet.ResNet` (or
+    ``ProximalGradient``) ``state_dict`` from a flax param tree: the residual
+    network's convs where there are any, ``mu`` where there is one."""
+    leaves = _Leaves(_unwrap(tree), "ResNet params")
+    state: Dict[str, torch.Tensor] = {}
+    if leaves.has("mu"):
+        state["mu"] = _t(leaves.take("mu"))
+    n = 0
+    while leaves.has(f"ResidualNetwork_0/Conv_{n}/kernel"):
+        n += 1
+    if n:
+        if n < 3 or n % 2 == 0:
+            raise KeyError(f"ResNet params: {n} convs in ResidualNetwork_0, expected 2 * blocks + 3")
+        blocks = (n - 3) // 2
+        names = ["conv1"] + [f"layers{j}.{i}" for i in range(blocks) for j in (2, 1)] + ["last_layer", "final_layer"]
+        for k, name in enumerate(names):
+            state[f"residual_network.{name}.weight"] = _t(hwio_to_oihw(
+                leaves.take(f"ResidualNetwork_0/Conv_{k}/kernel")))
+    if not state:
+        raise KeyError("ResNet params: neither ResidualNetwork_0 nor mu in the param tree")
     leaves.done()
     return state

@@ -28,7 +28,7 @@ from mridc_tpu_torch.train.trainer import Trainer
 from mridc_tpu_torch.utils.params import cirim_params_from_jax
 
 from fixtures import create_dataset
-from test_torch_port_cirim import _cfg, _jax_params
+from test_torch_port_cirim import _cfg, _data, _jax_params
 from test_torch_port_data import _train_ds
 
 RTOL, ATOL = 2e-3, 2e-4
@@ -198,14 +198,17 @@ def test_fit_initialises_from_a_first_batch_like_jax(dataset_dir):
 
 def test_unported_hooks_raise_with_their_roadmap_item():
     """The exp_manager hooks are ported (M7): a Trainer takes one. The SSDU
-    branch and gradient accumulation still raise, naming M5."""
+    branch and gradient accumulation are ported too (M5): a Trainer takes
+    them, and ``fit`` runs max_steps optimizer steps, k micro-steps each."""
     model = build_model(_model_cfg("psf1d"), device="cpu")
     em = object()
     assert Trainer(model, exp_manager=em, device="cpu").exp_manager is em
-    with pytest.raises(NotImplementedError, match="M5"):
-        Trainer(model, ssdu=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="M5"):
-        Trainer(model, trainer_cfg={"accumulate_grad_batches": 2}, device="cpu").fit([])
+    assert Trainer(model, ssdu=True, device="cpu").ssdu
+    tt = Trainer(model, trainer_cfg={"accumulate_grad_batches": 2, "max_steps": 1}, device="cpu")
+    y, sens, mask = _data(16, 16, seed=3)
+    batch = {"masked_kspace": y, "sensitivity_maps": sens, "mask": mask, "target": y[:, 0]}
+    tt.fit([batch] * 4)
+    assert (tt.state.step, tt.state.gradient_step) == (2, 1)
 
 
 def test_batch_leaves_already_on_the_device_are_taken_as_they_are():

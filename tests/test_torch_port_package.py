@@ -84,7 +84,8 @@ def test_build_model_without_device_needs_cuda(monkeypatch):
 
 
 def test_every_jax_model_name_builds_or_names_its_roadmap_item():
-    assert available_models() == ["CIRIM", "E2EVN", "RIM", "VARNET", "VN"]
+    assert available_models() == ["CIRIM", "E2EVN", "PG", "PROXIMALGRADIENT", "RESNET", "RIM", "UNET", "VARNET", "VN",
+                                  "ZF"]
     for name in jax_models():
         if name in available_models():
             continue
