@@ -129,6 +129,15 @@ Phases (any failure raises; no phase catches its own):
      against K2's plain twins, ms, slices/s, peak memory, launches per step
      against ``ZOO_PER_STEP``, a traced ResNet step; UNet's gradient
      accumulation (``zoo_phases``);
+  Z2. CascadeNet, CRNNet, XPDNet, KIKINet, LPDNet, VSNet and DUNet at their
+     projects/reconstruction/conf widths (``ZOO2_CFGS``) on bench_data: K2's
+     masked expansion against its plain version; serving B=8 (ms, slices/s,
+     launches per forward against ``ZOO2_PER_FORWARD``, the prediction
+     against K2's plain twins); training at the configs' B=1 and CascadeNet
+     at B=8 (first-step loss and gradients against the plain twins, ms,
+     slices/s, peak memory, launches per step against ``ZOO2_PER_STEP``);
+     traces by layer and ATen op; live BatchNorm card against CPU
+     (``zoo2_phase``);
   S. ``python -m mridc_tpu_torch run -c`` (``cli.main``) of
      projects/unselfsupervised/conf's base_ssdu_train.yaml (ResNet) and
      base_n2r_train.yaml (UNet) as written, at batch 1 on phantom volumes:
@@ -354,6 +363,74 @@ ZOO_PER_STEP = {
 }
 ZOO_TRAIN_BATCH = {"zf": 8, "unet": 8, "pg": 8, "resnet": 1}  # base_resnet_train.yaml trains at batch 1
 ZOO_SEED = 0  # the generator of the zoo's random weights
+
+# Z2: CascadeNet, CRNNet, XPDNet, KIKINet, LPDNet, VSNet and DUNet as
+# projects/reconstruction/conf's base_{name}_train.yaml configure them (the
+# model keys; tests/test_torch_port_zoo2.py holds them against the YAMLs),
+# with ZOO_COMMON, on bench_data at 15 coils, 320x320
+ZOO2_CFGS = {
+    "ccnn": {"model_name": "CascadeNet", "num_cascades": 10, "hidden_channels": 64, "n_convs": 5, "batchnorm": False,
+             "no_dc": False},
+    "crnn": {"model_name": "CRNNet", "num_iterations": 10, "hidden_channels": 64, "n_convs": 3, "batchnorm": False,
+             "no_dc": False},
+    "xpdnet": {"model_name": "XPDNet", "num_iter": 2, "num_primal": 5, "num_dual": 1, "use_primal_only": True,
+               "image_model_architecture": "MWCNN", "mwcnn_hidden_channels": 16, "mwcnn_num_scales": 2},
+    "kikinet": {"model_name": "KIKINet", "num_iter": 2, "no_dc": False, "kspace_model_architecture": "DIDN",
+                "kspace_didn_hidden_channels": 64, "kspace_didn_num_dubs": 2, "kspace_didn_num_convs_recon": 3,
+                "imspace_model_architecture": "MWCNN", "image_mwcnn_hidden_channels": 16,
+                "image_mwcnn_num_scales": 2},
+    "lpdnet": {"model_name": "LPDNet", "num_iter": 2, "num_primal": 5, "num_dual": 5,
+               "primal_model_architecture": "UNET", "primal_unet_num_filters": 16, "primal_unet_num_pool_layers": 2,
+               "dual_model_architecture": "UNET", "dual_unet_num_filters": 16, "dual_unet_num_pool_layers": 2},
+    "vsnet": {"model_name": "VSNet", "num_cascades": 10, "imspace_model_architecture": "CONV",
+              "imspace_conv_hidden_channels": 64, "imspace_conv_n_convs": 4},
+    "dunet": {"model_name": "DUNet", "num_iter": 10, "reg_model_architecture": "DIDN", "didn_hidden_channels": 64,
+              "didn_num_dubs": 2, "didn_num_convs_recon": 3, "data_consistency_term": "GD",
+              "data_consistency_lambda_init": 0.1},
+}
+# launches per forward, uncentered and unmasked unless said: a SENSE
+# reduction is the inverse FFT and one reduce (masked: load, inverse FFT,
+# reduce), an expansion expand and the FFT (masked: and mask). CascadeNet a
+# reduction and an expansion per cascade and the SENSE prediction; CRNNet
+# per iteration one of each and its prediction's reduction; XPDNet the masked
+# reduction of y, then per iteration one masked expansion (primal image 0's:
+# the other four reach no output) and one masked reduction; KIKINet per
+# iteration two reductions and an expansion, and an expansion between
+# iterations; LPDNet the masked reduction of y, then per iteration one
+# masked expansion and one masked reduction; VSNet per cascade two
+# reductions (the JAX package's third repeats one) and two expansions, and
+# the prediction; DUNet the SENSE image, then per iteration one full_dc
+# chain (expand, residual, reduce) for the GD term
+ZOO2_PER_FORWARD = {
+    "ccnn": {"k2_reduce": 11, "k2_expand": 10},
+    "crnn": {"k2_reduce": 20, "k2_expand": 10},
+    "xpdnet": {"k2_load": 3, "k2_reduce": 3, "k2_expand": 2, "k2_mask": 2},
+    "kikinet": {"k2_reduce": 4, "k2_expand": 3},
+    "lpdnet": {"k2_load": 3, "k2_reduce": 3, "k2_expand": 2, "k2_mask": 2},
+    "vsnet": {"k2_reduce": 21, "k2_expand": 20},
+    "dunet": {"k2_reduce": 11, "k2_expand": 10, "k2_residual": 10},
+}
+# launches per training step: the forward's, and the adjoint of every call
+# whose input takes a gradient (a reduction's backward is expand, FFT and,
+# masked, mask; an expansion's the inverse FFT and reduce, masked with load
+# first; full_dc's expand, mask, reduce_acc). Inputs that take none: y's
+# reductions, CascadeNet's and VSNet's first cascade's reduction (of y),
+# CRNNet's first iteration's, and XPDNet's first iteration whole (its
+# buffers are y's); LPDNet's first iteration's expansion (of y's image)
+ZOO2_PER_STEP = {
+    "train_ccnn": {"k2_reduce": 21, "k2_expand": 20},
+    "train_crnn": {"k2_reduce": 30, "k2_expand": 29},
+    "train_xpdnet": {"k2_load": 4, "k2_reduce": 4, "k2_expand": 3, "k2_mask": 3},
+    "train_kikinet": {"k2_reduce": 7, "k2_expand": 7},
+    "train_lpdnet": {"k2_load": 4, "k2_reduce": 4, "k2_expand": 4, "k2_mask": 4},
+    "train_vsnet": {"k2_reduce": 41, "k2_expand": 40},
+    "train_dunet": {"k2_reduce": 11, "k2_expand": 20, "k2_residual": 10, "k2_mask": 10, "k2_reduce_acc": 10},
+}
+ZOO2_TRAIN_BATCH = 1  # every base_*_train.yaml of Z2 trains at batch 1
+ZOO2_BIG_TRAIN = "ccnn"  # also trained at B=8
+# the BatchNorm check: CascadeNet with live statistics, cut to 4 cascades, B=2
+ZOO2_BN_CFG = {**ZOO2_CFGS["ccnn"], "num_cascades": 4, "batchnorm": True, "train_batch_stats": True}
+ZOO2_BN_BATCH = 2
 
 # S: projects/unselfsupervised/conf/base_ssdu_train.yaml and base_n2r_train.yaml
 # as written (tests/test_torch_port_selfsup.py holds them equal to the YAMLs)
@@ -762,6 +839,8 @@ def kernel_category(name: str) -> str:
     if "anonymous namespace" in n and any(k in n for k in ("expand_kernel", "residual_kernel", "load_kernel",
                                                             "reduce_kernel", "mask_kernel")):
         return "K2 stages"
+    if "batch_norm" in n:
+        return "BatchNorm"
     if "welford" in n:
         return "InstanceNorm statistics"
     if "avg_pool" in n or "reflection_pad" in n:
@@ -784,8 +863,8 @@ def kernel_category(name: str) -> str:
 
 def trace_call(fn, ms_per_call):
     """Device time and kernel launches of one call of ``fn`` (a forward or a
-    training step) by kernel and by layer, from torch.profiler's CUDA kernel
-    events (CUPTI), beside the unprofiled wall time of a call."""
+    training step) by kernel, by layer and by ATen op, from torch.profiler's
+    CUDA kernel events (CUPTI), beside the unprofiled wall time of a call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -809,7 +888,7 @@ def trace_call(fn, ms_per_call):
             "device_busy_share": busy / ms_per_call if ms_per_call else None,
             "by_layer_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
             "by_layer_launches": dict(sorted(launches.items(), key=lambda kv: -kv[1])),
-            "top_kernels_ms": [[name[:120], ms] for name, ms in top]}
+            "top_kernels_ms": [[name[:120], ms] for name, ms in top], "by_op_ms": op_device_ms(prof)}
 
 
 def check_all(name, got: dict, want: dict, rtol, atol_rel, note=""):
@@ -1074,9 +1153,10 @@ def varnet_phases(dev, card, rows) -> None:
     def capturing(fname):
         orig_fn = getattr(k2, fname)
 
-        def wrapped(*args):
-            captured.setdefault(fname, tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args))
-            return orig_fn(*args)
+        def wrapped(*args, **kw):
+            captured.setdefault(fname, (tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args),
+                                        {k: v.detach().clone() if torch.is_tensor(v) else v for k, v in kw.items()}))
+            return orig_fn(*args, **kw)
 
         setattr(k2, fname, wrapped)
         return lambda: setattr(k2, fname, orig_fn)
@@ -1129,11 +1209,11 @@ def varnet_phases(dev, card, rows) -> None:
     # its plain version in float32 on the same bf16 operands (K1_BF16)
     with torch.inference_mode():
         for fname in ("sens_expand_bwd", "sens_reduce_bwd"):
-            args = captured[fname]
+            args, kw = captured[fname]
             got, plain = getattr(k2, fname), getattr(k2, f"{fname}_plain")
-            check(f"{fname}[train_vn_f32_full]", got(*args), plain(*args), *F32)
-            emit({"function": fname, "shape": tuple(args[0].shape), "ms": time_ms(lambda: got(*args)),
-                  "plain_ms": time_ms(lambda: plain(*args)),
+            check(f"{fname}[train_vn_f32_full]", got(*args, **kw), plain(*args, **kw), *F32)
+            emit({"function": fname, "shape": tuple(args[0].shape), "ms": time_ms(lambda: got(*args, **kw)),
+                  "plain_ms": time_ms(lambda: plain(*args, **kw)),
                   "note": "K2 stages around cuFFT; launches counted under their kernels", "card": card})
         u, s_, m_, z_, _ = captured["psf1d_normal"]
         check("psf1d_normal[vn_bf16_psf1d]", k1mod.psf1d_normal(u, s_, m_, z_),
@@ -1932,6 +2012,327 @@ def zoo_phases(dev, card, rows) -> None:
         raise AssertionError(f"kernels not launched on the zoo's paths: {missing}")
     emit({"phase": "Z8", "seconds": time.perf_counter() - t_z8})
 
+
+def op_device_ms(prof, top=14) -> dict:
+    """Total device time by ATen op (its kernels and its children's) of a
+    profiled call: where a layer's passes go (``aten::where`` is the PReLU
+    and the soft DC, ``aten::pixel_shuffle`` the subpixel copies)."""
+    out = {}
+    for e in prof.key_averages():
+        ms = getattr(e, "device_time_total", None)
+        ms = getattr(e, "cuda_time_total", 0.0) if ms is None else ms
+        if ms and e.key.startswith("aten::"):
+            out[e.key] = ms / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1])[:top])
+
+
+def zoo2_phase(dev, card, rows) -> None:
+    """Phase Z2: CascadeNet, CRNNet, XPDNet, KIKINet, LPDNet, VSNet and DUNet
+    at the widths of their projects/reconstruction/conf configs
+    (``ZOO2_CFGS``), on ``bench_data`` at 15 coils, 320x320, with random
+    weights from ``ZOO_SEED``.
+
+    K2's masked expansion (``sens_expand(mask=)``, XPDNet's and LPDNet's
+    forward operator) against its plain version at B=8, forward and backward,
+    uncentered backward and centered ortho (F32). Serving at B=8: 2 warm-up
+    and 5 timed forwards per model (ms, slices/s, launches per forward against
+    ``ZOO2_PER_FORWARD``), the prediction against the same forward with K2's
+    plain twins on the card (F32). Training through ``Trainer`` (the YAMLs'
+    Adam under InverseSquareRootAnnealing) at the configs' batch 1, and
+    CascadeNet at B=8: the first step's loss (F32) and the gradient (relative
+    l2 1e-3 whole, 2e-2 a parameter; where a 1e-7 relative change of y moves
+    the plain twins' own gradient more than 1e-3, 3x that spread whole)
+    against the plain twins, then 2 warm-up and 3
+    timed steps (ms, slices/s, peak memory, launches per step against
+    ``ZOO2_PER_STEP``). Traces: a forward and a training step of the model
+    with the most device time per forward, and a KIKINet forward (its DIDN on
+    B x 15 coil images), by layer and by ATen op. BatchNorm: CascadeNet with
+    live statistics (``ZOO2_BN_CFG``, B=2), two SGD steps on the card against
+    the same two on the CPU (loss, gradients, parameters, the running mean
+    and variance after each), then an eval forward with those statistics. SGD
+    there, not the YAMLs' Adam: the conv biases before each BatchNorm have
+    roundoff gradients, which Adam's first step turns into full steps of
+    either sign on the card and the CPU alike."""
+    import torch
+
+    from mridc_tpu_torch import kernels
+    from mridc_tpu_torch.kernels import binding
+    from mridc_tpu_torch.kernels import k2_full_dc as k2
+    from mridc_tpu_torch.models import build_model
+    from mridc_tpu_torch.nn import mwcnn as tmwcnn
+    from mridc_tpu_torch.train.losses import process_reconstruction_loss
+    from mridc_tpu_torch.train.trainer import Trainer
+
+    t_z2 = time.perf_counter()
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    y, sens, mask = (t(a) for a in bench_data(BATCH, COILS, H, W))
+    cfgs = {name: {**ZOO_COMMON, **cfg} for name, cfg in ZOO2_CFGS.items()}
+
+    def fresh(name, where=dev):
+        return build_model(cfgs[name], device=where, generator=torch.Generator().manual_seed(ZOO_SEED))
+
+    # the masked expansion against its plain version, forward and backward
+    gen = torch.Generator().manual_seed(23)
+    x0 = torch.randn(BATCH, H, W, 2, generator=gen).to(dev)
+    g0 = torch.randn(BATCH, COILS, H, W, 2, generator=gen).to(dev)
+    for centered, norm in ((False, "backward"), (True, "ortho")):
+        tag = f"{'c' if centered else 'u'}-{norm}"
+        res = {}
+        for which, fn in (("kernel", k2.sens_expand), ("plain", k2.sens_expand_plain)):
+            x = x0.clone().requires_grad_(True)
+            out = fn(x, sens, centered, norm, mask=mask)
+            out.backward(g0)
+            res[which] = (out.detach(), x.grad)
+        check(f"sens_expand_masked[forward/{tag}]", res["kernel"][0], res["plain"][0], *F32)
+        check(f"sens_expand_masked[dx/{tag}]", res["kernel"][1], res["plain"][1], *F32)
+        with torch.inference_mode():
+            emit({"function": "sens_expand_masked", "fft": tag, "shape": tuple(x0.shape),
+                  "ms": time_ms(lambda: k2.sens_expand(x0, sens, centered, norm, mask=mask)),
+                  "plain_ms": time_ms(lambda: k2.sens_expand_plain(x0, sens, centered, norm, mask=mask)),
+                  "note": "K2 expand, cuFFT, mask (and the fftshift load when centered); launches counted under "
+                          "the stages", "card": card})
+    del res, x, out, g0
+
+    # serving at B=8; the counters zeroed before each model and read after
+    z2_counts = {k: 0 for k in binding.LAUNCHES}
+    serve_ms = {}
+    for name in cfgs:
+        model = fresh(name)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with torch.inference_mode():
+            for _ in range(WARMUP):
+                model(y, sens, mask)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ITERS):
+                pred = model(y, sens, mask).prediction
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        delta = {k: v for k, v in kernels.launch_counts().items() if v}
+        want = {k: v * (WARMUP + ITERS) for k, v in ZOO2_PER_FORWARD[name].items()}
+        serve_ms[name] = dt / ITERS * 1e3
+        emit({"run": f"zoo2_{name}", "config": f"projects/reconstruction/conf/base_{name}_train.yaml",
+              "batch": BATCH, "forwards_timed": ITERS, "seconds": dt, "slices_per_s": ITERS * BATCH / dt,
+              "ms_per_forward": serve_ms[name],
+              "launches_per_forward": {k: v / (WARMUP + ITERS) for k, v in delta.items()}, "card": card})
+        if delta != want:
+            raise AssertionError(f"zoo2_{name}: launches {delta} != expected {want}")
+        if not bool(torch.isfinite(pred).all()) or tuple(pred.shape) != (BATCH, H, W, 2):
+            raise AssertionError(f"zoo2_{name}: prediction not finite or of shape {tuple(pred.shape)}")
+        for k, v in delta.items():
+            z2_counts[k] += v
+        with torch.inference_mode(), plain_k2():
+            plain = model(y, sens, mask).prediction
+        check(f"zoo2[{name}]", pred, plain, *F32, note="the same forward with K2's plain twins on the card")
+        if name == "kikinet":
+            with torch.inference_mode():
+                emit({"trace": "zoo2_kikinet", "batch": BATCH,
+                      **trace_call(lambda: model(y, sens, mask), serve_ms[name]), "card": card})
+        del model, pred, plain
+        torch.cuda.empty_cache()
+    heaviest = max(serve_ms, key=serve_ms.get)
+    if heaviest != "kikinet":  # KIKINet's forward is traced above
+        model = fresh(heaviest)
+        with torch.inference_mode():
+            emit({"trace": f"zoo2_{heaviest}", "batch": BATCH,
+                  **trace_call(lambda: model(y, sens, mask), serve_ms[heaviest]), "card": card})
+        del model
+    # the DWT and IWT passes of XPDNet's MWCNN (12 channels, 16 x 2 scales) at B=8, alone
+    with torch.inference_mode():
+        xm = torch.randn(BATCH, 32, H, W, device=dev).contiguous(memory_format=torch.channels_last)
+        xi = tmwcnn.dwt2(xm).contiguous(memory_format=torch.channels_last)
+        emit({"function": "mwcnn_dwt2_iwt2", "shape": tuple(xm.shape), "dwt2_ms": time_ms(lambda: tmwcnn.dwt2(xm)),
+              "iwt2_ms": time_ms(lambda: tmwcnn.iwt2(xi)), "copy_ms": time_ms(lambda: xm.clone()), "card": card})
+        del xm, xi
+    torch.cuda.empty_cache()
+
+    # training: the first step against the plain twins, then timed steps
+    target8 = t(train_target(BATCH, H, W))
+    z2_train_counts = {k: 0 for k in binding.LAUNCHES}
+    for name in cfgs:
+        for b in ((ZOO2_TRAIN_BATCH, BATCH) if name == ZOO2_BIG_TRAIN else (ZOO2_TRAIN_BATCH,)):
+            run = f"train_{name}" + (f"_b{b}" if name == ZOO2_BIG_TRAIN else "")
+            batch = {"masked_kspace": y[:b], "sensitivity_maps": sens[:b], "mask": mask[:b], "target": target8[:b]}
+            first = {}
+            y_p = y[:b] * (1 + 1e-7 * torch.randn(y[:b].shape, generator=torch.Generator().manual_seed(5)).to(dev))
+            for which, ctx, yb in (("kernel", contextlib.nullcontext, y[:b]), ("plain", plain_k2, y[:b]),
+                                   ("plain_perturbed", plain_k2, y_p)):
+                model = fresh(name)
+                with ctx():
+                    out = model(yb, sens[:b], mask[:b], train=True)
+                    loss = process_reconstruction_loss(out, target8[:b], "l1")
+                    loss.backward()
+                first[which] = (loss.detach(), {k: p.grad.detach().clone() for k, p in model.named_parameters()})
+                del model, loss, out
+            check(f"zoo2_train_loss[{run}]", first["kernel"][0], first["plain"][0], *F32)
+            gc = first["plain"][1]
+
+            def rel_l2(g):
+                rel = {k: float((g[k] - gc[k]).norm() / gc[k].norm()) if float(gc[k].norm()) > 0
+                       else float(g[k].norm()) for k in gc}
+                whole = float(torch.cat([(g[k] - gc[k]).flatten() for k in gc]).norm()
+                              / torch.cat([gc[k].flatten() for k in gc]).norm())
+                return rel, whole
+
+            rel, whole = rel_l2(first["kernel"][1])
+            rel_p, whole_p = rel_l2(first["plain_perturbed"][1])
+            # The gradient against the plain twins' at Z8's 1e-3 whole and V1's
+            # 2e-2 a parameter, where the gradient is well posed: a 1e-7
+            # relative change of y moves the plain twins' own whole gradient
+            # less than 1e-3. ReLU, PReLU and LeakyReLU kinks that such a change
+            # flips move single parameters (a PReLU alpha sums g x over a whole
+            # activation). Where it moves more (DUNet's ten random DIDNs: the
+            # chip reads 1.2e-2 whole and 19% for one PReLU alpha), the
+            # first-step gradient is chaotic, and the kernels are held to 3x the
+            # plain twins' own spread, whole gradient
+            posed = whole_p < 1e-3
+            worst = sorted(rel, key=lambda k: -rel[k])[:3]
+            ok = (whole <= 1e-3 and all(v <= 2e-2 for v in rel.values())) if posed else whole <= 3 * whole_p
+            emit({"check": f"zoo2_train_grads[{run}]", "entries": len(rel), "whole_rel_l2": whole,
+                  "perturbed_whole_rel_l2": whole_p, "posed": posed,
+                  "worst": {k: [rel[k], rel_p[k], gc[k].numel()] for k in worst}, "max_rel_l2": rel[worst[0]],
+                  "limit": "1e-3 whole, 2e-2 a parameter" if posed else f"{3 * whole_p:.3g} whole (3x perturbed)",
+                  "ok": ok})
+            if not ok:
+                raise AssertionError(f"zoo2_train_grads[{run}]: whole {whole} (perturbed {whole_p}), worst "
+                                     f"{worst[0]} at relative l2 {rel[worst[0]]}")
+            del first, gc
+            model = fresh(name)
+            trainer = Trainer(model, optim_cfg=TRAIN_OPTIM, trainer_cfg=TRAIN_CFG, device=dev)
+            before = {k: v.detach().clone() for k, v in model.named_parameters()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            for _ in range(TRAIN_WARMUP):
+                trainer.training_batch(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_ITERS):
+                metrics = trainer.training_batch(batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            delta = {k: v for k, v in kernels.launch_counts().items() if v}
+            steps = TRAIN_WARMUP + TRAIN_ITERS
+            want = {k: v * steps for k, v in ZOO2_PER_STEP[f"train_{name}"].items()}
+            moved = max(float((p.detach() - before[k]).abs().max()) for k, p in model.named_parameters())
+            rec = {"run": f"zoo2_{run}", "batch": b, "steps_timed": TRAIN_ITERS, "seconds": dt,
+                   "slices_per_s": TRAIN_ITERS * b / dt, "ms_per_step": dt / TRAIN_ITERS * 1e3,
+                   "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                   "max_param_change": moved, "launches_per_step": {k: v / steps for k, v in delta.items()},
+                   "card": card}
+            emit(rec)
+            if delta != want:
+                raise AssertionError(f"zoo2_{run}: launches {delta} != expected {want}")
+            if not np.isfinite(rec["loss"]) or not moved > 0:
+                raise AssertionError(f"zoo2_{run}: loss {rec['loss']} not finite or parameters unchanged ({moved})")
+            for k, v in delta.items():
+                z2_train_counts[k] += v
+            if name == heaviest and b == ZOO2_TRAIN_BATCH:
+                emit({"trace": f"zoo2_{run}", **trace_call(lambda: trainer.training_batch(batch),
+                                                              rec["ms_per_step"]), "card": card})
+            del trainer, model, batch, before
+            torch.cuda.empty_cache()
+
+    # BatchNorm with live statistics: two SGD steps on the card against the CPU
+    bn_b = ZOO2_BN_BATCH
+    bn_batch = {"masked_kspace": y[:bn_b], "sensitivity_maps": sens[:bn_b], "mask": mask[:bn_b],
+                "target": target8[:bn_b]}
+    bn_optim = {"name": "sgd", "lr": 0.05}
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        model = build_model(ZOO2_BN_CFG, device=where, generator=torch.Generator().manual_seed(ZOO_SEED))
+        trainer = Trainer(model, optim_cfg=bn_optim, trainer_cfg=TRAIN_CFG, device=where)
+        hist = []
+        for _ in range(2):
+            loss = float(trainer.training_batch({k: v.to(where) for k, v in bn_batch.items()})["loss"])
+            hist.append((loss, {k: p.grad.detach().cpu() for k, p in model.named_parameters()},
+                         {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}))
+        with torch.inference_mode():
+            pred = model(*(bn_batch[k].to(where) for k in ("masked_kspace", "sensitivity_maps", "mask"))).prediction
+        runs[where.type] = (hist, pred.cpu())
+        del model, trainer
+    prev_var, prev_d, prev_c = {}, {}, {}
+    init = build_model(ZOO2_BN_CFG, device="cpu", generator=torch.Generator().manual_seed(ZOO_SEED)).state_dict()
+    for step, ((l_d, g_d, s_d), (l_c, g_c, s_c)) in enumerate(zip(runs[dev.type][0], runs["cpu"][0])):
+        check(f"zoo2_bn_loss[step {step}]", torch.tensor(l_d), torch.tensor(l_c), *F32)
+        # every conv feeds a train-mode BatchNorm, whose batch mean removes the
+        # conv's bias: those gradients are roundoff on both sides (their
+        # largest is reported beside the largest gradient)
+        noise = {k for k in g_c if ".convs." in k and k.endswith(".bias")}
+        top = max(float(g.abs().max()) for g in g_c.values())
+        roundoff = max(max(float(g_d[k].abs().max()), float(g_c[k].abs().max())) for k in noise)
+        rel = {k: float((g_d[k] - g_c[k]).norm() / g_c[k].norm()) for k in g_c
+               if k not in noise and float(g_c[k].norm()) > 0}
+        whole = float(torch.cat([(g_d[k] - g_c[k]).flatten() for k in rel]).norm()
+                      / torch.cat([g_c[k].flatten() for k in rel]).norm())
+        worst = max(rel, key=rel.get)
+        # as in the training check: 1e-3 whole, V1's card-vs-CPU 2e-2 a
+        # parameter (a PReLU alpha's gradient, a sum of g x over a whole
+        # activation, moves with the kinks that the two devices' summation
+        # orders flip)
+        ok = whole <= 1e-3 and rel[worst] <= 2e-2
+        emit({"check": f"zoo2_bn_grads[step {step}]", "entries": len(rel), "roundoff_left_out": len(noise),
+              "roundoff_max_grad": roundoff, "max_grad": top, "whole_rel_l2": whole, "worst": worst,
+              "max_rel_l2": rel[worst], "limit": "1e-3 whole, 2e-2 a parameter", "ok": ok})
+        if not ok:
+            raise AssertionError(f"zoo2_bn_grads[step {step}]: whole {whole}, {worst} at relative l2 {rel[worst]}")
+        stats = {k for k in s_c if k.endswith(("running_mean", "running_var"))}
+        variances = {k for k in stats if k.endswith("running_var")}
+        check_all(f"zoo2_bn_running_var[step {step}]", {k: s_d[k] for k in variances},
+                  {k: s_c[k] for k in variances}, *F32)
+        # a running mean adds m x the batch's mean, a sum over 2 x 320 x 320
+        # values with cancellation: its error scales with those values' std,
+        # m sqrt(var_batch), not with the mean, so F32's atol is taken of that.
+        # The batch's mean carries the preceding conv's bias, whose roundoff
+        # gradient moved it differently on the two sides in the steps before:
+        # m x that difference is added
+        worst_share, bad, shift = 0.0, [], 0.0
+        for k in stats - variances:
+            var = f"{k[:-len('running_mean')]}running_var"
+            before = prev_var.get(var, torch.ones_like(s_c[var]))
+            std = float(((s_c[var] - (1 - 0.1) * before) / 0.1).clamp(min=0).sqrt().max())
+            bias = k.replace(".bns.", ".convs.")[:-len("running_mean")] + "bias"
+            moved = float((prev_d[bias] - prev_c[bias]).abs().max()) if prev_d else 0.0
+            shift = max(shift, moved)
+            atol = F32[1] * max(float(s_c[k].abs().max()), 0.1 * std) + 0.1 * moved
+            err = (s_d[k] - s_c[k]).abs()
+            share = float((err / (atol + F32[0] * s_c[k].abs())).max())
+            worst_share = max(worst_share, share)
+            if share > 1:
+                bad.append(k)
+        emit({"check": f"zoo2_bn_running_mean[step {step}]", "entries": len(stats - variances),
+              "worst_err_over_limit": worst_share, "bias_difference_before": shift,
+              "limit": "F32, atol of max(|mean|, m std of the batch) + m x the preceding bias's difference",
+              "ok": not bad})
+        if bad:
+            raise AssertionError(f"zoo2_bn_running_mean[step {step}]: outside the limits: {bad}")
+        prev_var, prev_d, prev_c = {k: s_c[k] for k in variances}, s_d, s_c
+        # the parameters after the steps at F32 where they did not start at 0;
+        # one that did (a BatchNorm bias) is -lr x its summed gradients, which
+        # the gradient check holds
+        held = [k for k in s_c if k not in stats and k not in noise and bool(init[k].any())]
+        check_all(f"zoo2_bn_params[step {step}]", {k: s_d[k] for k in held}, {k: s_c[k] for k in held}, *F32,
+                  note=f"{len(noise)} conv biases with roundoff gradients held to 1e-5 absolute; "
+                       f"{len(s_c) - len(stats) - len(noise) - len(held)} zero-initialised parameters by their "
+                       "gradients")
+        far = max((float((s_d[k] - s_c[k]).abs().max()) for k in noise), default=0.0)
+        if far > 1e-5:
+            raise AssertionError(f"zoo2_bn_params[step {step}]: a roundoff-gradient bias moved {far}")
+    check("zoo2_bn_eval_forward", runs[dev.type][1], runs["cpu"][1], *F32,
+          note="eval mode: normalised with the running statistics of the two steps")
+    del runs
+    torch.cuda.empty_cache()
+
+    for r in rows:
+        r["zoo2_launches"] = z2_counts.get(r["name"], 0)
+        r["zoo2_train_launches"] = z2_train_counts.get(r["name"], 0)
+    missing = [k for k in set().union(*ZOO2_PER_FORWARD.values()) if z2_counts[k] == 0]
+    missing += [k for k in set().union(*ZOO2_PER_STEP.values()) if z2_train_counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on Z2's paths: {missing}")
+    emit({"phase": "Z2", "seconds": time.perf_counter() - t_z2})
 
 def empty_noise_mask_step(run_cfg, batches, dev, card, step) -> None:
     """Phase S, after the n2r_unet run: one consistency step, from a fresh
@@ -2886,6 +3287,10 @@ def run(t_start, masks, s_masks) -> int:
     # beside the draws of S's masks
     masks.update(s_masks())
     zoo_phases(dev, card, rows)
+
+    # Z2. CascadeNet, CRNNet, XPDNet, KIKINet, LPDNet, VSNet and DUNet serving
+    # and training, and live BatchNorm card-vs-CPU
+    zoo2_phase(dev, card, rows)
 
     # S. the self-supervised branches from their config files
     selfsup_phase(dev, card, rows, masks)

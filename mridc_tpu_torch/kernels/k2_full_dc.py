@@ -9,7 +9,7 @@ shifts are folded into the stages' indices, so no ``fftshift`` copy or
 ``torch.roll`` runs; the transforms are ``torch.fft`` on complex64:
 
     full_dc     = reduce(ifft2(residual(fft2(expand(eta, s)), y, m)), s, eta)
-    sens_expand = fft2(expand(x, s))            [FFT order]
+    sens_expand = apply_mask(fft2(expand(x, s)), m)   [FFT order; m optional]
     sens_reduce = reduce(ifft2(load(k, m)), s)
 
 With ``sh = n // 2`` on a centered axis (0 otherwise), the ifftshift of a
@@ -35,8 +35,12 @@ SENSE expansion and reduction are each other's adjoints up to the FFT's
 normalisation: the adjoint of ``fft2`` under ``norm`` is ``ifft2`` under the
 swapped one ("backward" <-> "forward", "ortho" itself), so
 
-    d_x (sens_expand) = reduce(ifft2(load(g)), s)   [ifft2 adjoint-normalised]
-    d_k (sens_reduce) = m * fft2(expand(g, s))       [fft2 adjoint-normalised]
+    d_x (sens_expand) = reduce(ifft2(load(g, m)), s)   [ifft2 adjoint-normalised]
+    d_k (sens_reduce) = m * fft2(expand(g, s))          [fft2 adjoint-normalised]
+
+With a mask, :func:`sens_expand` is the masked forward operator M F S of the
+primal-dual models (XPDNet, LPDNet) and its backward the masked reduction:
+each is one Function call, with no coil-sized ``torch.where``.
 
 The normal operator of the conjugate-gradient data consistency
 (``mridc_tpu/models/recon/resnet.py:67-71`` ``ehe``) is the same chain without
@@ -196,19 +200,24 @@ def sens_reduce_bwd_plain(g, sens, mask=None, fft_centered=False, fft_normalizat
     return _reorder_plain(k, fft_centered and fft_order, False)
 
 
-def sens_expand_plain(image, sens, fft_centered=False, fft_normalization="backward", fft_order: bool = False
-                      ) -> torch.Tensor:
-    """Plain PyTorch version: ``nn/dc.py``'s ``sens_expand`` ([B, H, W, 2] ->
-    [B, C, H, W, 2]), in FFT order with ``fft_order``."""
+def sens_expand_plain(image, sens, fft_centered=False, fft_normalization="backward", fft_order: bool = False,
+                      mask=None) -> torch.Tensor:
+    """Plain PyTorch version: ``mask * sens_expand(image)`` with ``nn/dc.py``'s
+    ``sens_expand`` ([B, H, W, 2] -> [B, C, H, W, 2]; mask optional), in FFT
+    order with ``fft_order`` (no mask)."""
     k = dc.sens_expand(image, sens, fft_centered, fft_normalization)
+    if mask is not None:
+        k = dc.expand_rv_mask(mask) * k
     return _reorder_plain(k, fft_centered and fft_order, False)
 
 
-def sens_expand_bwd_plain(g, sens, fft_centered=False, fft_normalization="backward", fft_order: bool = False
-                          ) -> torch.Tensor:
+def sens_expand_bwd_plain(g, sens, fft_centered=False, fft_normalization="backward", fft_order: bool = False,
+                          mask=None) -> torch.Tensor:
     """Plain version of :func:`sens_expand`'s backward: ``g`` [B, C, H, W, 2]
-    -> d_x = sum_c conj(s_c) F^H(g_c) [B, H, W, 2]."""
+    -> d_x = sum_c conj(s_c) F^H(m g_c) [B, H, W, 2] (mask optional)."""
     g = _reorder_plain(g, fft_centered and fft_order, True)
+    if mask is not None:
+        g = dc.expand_rv_mask(mask) * g
     return dc.sens_reduce(g, sens, fft_centered, _adjoint_norm(fft_normalization))
 
 
@@ -389,7 +398,7 @@ def _kspace_in(name: str, kspace, mask, centered: bool, fft_order: bool) -> torc
     needs it, the tensor itself (viewed as complex) where nothing does."""
     if fft_order or not (centered or mask is not None):
         return torch.view_as_complex(dense(name, kspace))
-    return load(kspace, mask, centered)
+    return load(dense(name, kspace), mask, centered)
 
 
 def _kspace_out(k: torch.Tensor, centered: bool, fft_order: bool) -> torch.Tensor:
@@ -400,14 +409,15 @@ def _kspace_out(k: torch.Tensor, centered: bool, fft_order: bool) -> torch.Tenso
     return torch.view_as_real(k)
 
 
-def sens_expand_bwd(g, sens, fft_centered=False, fft_normalization="backward", fft_order: bool = False
-                    ) -> torch.Tensor:
+def sens_expand_bwd(g, sens, fft_centered=False, fft_normalization="backward", fft_order: bool = False,
+                    mask=None) -> torch.Tensor:
     """:func:`sens_expand`'s backward: ``g`` [B, C, H, W, 2] -> d_x [B, H, W, 2]
-    (plain version for CPU tensors; load, inverse FFT and reduce on the card)."""
-    dev = device_of("sens_expand_bwd", g, sens)
+    (plain version for CPU tensors; load (masked when ``mask`` is given),
+    inverse FFT and reduce on the card)."""
+    dev = device_of("sens_expand_bwd", g, sens, mask)
     if dev.type == "cpu":
-        return sens_expand_bwd_plain(g, sens, fft_centered, fft_normalization, fft_order)
-    q = _kspace_in("sens_expand_bwd", g, None, fft_centered, fft_order)
+        return sens_expand_bwd_plain(g, sens, fft_centered, fft_normalization, fft_order, mask=mask)
+    q = _kspace_in("sens_expand_bwd", g, mask, fft_centered, fft_order)
     return reduce(torch.fft.ifft2(q, norm=_adjoint_norm(fft_normalization)), sens, None, fft_centered)
 
 
@@ -428,19 +438,21 @@ def sens_reduce_bwd(g, sens, mask=None, fft_centered=False, fft_normalization="b
 
 class _SensExpand(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, image, sens, fft_centered, fft_normalization, fft_order):
-        ctx.save_for_backward(sens)
+    def forward(ctx, image, sens, mask, fft_centered, fft_normalization, fft_order):
+        ctx.save_for_backward(sens, mask)
         ctx.args = (fft_centered, fft_normalization, fft_order)
         if image.device.type == "cpu":
-            return sens_expand_plain(image, sens, fft_centered, fft_normalization, fft_order)
+            return sens_expand_plain(image, sens, fft_centered, fft_normalization, fft_order, mask=mask)
         k = torch.fft.fft2(expand(image, sens, fft_centered), norm=_norm(fft_normalization))
+        if mask is not None:
+            k = apply_mask(k, mask, fft_centered)
         return _kspace_out(k, fft_centered, fft_order)
 
     @staticmethod
     def backward(ctx, g):
-        refuse_grads("sens_expand", ctx.needs_input_grad, {1: "sens"})
-        (sens,) = ctx.saved_tensors
-        return sens_expand_bwd(g, sens, *ctx.args), None, None, None, None
+        refuse_grads("sens_expand", ctx.needs_input_grad, {1: "sens", 2: "mask"})
+        sens, mask = ctx.saved_tensors
+        return sens_expand_bwd(g, sens, *ctx.args, mask=mask), None, None, None, None, None
 
 
 class _SensReduce(torch.autograd.Function):
@@ -466,13 +478,16 @@ def _check_order(name, mask, fft_order):
         raise ValueError(f"{name}: fft_order takes no mask (apply it to the k-space in FFT order first)")
 
 
-def sens_expand(image, sens, fft_centered=False, fft_normalization="backward", fft_order: bool = False
-                ) -> torch.Tensor:
+def sens_expand(image, sens, fft_centered=False, fft_normalization="backward", fft_order: bool = False,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Multicoil k-space of a coil-combined image ([B, H, W, 2] -> [B, C, H, W,
-    2], in sens' dtype), centered when ``fft_centered`` unless ``fft_order``;
+    2], in sens' dtype), centered when ``fft_centered`` unless ``fft_order``,
+    times ``mask`` (broadcastable to [B, 1, H, W]) when one is given;
     differentiable in the image."""
-    device_of("sens_expand", image, sens)
-    return _SensExpand.apply(image.to(sens.dtype).contiguous(), sens, fft_centered, fft_normalization, fft_order)
+    device_of("sens_expand", image, sens, mask)
+    _check_order("sens_expand", mask, fft_order)
+    return _SensExpand.apply(image.to(sens.dtype).contiguous(), sens, mask, fft_centered, fft_normalization,
+                             fft_order)
 
 
 def sens_reduce(kspace, sens, mask: Optional[torch.Tensor] = None, fft_centered=False,

@@ -9,7 +9,7 @@ prediction is [B, H, W, 2].
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
@@ -18,7 +18,7 @@ from mridc_tpu_torch.kernels.k2_full_dc import sens_reduce
 from mridc_tpu_torch.ops.cplx import ccombine
 from mridc_tpu_torch.ops.fft import ifft2_rv
 
-__all__ = ["ModelOutput", "BaseReconModel", "expand_mask", "check_dc_mode"]
+__all__ = ["ModelOutput", "BaseReconModel", "expand_mask", "check_dc_mode", "drawn"]
 
 
 @dataclass
@@ -45,6 +45,17 @@ def expand_mask(mask: torch.Tensor) -> torch.Tensor:
     if mask.ndim == 3:  # [B, H, W] or [B, 1, W]
         mask = mask[:, None]
     return mask
+
+
+def drawn(factory: Callable[[], nn.Module], generator: Optional[torch.Generator] = None) -> nn.Module:
+    """``factory()`` built on the meta device, then given storage on the CPU
+    and its weights by its ``reset_parameters`` from ``generator`` alone, so
+    that construction draws nothing from the global random state."""
+    with torch.device("meta"):
+        module = factory()
+    module.to_empty(device="cpu")
+    module.reset_parameters(generator)
+    return module
 
 
 class BaseReconModel(nn.Module):

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mridc_tpu_torch.kernels.k2_full_dc import normal_op
-from mridc_tpu_torch.models.base import BaseReconModel, ModelOutput, expand_mask
+from mridc_tpu_torch.models.base import BaseReconModel, ModelOutput, drawn, expand_mask
 from mridc_tpu_torch.nn.layers import Conv, fan_avg_truncated_normal_
 
 __all__ = ["ResidualNetwork", "conjugate_gradient", "ResNet", "ProximalGradient", "cdot", "cdiv", "cscale"]
@@ -152,10 +152,8 @@ class ResNet(BaseReconModel):
         self.unrolled_iterations = unrolled_iterations
         self.conjugate_gradient_dc = conjugate_gradient_dc
         self.conjugate_gradient_iterations = conjugate_gradient_iterations
-        with torch.device("meta"):
-            self.residual_network = ResidualNetwork(residual_blocks, channels, regularization_factor, compute_dtype)
-        self.residual_network.to_empty(device="cpu")
-        self.residual_network.reset_parameters(generator)
+        self.residual_network = drawn(lambda: ResidualNetwork(residual_blocks, channels, regularization_factor,
+                                                              compute_dtype), generator)
         self.mu = nn.Parameter(torch.full((1,), float(penalization_weight))) if conjugate_gradient_dc else None
         self.to(memory_format=torch.channels_last)
 

@@ -12,7 +12,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from mridc_tpu_torch.models.base import BaseReconModel, ModelOutput
+from mridc_tpu_torch.models.base import BaseReconModel, ModelOutput, drawn
 from mridc_tpu_torch.nn.unet import NormUnet
 
 __all__ = ["UNet"]
@@ -39,12 +39,8 @@ class UNet(BaseReconModel):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__(fft_centered, fft_normalization, spatial_dims, coil_dim, coil_combination_method)
-        # built on the meta device and initialised from `generator` alone
-        with torch.device("meta"):
-            self.unet = NormUnet(channels, pooling_layers, padding_size=padding_size, normalize=normalize,
-                                 drop_prob=dropout, dtype=compute_dtype)
-        self.unet.to_empty(device="cpu")
-        self.unet.reset_parameters(generator)
+        self.unet = drawn(lambda: NormUnet(channels, pooling_layers, padding_size=padding_size, normalize=normalize,
+                                           drop_prob=dropout, dtype=compute_dtype), generator)
         self.to(memory_format=torch.channels_last)
 
     @classmethod

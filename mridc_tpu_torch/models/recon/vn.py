@@ -31,7 +31,7 @@ from torch import nn
 
 from mridc_tpu_torch.kernels.k1_psf1d_dc import psf1d_normal
 from mridc_tpu_torch.kernels.k2_full_dc import from_fft_order, sens_expand, sens_reduce, to_fft_order
-from mridc_tpu_torch.models.base import BaseReconModel, ModelOutput, check_dc_mode, expand_mask
+from mridc_tpu_torch.models.base import BaseReconModel, ModelOutput, check_dc_mode, drawn, expand_mask
 from mridc_tpu_torch.nn.dc import psf1d_gauss_mats, soft_dc
 from mridc_tpu_torch.nn.layers import as_torch_dtype
 from mridc_tpu_torch.nn.unet import NormUnet
@@ -82,16 +82,10 @@ class VarNet(BaseReconModel):
         self.no_dc = no_dc
         self.dc_mode = check_dc_mode(dc_mode)
         self.dc_dtype = as_torch_dtype(dc_dtype)
-        # built on the meta device and initialised from `generator` alone, so
-        # construction draws nothing from the global random state
-        with torch.device("meta"):
-            self.cascades = nn.ModuleList([
-                VarNetBlock(channels, pooling_layers, padding_size, normalize, compute_dtype)
-                for _ in range(num_cascades)
-            ])
-        self.cascades.to_empty(device="cpu")
-        for block in self.cascades:
-            block.reset_parameters(generator)
+        self.cascades = nn.ModuleList([
+            drawn(lambda: VarNetBlock(channels, pooling_layers, padding_size, normalize, compute_dtype), generator)
+            for _ in range(num_cascades)
+        ])
         self.to(memory_format=torch.channels_last)
 
     @classmethod

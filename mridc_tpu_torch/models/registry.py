@@ -9,11 +9,8 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from mridc_tpu_torch.models.recon.cirim import CIRIM
-from mridc_tpu_torch.models.recon.resnet import ProximalGradient, ResNet
-from mridc_tpu_torch.models.recon.unet import UNet
-from mridc_tpu_torch.models.recon.vn import VarNet
-from mridc_tpu_torch.models.recon.zf import ZF
+from mridc_tpu_torch.models.recon import (CIRIM, ZF, CascadeNet, CRNNet, DUNet, KIKINet, LPDNet, ProximalGradient,
+                                          ResNet, UNet, VarNet, VSNet, XPDNet)
 from mridc_tpu_torch.utils.typecheck import resolve_device
 
 __all__ = ["MODEL_REGISTRY", "PENDING_MODELS", "build_model", "available_models"]
@@ -24,15 +21,17 @@ MODEL_REGISTRY: Dict[str, Callable] = {
     "VN": VarNet.from_config, "VARNET": VarNet.from_config, "E2EVN": VarNet.from_config,
     "PROXIMALGRADIENT": ProximalGradient.from_config, "PG": ProximalGradient.from_config,
     "RESNET": ResNet.from_config,
+    "CASCADENET": CascadeNet.from_config, "CCNN": CascadeNet.from_config,
+    "CRNNET": CRNNet.from_config, "CRNN": CRNNet.from_config,
+    "XPDNET": XPDNet.from_config, "KIKINET": KIKINet.from_config,
+    "LPDNET": LPDNet.from_config, "LPD": LPDNet.from_config,
+    "VSNET": VSNet.from_config, "DUNET": DUNet.from_config,
 }
 
 _M9, _M10, _M11, _M12 = "M9 (reconstruction zoo)", "M10 (quantitative)", "M11 (segmentation)", "M12 (multitask)"
 PENDING_MODELS: Dict[str, str] = {
     **dict.fromkeys(
-        (
-            "CASCADENET", "CCNN", "CRNNET", "CRNN", "CS", "PICS", "JOINTICNET", "RVN", "RECURRENTVARNET",
-            "KIKINET", "LPDNET", "LPD", "MULTIDOMAINNET", "MULTIDOMAIN", "XPDNET", "VSNET", "DUNET",
-        ),
+        ("CS", "PICS", "JOINTICNET", "RVN", "RECURRENTVARNET", "MULTIDOMAINNET", "MULTIDOMAIN"),
         _M9,
     ),
     **dict.fromkeys(("QCIRIM", "QRIM", "QVN", "QVARNET"), _M10),

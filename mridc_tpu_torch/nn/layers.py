@@ -1,5 +1,6 @@
 """Shared NN building blocks (counterpart of ``mridc_tpu/nn/layers.py``):
-padded convolutions with a compute dtype, and instance normalisation.
+padded convolutions with a compute dtype, instance normalisation, batch
+normalisation with torch semantics, and the one-alpha PReLU.
 
 Layout: NCHW tensors in ``torch.channels_last`` memory format, which is
 physically NHWC like the JAX package's layout. Kernels are OIHW (the JAX
@@ -28,8 +29,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Conv", "ConvTranspose", "ConvNonlinear", "InstanceNorm", "as_torch_dtype", "activation", "conv2d",
-           "cudnn_float32", "replicate_pad", "fan_in_truncated_normal_", "fan_avg_truncated_normal_"]
+__all__ = ["Conv", "ConvTranspose", "ConvNonlinear", "InstanceNorm", "BatchNorm", "as_torch_dtype", "activation",
+           "conv2d", "cudnn_float32", "prelu", "replicate_pad", "fan_in_truncated_normal_",
+           "fan_avg_truncated_normal_"]
 
 # std of a unit normal cut at +-2, by which flax's truncated_normal divides
 TRUNC_STD = 0.87962566103423978
@@ -128,9 +130,11 @@ def activation(x: torch.Tensor, nonlinear: Optional[str]) -> torch.Tensor:
 
 
 class Conv(nn.Conv2d):
-    """Stride-1 conv with flax padding semantics: ``"SAME"`` zero-pads
-    ``d*(k-1)`` split low-first (torch's ``padding="same"``), ``"VALID"`` pads
-    nothing. ``dtype`` is the compute dtype (None: promote input and weight).
+    """Conv with flax padding semantics: ``"SAME"`` zero-pads ``d*(k-1)``
+    split low-first (torch's ``padding="same"``; stride 1 only), ``"VALID"``
+    pads nothing, an int ``p`` pads p zeros on every side (flax's explicit
+    ``((p, p), (p, p))``, which the strided convs of DIDN use). ``dtype`` is
+    the compute dtype (None: promote input and weight).
 
     ``pointwise_matmul``, ``lane_fold`` and ``fold_pad_mode`` select TPU
     lowerings in the JAX package that leave the numbers unchanged; they are
@@ -143,20 +147,28 @@ class Conv(nn.Conv2d):
         features: int,
         kernel_size: Union[int, Tuple[int, int]] = 3,
         kernel_dilation: Union[int, Tuple[int, int]] = 1,
-        padding: str = "SAME",
+        padding: Union[str, int] = "SAME",
         use_bias: bool = True,
         dtype=None,
         pointwise_matmul: bool = False,
         lane_fold: bool = False,
         fold_pad_mode: str = "zero",
+        stride: int = 1,
     ):
         del pointwise_matmul, lane_fold, fold_pad_mode
-        if padding.upper() not in ("SAME", "VALID"):
-            raise ValueError(f"Conv padding must be SAME or VALID, got {padding!r}")
-        super().__init__(in_features, features, _pair(kernel_size), dilation=_pair(kernel_dilation), bias=use_bias)
-        # flax SAME at stride 1: d*(k-1) zeros, the smaller half first
-        total = [d * (k - 1) if padding.upper() == "SAME" else 0 for k, d in zip(self.kernel_size, self.dilation)]
-        self.pads = [(t // 2, t - t // 2) for t in total]
+        if isinstance(padding, int):
+            pads = [(padding, padding)] * 2
+        elif padding.upper() in ("SAME", "VALID") and (stride == 1 or padding.upper() == "VALID"):
+            pads = None
+        else:
+            raise ValueError(f"Conv padding must be SAME (stride 1), VALID or an int, got {padding!r}")
+        super().__init__(in_features, features, _pair(kernel_size), stride=stride, dilation=_pair(kernel_dilation),
+                         bias=use_bias)
+        if pads is None:
+            # flax SAME at stride 1: d*(k-1) zeros, the smaller half first
+            total = [d * (k - 1) if padding.upper() == "SAME" else 0 for k, d in zip(self.kernel_size, self.dilation)]
+            pads = [(t // 2, t - t // 2) for t in total]
+        self.pads = pads
         self.compute_dtype = as_torch_dtype(dtype)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -174,7 +186,7 @@ class Conv(nn.Conv2d):
             x, pads = F.pad(x, (lw, rw, th, bh)), (0, 0)
         else:
             pads = tuple(lo for lo, _ in self.pads)
-        return conv2d(x, self.weight.to(dt), bias, (1, 1), pads, self.dilation)
+        return conv2d(x, self.weight.to(dt), bias, self.stride, pads, self.dilation)
 
 
 class ConvTranspose(nn.ConvTranspose2d):
@@ -212,6 +224,70 @@ class InstanceNorm(nn.Module):
         xf = x.float()
         var, mean = torch.var_mean(xf, dim=(2, 3), keepdim=True, correction=0)
         return ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
+
+
+def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """``where(x >= 0, x, alpha * x)`` with one learned alpha, in x's dtype:
+    the JAX package's PReLU (``mridc_tpu/nn/conv2d.py``, ``nn/didn.py``). Not
+    ``F.prelu``, whose gradient at x = 0 is alpha's side, where this one (and
+    the JAX package's) is 1; masked k-space puts many exact zeros there."""
+    return torch.where(x >= 0, x, alpha.to(x.dtype) * x)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm with torch semantics over the channels of an NCHW tensor
+    (``mridc_tpu/nn/layers.py:TorchBatchNorm``); the statistics run in float32
+    whatever the input's dtype, and the output is in the input's dtype.
+
+    ``live=False`` (frozen): the running ``mean`` and ``var`` are parameters,
+    as the JAX package keeps them in ``params``, used without a gradient: a
+    training step hands them a zero gradient, and the optimizer does to them
+    what optax does to a parameter with a zero gradient (weight decay moves
+    them). Train mode normalises with the batch's biased statistics; eval
+    mode with the stored ones, which nothing updates.
+
+    ``live=True`` (the ``train_batch_stats`` knob): the running statistics
+    are the float32 buffers ``running_mean`` and ``running_var`` (the JAX
+    package's ``batch_stats`` collection). Train mode normalises with the
+    batch's biased statistics and updates running = (1 - m) running + m batch
+    with the unbiased batch variance (``F.batch_norm``'s own update); eval
+    mode normalises with the running ones."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1, live: bool = False):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        self.live = live
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        if live:
+            self.register_buffer("running_mean", torch.zeros(num_features))
+            self.register_buffer("running_var", torch.ones(num_features))
+        else:
+            self.mean = nn.Parameter(torch.zeros(num_features))
+            self.var = nn.Parameter(torch.ones(num_features))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        del generator
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+        if self.live:
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+        else:
+            nn.init.zeros_(self.mean)
+            nn.init.ones_(self.var)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        xf = x.float()
+        if self.live:
+            out = F.batch_norm(xf, self.running_mean, self.running_var, self.weight, self.bias, train, self.momentum,
+                               self.eps)
+        elif train:
+            out = F.batch_norm(xf, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        else:
+            out = F.batch_norm(xf, self.mean.detach(), self.var.detach(), self.weight, self.bias, False, 0.0, self.eps)
+        return out.to(x.dtype)
 
 
 def replicate_pad(x: torch.Tensor, pad: int) -> torch.Tensor:

@@ -12,7 +12,10 @@ The port also reads archives that ``mridc_tpu`` wrote (``model_config.yaml``
 and ``model_weights.msgpack``, flax's msgpack serialisation): the ``msgpack``
 package decodes them (flax stores an array as msgpack extension type 1
 holding its shape, dtype name and bytes), and the JAX param tree is mapped to
-the port's state dict by ``utils/params.py``.
+the port's state dict by ``utils/params.py``. A model with live BatchNorm
+statistics (``train_batch_stats``) is archived in that format, as
+``{"params", "batch_stats"}`` the way the JAX package saves it, so that each
+package restores the other's archive with its statistics.
 
 Step checkpoints stand in for orbax: ``torch.save`` of the trainer's state
 (``{model, optimizer, scheduler, step, epoch, ema}``) under
@@ -36,7 +39,8 @@ import torch
 
 from mridc_tpu_torch.train.config import loads
 
-__all__ = ["save_archive", "load_archive", "restore_model", "decode_flax_msgpack", "StepCheckpointer"]
+__all__ = ["save_archive", "load_archive", "restore_model", "decode_flax_msgpack", "encode_flax_msgpack",
+           "StepCheckpointer"]
 
 CONFIG_NAME = "model_config.yaml"
 WEIGHTS_NAME = "model_weights.ckpt"
@@ -45,13 +49,21 @@ _STATE_NAME = "checkpoint.pt"
 
 
 def save_archive(path, cfg: Dict, state_dict: Dict[str, torch.Tensor]) -> Path:
-    """Write a reference torch ``.mridc`` archive of the model config ``cfg``
-    and the model's ``state_dict`` (tensors saved from the CPU)."""
+    """Write a ``.mridc`` archive of the model config ``cfg`` and the model's
+    ``state_dict`` (tensors saved from the CPU): reference torch format, or,
+    where the state holds live BatchNorm statistics (``running_mean``), the
+    JAX package's flax msgpack of ``{"params", "batch_stats"}``."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    buf = io.BytesIO()
-    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, buf)
-    members = ((CONFIG_NAME, (json.dumps(cfg, indent=2) + "\n").encode()), (WEIGHTS_NAME, buf.getvalue()))
+    if any(k.endswith("running_mean") for k in state_dict):
+        from mridc_tpu_torch.utils.params import zoo2_params_to_jax
+
+        weights = (FLAX_WEIGHTS_NAME, encode_flax_msgpack(zoo2_params_to_jax(state_dict, cfg)))
+    else:
+        buf = io.BytesIO()
+        torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, buf)
+        weights = (WEIGHTS_NAME, buf.getvalue())
+    members = ((CONFIG_NAME, (json.dumps(cfg, indent=2) + "\n").encode()), weights)
     with tarfile.open(path, "w:gz") as tar:
         for name, data in members:
             info = tarfile.TarInfo(name)
@@ -104,14 +116,37 @@ def decode_flax_msgpack(data: bytes) -> Any:
     return tree
 
 
+def encode_flax_msgpack(tree: Any) -> bytes:
+    """``flax.serialization.to_bytes`` of a tree of dicts and numpy arrays,
+    written with the ``msgpack`` package (each array as extension type 1 of
+    its shape, dtype name and C-order bytes)."""
+    try:
+        import msgpack
+    except ImportError as e:
+        raise ImportError("writing a mridc_tpu (flax msgpack) archive needs the msgpack package "
+                          "(pip install msgpack)") from e
+
+    def ext(obj):
+        if isinstance(obj, np.ndarray):
+            return msgpack.ExtType(1, msgpack.packb((obj.shape, obj.dtype.name, obj.tobytes("C")), use_bin_type=True))
+        raise TypeError(f"cannot serialise {type(obj).__name__} in a flax archive")
+
+    return msgpack.packb(tree, default=ext, strict_types=True)
+
+
+_ZOO2 = {"CASCADENET", "CCNN", "CRNNET", "CRNN", "XPDNET", "KIKINET", "LPDNET", "LPD", "VSNET", "DUNET"}
+
+
 def _state_from_flax(cfg: Dict, tree: Any) -> Dict[str, torch.Tensor]:
     from mridc_tpu_torch.models.registry import MODEL_REGISTRY, PENDING_MODELS
     from mridc_tpu_torch.utils.params import (cirim_params_from_jax, resnet_params_from_jax, unet_params_from_jax,
-                                              varnet_params_from_jax)
+                                              varnet_params_from_jax, zoo2_params_from_jax)
 
-    if isinstance(tree, dict) and set(tree) == {"params", "batch_stats"}:
-        tree = tree["params"]  # live-BatchNorm archives
     name = str(cfg.get("model_name", "")).upper()
+    if name in _ZOO2:
+        return zoo2_params_from_jax(tree, cfg)  # with the live BatchNorm statistics, if any
+    if isinstance(tree, dict) and set(tree) == {"params", "batch_stats"}:
+        tree = tree["params"]
     if name in ("CIRIM", "RIM"):
         return cirim_params_from_jax(tree)
     if name in ("VN", "VARNET", "E2EVN"):

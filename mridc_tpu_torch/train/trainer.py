@@ -344,15 +344,19 @@ class Trainer:
             opt.zero_grad(set_to_none=True)
             loss.backward()
             params = [p for group in opt.param_groups for p in group["params"]]
-            grad_norm = _global_norm([p.grad for p in params if p.grad is not None])
+            for p in params:
+                # optax hands every parameter a gradient, zeros where the loss
+                # does not reach it (a frozen BatchNorm's running statistics):
+                # the optimizer's rule then runs on it (weight decay moves it)
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            grad_norm = _global_norm([p.grad for p in params])
             if self.accumulate > 1:
                 # optax.MultiSteps: a running mean of the micro-steps' gradients
-                # (a parameter without a gradient adds zeros, as in optax)
                 if st.acc_grads is None:
                     st.acc_grads = [torch.zeros_like(p) for p in params]
                 for p, acc in zip(params, st.acc_grads):
-                    g = p.grad if p.grad is not None else torch.zeros_like(p)
-                    acc.add_((g - acc) / (st.mini_step + 1))
+                    acc.add_((p.grad - acc) / (st.mini_step + 1))
                 st.mini_step += 1
                 if st.mini_step == self.accumulate:
                     for p, acc in zip(params, st.acc_grads):

@@ -23,6 +23,14 @@ two; the reference's ``conv1``, ``layers2.{i}``, ``layers1.{i}``,
 ``import_residual_network_params`` reads them) and the CG weight ``mu``,
 which is all ProximalGradient has.
 
+CascadeNet, CRNNet, XPDNet, KIKINet, LPDNet, VSNet and DUNet (their
+``*_params_from_jax``, all :func:`zoo2_params_from_jax`) map by one table of
+leaf pairs read off a port model built from the config, which
+:func:`zoo2_params_to_jax` reads the other way: the auto-named regulariser
+scopes (``Conv2dCascade_{i}``, ``MWCNN_{i}`` with its ``_Wrap_{i}`` head,
+``DIDN_{i}``, ``NormUnet_{i}``), frozen BatchNorm entries as parameters and
+``batch_stats`` as buffers.
+
 The flax scope names depend on ``remat_mode``: a rematerialised scan is named
 ``ScanCheckpoint_*``, a plain one ``Scan_*`` — ``step+cascade`` gives
 ``ScanCheckpoint_Cascade_0/RIMBlock_0/ScanCheckpoint_RIMStep_0``, ``none``
@@ -40,7 +48,10 @@ import numpy as np
 import torch
 
 __all__ = ["cirim_params_from_jax", "rim_block_params_from_jax", "normunet_params_from_jax", "varnet_params_from_jax",
-           "unet_params_from_jax", "resnet_params_from_jax", "hwio_to_oihw", "hwio_to_iohw_flipped"]
+           "unet_params_from_jax", "resnet_params_from_jax", "zoo2_params_from_jax", "zoo2_params_to_jax",
+           "cascadenet_params_from_jax", "crnn_params_from_jax", "xpdnet_params_from_jax", "kikinet_params_from_jax",
+           "lpdnet_params_from_jax", "vsnet_params_from_jax", "dunet_params_from_jax", "hwio_to_oihw",
+           "hwio_to_iohw_flipped"]
 
 _CELL_SCOPE = re.compile(r"^(IndRNNCell|ConvGRUCell|ConvMGUCell)_(\d+)$")
 
@@ -239,3 +250,282 @@ def resnet_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         raise KeyError("ResNet params: neither ResidualNetwork_0 nor mu in the param tree")
     leaves.done()
     return state
+
+
+# ---- the conv-cascade, MWCNN and DIDN models: one table of leaf pairs, both ways ----
+#
+# A pair is (collection, flax path, port key, kind): ``collection`` "params" or
+# "batch_stats" (live BatchNorm), ``kind`` "conv" (HWIO <-> OIHW), "convT"
+# (flax ConvTranspose <-> torch's flipped kernel) or None (as is). The table
+# is read off a port model built from the config, so that both directions
+# (``params_from_jax``, ``params_to_jax``) take every leaf once by one list.
+
+
+def _leaf(f: str, p: str, coll: str = "params", kind=None):
+    return (coll, f, p, kind)
+
+
+def _conv_pairs(f: str, p: str, bias: bool = True):
+    return [_leaf(f + "kernel", p + "weight", kind="conv")] + ([_leaf(f + "bias", p + "bias")] if bias else [])
+
+
+def _bn_pairs(bn, f: str, p: str):
+    """flax ``TorchBatchNorm`` <-> port :class:`~mridc_tpu_torch.nn.layers.BatchNorm`."""
+    out = [_leaf(f + "scale", p + "weight"), _leaf(f + "bias", p + "bias")]
+    if bn.live:
+        return out + [_leaf(f + "mean", p + "running_mean", "batch_stats"),
+                      _leaf(f + "var", p + "running_var", "batch_stats")]
+    return out + [_leaf(f + "mean", p + "mean"), _leaf(f + "var", p + "var")]
+
+
+def _cascade_pairs(mod, f: str, p: str):
+    """``Conv2dCascade``: ``Conv_{j}``, ``TorchBatchNorm_{j}``, ``prelu_{j}``."""
+    out = []
+    for j in range(len(mod.convs)):
+        out += _conv_pairs(f"{f}Conv_{j}/", f"{p}convs.{j}.")
+        if len(mod.bns):
+            out += _bn_pairs(mod.bns[j], f"{f}TorchBatchNorm_{j}/", f"{p}bns.{j}.")
+    return out + [_leaf(f"{f}prelu_{j}", f"{p}prelus.{j}") for j in range(len(mod.prelus))]
+
+
+def _mwcnn_pairs(mod, f: str, p: str):
+    """``MWCNN``: flax numbers its ``_CB`` and ``_DilCB`` blocks in creation
+    order, the down path's scales first, then the up path's."""
+    n = len(mod.down_cb)
+
+    def block(blk, fb, pb):
+        out = []
+        for j in range(len(blk.convs)):
+            out += _conv_pairs(f"{fb}Conv_{j}/", f"{pb}convs.{j}.")
+            if len(blk.bns):
+                out += _bn_pairs(blk.bns[j], f"{fb}TorchBatchNorm_{j}/", f"{pb}bns.{j}.")
+        return out
+
+    out = []
+    for i in range(n):
+        out += block(mod.down_cb[i], f"{f}_CB_{i}/", f"{p}down_cb.{i}.")
+        out += block(mod.down_dil[i], f"{f}_DilCB_{i}/", f"{p}down_dil.{i}.")
+        out += block(mod.up_dil[i], f"{f}_DilCB_{n + i}/", f"{p}up_dil.{i}.")
+    for i in range(n - 1):
+        out += block(mod.up_cb[i], f"{f}_CB_{n + i}/", f"{p}up_cb.{i}.")
+    return out + _conv_pairs(f"{f}Conv_0/", f"{p}out.")
+
+
+def _pconv_pairs(mod, f: str, p: str):
+    out = _conv_pairs(f"{f}Conv_0/", f"{p}conv.")
+    return out + ([_leaf(f"{f}prelu", f"{p}prelu")] if mod.prelu is not None else [])
+
+
+def _didn_pairs(mod, f: str, p: str):
+    """``DIDN``: its ``_PConv_{k}`` / ``Subpixel_{k}`` / ``Conv_{k}`` scopes in
+    creation order, to the reference torch names."""
+    out = _pconv_pairs(mod.conv_in, f"{f}_PConv_0/", f"{p}conv_in.")
+    out += _pconv_pairs(mod.down, f"{f}_PConv_1/", f"{p}down.")
+    for i, dub in enumerate(mod.dubs):
+        fd, pd = f"{f}DUB_{i}/", f"{p}dubs.{i}."
+        pconvs = [(dub.conv1_1[0], "conv1_1.0"), (dub.conv1_1[1], "conv1_1.1"), (dub.down1, "down1"),
+                  (dub.conv2_1[0], "conv2_1.0"), (dub.down2, "down2"), (dub.conv3_1[0], "conv3_1.0"),
+                  (dub.conv2_2[0], "conv2_2.0"), (dub.conv1_2[0], "conv1_2.0"), (dub.conv1_2[1], "conv1_2.1"),
+                  (dub.conv_out[0], "conv_out.0")]
+        for k, (m, name) in enumerate(pconvs):
+            out += _pconv_pairs(m, f"{fd}_PConv_{k}/", f"{pd}{name}.")
+        out += _conv_pairs(f"{fd}Subpixel_0/Conv_0/", f"{pd}up1.conv.")
+        out += _conv_pairs(f"{fd}Conv_0/", f"{pd}conv_agg_1.")
+        out += _conv_pairs(f"{fd}Subpixel_1/Conv_0/", f"{pd}up2.conv.")
+        out += _conv_pairs(f"{fd}Conv_1/", f"{pd}conv_agg_2.")
+    for j, m in enumerate(mod.recon_block.convs):
+        out += _pconv_pairs(m, f"{f}ReconBlock_0/_PConv_{j}/", f"{p}recon_block.convs.{j}.")
+    out += _conv_pairs(f"{f}Conv_0/", f"{p}recon_agg.")
+    out += _pconv_pairs(mod.conv, f"{f}_PConv_2/", f"{p}conv.")
+    out += _conv_pairs(f"{f}Subpixel_0/Conv_0/", f"{p}up2.conv.")
+    return out + _pconv_pairs(mod.conv_out, f"{f}_PConv_3/", f"{p}conv_out.")
+
+
+def _normunet_pairs(mod, f: str, p: str):
+    """``NormUnet``'s ``Unet_0`` (the pairs of :func:`_normunet_state`)."""
+    f, pools = f + "Unet_0/", len(mod.unet.down_sample_layers)
+    out = []
+
+    def block(k, name):
+        return [_leaf(f"{f}ConvBlock_{k}/Conv_{j}/kernel", f"{p}unet.{name}.layers.{layer}.weight", kind="conv")
+                for j, layer in ((0, 0), (1, 4))]
+
+    for i in range(pools):
+        out += block(i, f"down_sample_layers.{i}")
+    out += block(pools, "conv")
+    for i in range(pools):
+        out.append(_leaf(f"{f}TransposeConvBlock_{i}/ConvTranspose_0/kernel",
+                         f"{p}unet.up_transpose_conv.{i}.layers.0.weight", kind="convT"))
+        out += block(pools + 1 + i, f"up_conv.{i}" if i < pools - 1 else f"up_conv.{i}.0")
+    return out + _conv_pairs(f"{f}Conv_0/", f"{p}unet.up_conv.{pools - 1}.1.")
+
+
+class _Scopes:
+    """flax's auto-names: ``{Class}_{k}`` counted per class in creation order."""
+
+    def __init__(self):
+        self.count: Dict[str, int] = {}
+
+    def __call__(self, cls: str) -> str:
+        k = self.count.get(cls, 0)
+        self.count[cls] = k + 1
+        return f"{cls}_{k}/"
+
+
+def _regulariser_pairs(mod, scopes: _Scopes, p: str):
+    """A regulariser module under the parent's next auto-named scope of its
+    flax class (an ``MWCNNHead`` is an ``MWCNN`` scope beside a ``_Wrap`` one
+    holding the head conv)."""
+    from mridc_tpu_torch.nn.conv2d import Conv2dCascade
+    from mridc_tpu_torch.nn.didn import DIDN
+    from mridc_tpu_torch.nn.mwcnn import MWCNN, MWCNNHead
+    from mridc_tpu_torch.nn.unet import NormUnet
+
+    if isinstance(mod, MWCNNHead):
+        out = _mwcnn_pairs(mod.mwcnn, scopes("MWCNN"), f"{p}mwcnn.")
+        return out + _conv_pairs(f"{scopes('_Wrap')}Conv_0/", f"{p}head.")
+    for cls, fn in ((Conv2dCascade, _cascade_pairs), (MWCNN, _mwcnn_pairs), (DIDN, _didn_pairs),
+                    (NormUnet, _normunet_pairs)):
+        if isinstance(mod, cls):
+            return fn(mod, scopes(cls.__name__), p)
+    raise TypeError(f"no flax mapping for regulariser {type(mod).__name__}")
+
+
+def _model_pairs(model):
+    """The pairs of a whole CascadeNet, CRNNet, XPDNet, KIKINet, LPDNet, VSNet
+    or DUNet, read off the port model."""
+    from mridc_tpu_torch.models.recon import CascadeNet, CRNNet, DUNet, KIKINet, LPDNet, VSNet, XPDNet
+
+    scopes, out = _Scopes(), []
+    if isinstance(model, CascadeNet):
+        for i, block in enumerate(model.cascades):
+            out += _cascade_pairs(block.model, f"Conv2dCascade_{i}/", f"cascades.{i}.model.")
+            out.append(_leaf(f"dc_weight_{i}", f"cascades.{i}.dc_weight"))
+    elif isinstance(model, CRNNet):
+        out += _cascade_pairs(model.block.model, "Scan_CRNNIter_0/Conv2dCascade_0/", "block.model.")
+        out.append(_leaf("Scan_CRNNIter_0/dc_weight", "block.dc_weight"))
+    elif isinstance(model, XPDNet):
+        for i, it in enumerate(model.iterations):  # flax creates the k-space model first
+            if it.kspace_model is not None:
+                out += _regulariser_pairs(it.kspace_model, scopes, f"iterations.{i}.kspace_model.")
+            out += _regulariser_pairs(it.image_model, scopes, f"iterations.{i}.image_model.")
+    elif isinstance(model, KIKINet):
+        out += _regulariser_pairs(model.kspace_model, scopes, "kspace_model.")
+        out += _regulariser_pairs(model.image_model, scopes, "image_model.")
+        out.append(_leaf("dc_weight", "dc_weight"))
+    elif isinstance(model, LPDNet):
+        out += _regulariser_pairs(model.dual_model, scopes, "dual_model.")
+        out += _regulariser_pairs(model.primal_model, scopes, "primal_model.")
+    elif isinstance(model, VSNet):
+        for i, block in enumerate(model.cascades):
+            out += _regulariser_pairs(block.model, scopes, f"cascades.{i}.model.")
+            out += [_leaf(f"dc_weight_{i}", f"cascades.{i}.dc_weight"),
+                    _leaf(f"weighted_avg_{i}", f"cascades.{i}.weighted_avg")]
+    elif isinstance(model, DUNet):
+        for i, reg in enumerate(model.regs):
+            out += _regulariser_pairs(reg, scopes, f"regs.{i}.")
+        for name, plist in (("lambda", model.lambdas), ("alpha", model.alphas), ("beta", model.betas)):
+            out += [_leaf(f"{name}_{i}", f"{name}s.{i}") for i in range(len(plist or []))]
+    else:
+        raise TypeError(f"no flax mapping for model {type(model).__name__}")
+    return out
+
+
+def _port_model(cfg: Mapping):
+    from mridc_tpu_torch.models.registry import build_model
+
+    return build_model(dict(cfg), device="cpu")
+
+
+def _collections(tree: Mapping):
+    """(params, batch_stats) of a flax variables tree, a ``{"params",
+    "batch_stats"}`` archive tree or a bare param tree."""
+    if isinstance(tree, Mapping) and "params" in tree:
+        return tree["params"], tree.get("batch_stats", {})
+    return tree, {}
+
+
+_FROM = {None: lambda a: a, "conv": hwio_to_oihw, "convT": hwio_to_iohw_flipped}
+_TO = {None: lambda a: a, "conv": lambda a: np.ascontiguousarray(np.transpose(a, (2, 3, 1, 0))),
+       "convT": lambda a: np.ascontiguousarray(np.transpose(a[..., ::-1, ::-1], (2, 3, 0, 1)))}
+
+
+def _unstack_xpd_scan(params: Mapping, num_iter: int) -> Dict:
+    """The inverse of ``mridc_tpu``'s ``stack_iteration_params``: one
+    iteration's scopes under ``Scan_XPDIter_0``, each leaf stacked over the
+    iterations, back to the unrolled ``{Class}_{i * per_iter + j}``."""
+    import collections
+
+    scan = params["Scan_XPDIter_0"]
+    per_class = collections.Counter(re.match(r"(.+)_(\d+)$", k).group(1) for k in scan)
+    out = {k: v for k, v in params.items() if k != "Scan_XPDIter_0"}
+
+    def take(node, i):
+        return {k: take(v, i) for k, v in node.items()} if isinstance(node, Mapping) else np.asarray(node)[i]
+
+    for key, sub in scan.items():
+        cls, j = re.match(r"(.+)_(\d+)$", key).groups()
+        for i in range(num_iter):
+            out[f"{cls}_{i * per_class[cls] + int(j)}"] = take(sub, i)
+    return out
+
+
+def zoo2_params_from_jax(tree: Mapping, cfg: Mapping) -> Dict[str, torch.Tensor]:
+    """Port ``state_dict`` of a CascadeNet, CRNNet, XPDNet, KIKINet, LPDNet,
+    VSNet or DUNet (``cfg``'s ``model_name``) from a flax variables tree:
+    ``{"params": ..., "batch_stats": ...}`` or the bare params, with numpy
+    leaves. Frozen BatchNorm entries (``mean``/``var`` in params) become
+    parameters, live ones (``batch_stats``) the buffers ``running_mean`` and
+    ``running_var``. XPDNet's ``Scan_XPDIter_0`` layout is taken as well as
+    the unrolled one. Every leaf is used once."""
+    model = _port_model(cfg)
+    params, stats = _collections(tree)
+    if isinstance(params, Mapping) and "Scan_XPDIter_0" in params:
+        params = _unstack_xpd_scan(params, len(model.iterations))
+    name = str(cfg.get("model_name"))
+    leaves = {"params": _Leaves(params, f"{name} params"), "batch_stats": _Leaves(stats, f"{name} batch_stats")}
+    state = {p: _t(_FROM[kind](leaves[coll].take(f))) for coll, f, p, kind in _model_pairs(model)}
+    for lv in leaves.values():
+        lv.done()
+    return state
+
+
+def zoo2_params_to_jax(state: Mapping[str, torch.Tensor], cfg: Mapping) -> Dict:
+    """The inverse of :func:`zoo2_params_from_jax`: a port ``state_dict`` to
+    the flax variables ``{"params": ...}``, with ``"batch_stats"`` where the
+    model tracks live statistics (numpy leaves; XPDNet in the unrolled
+    layout: a live-statistics model, the one the port archives this way,
+    refuses ``scan_iterations``)."""
+    model = _port_model(cfg)
+    out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    left = set(state)
+    for coll, f, p, kind in _model_pairs(model):
+        if p not in state:
+            raise KeyError(f"{cfg.get('model_name')} state dict: {p!r} missing")
+        left.discard(p)
+        node = out[coll]
+        *scopes, leaf = f.split("/")
+        for s in scopes:
+            node = node.setdefault(s, {})
+        node[leaf] = _TO[kind](state[p].detach().cpu().float().numpy())
+    if left:
+        raise KeyError(f"{cfg.get('model_name')} state dict: keys not used: {sorted(left)}")
+    return out if out["batch_stats"] else {"params": out["params"]}
+
+
+def _named(model_name: str):
+    def from_jax(tree: Mapping, cfg: Mapping) -> Dict[str, torch.Tensor]:
+        return zoo2_params_from_jax(tree, {**cfg, "model_name": model_name})
+
+    from_jax.__name__ = f"{model_name.lower()}_params_from_jax"
+    from_jax.__doc__ = f"Port {model_name} ``state_dict`` from a flax tree (:func:`zoo2_params_from_jax`)."
+    return from_jax
+
+
+cascadenet_params_from_jax = _named("CascadeNet")
+crnn_params_from_jax = _named("CRNNet")
+xpdnet_params_from_jax = _named("XPDNet")
+kikinet_params_from_jax = _named("KIKINet")
+lpdnet_params_from_jax = _named("LPDNet")
+vsnet_params_from_jax = _named("VSNet")
+dunet_params_from_jax = _named("DUNet")

@@ -84,8 +84,9 @@ def test_build_model_without_device_needs_cuda(monkeypatch):
 
 
 def test_every_jax_model_name_builds_or_names_its_roadmap_item():
-    assert available_models() == ["CIRIM", "E2EVN", "PG", "PROXIMALGRADIENT", "RESNET", "RIM", "UNET", "VARNET", "VN",
-                                  "ZF"]
+    assert available_models() == ["CASCADENET", "CCNN", "CIRIM", "CRNN", "CRNNET", "DUNET", "E2EVN", "KIKINET", "LPD",
+                                  "LPDNET", "PG", "PROXIMALGRADIENT", "RESNET", "RIM", "UNET", "VARNET", "VN", "VSNET",
+                                  "XPDNET", "ZF"]
     for name in jax_models():
         if name in available_models():
             continue

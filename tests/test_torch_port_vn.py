@@ -609,10 +609,10 @@ def test_chip_smoke_varnet_counts_hold_on_the_cpu_path(monkeypatch):
 
     count(k1, "psf1d_dc_plain", lambda e, s, *a: [k1.SYMBOLS[s.dtype]])
     count(k1, "psf1d_dc_bwd_plain", lambda g, s, *a: [k1.BWD_SYMBOLS[s.dtype]])
-    count(k2, "sens_expand_plain", lambda x, s, c=False, n="backward", fft_order=False:
+    count(k2, "sens_expand_plain", lambda x, s, c=False, n="backward", fft_order=False, mask=None:
           ["k2_expand", *load(c, fft_order)])
-    count(k2, "sens_expand_bwd_plain", lambda g, s, c=False, n="backward", fft_order=False: [*load(c, fft_order),
-                                                                                             "k2_reduce"])
+    count(k2, "sens_expand_bwd_plain", lambda g, s, c=False, n="backward", fft_order=False, mask=None:
+          [*load(c, fft_order), "k2_reduce"])
     count(k2, "sens_reduce_plain", lambda k, s, m=None, c=False, n="backward", sd=None, cd=1, fft_order=False:
           [*load(c or m is not None, fft_order), "k2_reduce"])
     count(k2, "sens_reduce_bwd_plain", lambda g, s, m=None, c=False, n="backward", fft_order=False:
