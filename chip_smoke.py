@@ -691,6 +691,15 @@ def check(name, got, want, rtol, atol_rel, note=""):
     return err
 
 
+def off_by_one_pixel(x):
+    """A contiguous copy of float32 ``x`` whose data starts one complex pixel
+    (8 bytes) past a 16-byte boundary: a view no 16-byte access takes."""
+    import torch
+
+    buf = torch.empty(x.numel() + 2, dtype=x.dtype, device=x.device)
+    return buf[2:].view(x.shape).copy_(x)
+
+
 def rounded_once(plain, *args):
     """``plain`` computed in float32 on the given (already rounded) operands and
     rounded once, at the end, to their dtype: a bf16 kernel's oracle, and for
@@ -889,6 +898,26 @@ def trace_call(fn, ms_per_call):
             "by_layer_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
             "by_layer_launches": dict(sorted(launches.items(), key=lambda kv: -kv[1])),
             "top_kernels_ms": [[name[:120], ms] for name, ms in top], "by_op_ms": op_device_ms(prof)}
+
+
+def traced_kernel_ms(fn, name_part=None, calls=20):
+    """Device time a call of the kernels whose name holds ``name_part`` (every
+    kernel when None) in a torch.profiler trace of ``calls`` back-to-back calls
+    of ``fn``, as {"traced_device_ms", "traced_kernels"}; CUDA events around the
+    same calls (:func:`time_ms`) also hold any gap the host leaves between
+    kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and (name_part is None or name_part in e.name)]
+    return {"traced_device_ms": sum(us) / calls / 1e3 if us else None, "traced_kernels": len(us)}
 
 
 def check_all(name, got: dict, want: dict, rtol, atol_rel, note=""):
@@ -2708,6 +2737,28 @@ def run(t_start, masks, s_masks) -> int:
                 errors.setdefault(sym, []).append(
                     check(f"{sym}[{label}]", kernels.indrnn(*args), rounded_once(kernels.indrnn_plain, *args), *tol))
 
+        # K2's expand and load at the shapes their index arithmetic must take:
+        # 34 x 38 centered (an odd column shift), an odd H with 7 coils (coil
+        # groups of 3, 3 and 1) with and without the fftshift, the main width;
+        # eta as channels 2:4 of a [B, H, W, 4] g (eta_stride 2), views one
+        # pixel off 16 bytes, load with and without the mask
+        for label, (b, c, h, w) in {"w38": (2, 3, 34, 38), "odd_h": (2, 7, 33, 40),
+                                    "flagship_b2": (2, COILS, H, W)}.items():
+            y, sens, mask = (t(a) for a in bench_data(b, c, h, w, seed=5))
+            eta, g = rand(b, h, w, 2), rand(b, h, w, 4)
+            for centered in (True, False):
+                cu = "c" if centered else "u"
+                for tag, e, s in (("eta", eta, sens), ("g_2:4", g[..., 2:], sens),
+                                  ("eta_off", off_by_one_pixel(eta), sens), ("sens_off", eta, off_by_one_pixel(sens))):
+                    errors.setdefault("k2_expand", []).append(check(
+                        f"k2_expand[{label}/{cu}/{tag}]", k2.expand(e, s, centered), k2.expand_plain(e, s, centered),
+                        *F32))
+                for fftshift in (False, True):
+                    for tag, yy, m in (("mask", y, mask), ("no_mask", y, None), ("y_off", off_by_one_pixel(y), mask)):
+                        errors.setdefault("k2_load", []).append(check(
+                            f"k2_load[{label}/{cu}{'/fftshift' if fftshift else ''}/{tag}]",
+                            k2.load(yy, m, centered, fftshift), k2.load_plain(yy, m, centered, fftshift), *F32))
+
         # K1 forward and backward at the edges of its tiles. bf16: 64 rows by
         # 64 columns, 64 by 32 where W > 320; f32: 32 by 32 up to W = 320, 16
         # by 32 with rings of 3 chunks up to W = 384 and of 2 up to W = 416,
@@ -2951,7 +3002,8 @@ def run(t_start, masks, s_masks) -> int:
     z0 = kernels.sens_reduce(y, sens, mask, True, "ortho")
     rows = []
 
-    def row(sym, source, replaces, fn, plain, args, nbytes, flops, tol, launches=None, per="forward", library=None):
+    def row(sym, source, replaces, fn, plain, args, nbytes, flops, tol, launches=None, per="forward", library=None,
+            extra=None):
         # the oracle first: k2_residual overwrites its first operand; tol None:
         # the caller has checked the kernel
         if tol is not None:
@@ -2960,6 +3012,8 @@ def run(t_start, masks, s_masks) -> int:
         ms = time_ms(lambda: fn(*args))
         plain_ms = time_ms(lambda: plain(*args))
         library_ms = None if library is None else time_ms(library)
+        if extra is not None and library is not None:
+            extra["library_traced_device_ms"] = traced_kernel_ms(library)["traced_device_ms"]
         bound_ms, by = bound(nbytes, flops)
         table = PER_FORWARD if per == "forward" else PER_STEP
         rows.append({"name": sym, "route": "cuda", "source": source, "replaces": replaces,
@@ -2969,7 +3023,7 @@ def run(t_start, masks, s_masks) -> int:
         emit({"kernel": sym, "shape": tuple(args[0].shape), "dtype": str(args[0].dtype), "ms": ms,
               "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes,
               "flops": flops,
-              f"launches_per_{per}": {r: table[r].get(sym, 0) for r in table}, "card": card})
+              f"launches_per_{per}": {r: table[r].get(sym, 0) for r in table}, **(extra or {}), "card": card})
 
     with torch.inference_mode():
         for dt, dname, es, tol in ((torch.float32, "float32", 4, F32), (torch.bfloat16, "bfloat16", 2, K1_BF16)):
@@ -3003,17 +3057,26 @@ def run(t_start, masks, s_masks) -> int:
         # expand a complex mul, load a mul by the mask, reduce
         # linalg.vecdot(s, P, dim=1) = sum_c conj(s_c) P_c (reduce's [eta,
         # grad] concatenation left out); residual, m * (k - y), takes two
+        # expand and load also print their ms at sh = 0 (``ms_sh0``: the order
+        # library_ms computes in) and the device time a call in a trace of 20
+        # calls, theirs (``traced_device_ms``: ``ms`` less it is the gap the
+        # wrapper's host work leaves) and the library call's
+        # (``library_traced_device_ms``): device time against device time
         sens_cx, y_cx, eta_cx = (torch.view_as_complex(a) for a in (sens, y, eta))
         row("k2_expand", src, rep, k2.expand, k2.expand_plain, (eta, sens, True),
             2 * coil + b * hw * 8, {"float32": 6 * b * c * hw}, F32,
-            library=lambda: torch.mul(eta_cx.unsqueeze(1), sens_cx))
+            library=lambda: torch.mul(eta_cx.unsqueeze(1), sens_cx),
+            extra={"ms_sh0": time_ms(lambda: k2.expand(eta, sens, False)),
+                   **traced_kernel_ms(lambda: k2.expand(eta, sens, True), "expand_kernel")})
         row("k2_residual", src, rep, k2.residual, k2.residual_plain, (k_c, y, mask, True),
             3 * coil + b * hw * 4, {"float32": 4 * b * c * hw}, F32)
         row("k2_reduce", src, rep, k2.reduce, k2.reduce_plain, (p_c, sens, eta, True),
             2 * coil + b * hw * 8 + b * hw * 16, {"float32": 8 * b * c * hw}, F32,
             library=lambda: torch.linalg.vecdot(sens_cx, p_c, dim=1))
         row("k2_load", src, "mridc_tpu/nn/dc.py:59 (sens_reduce)", k2.load, k2.load_plain, (y, mask, True),
-            2 * coil + b * hw * 4, {"float32": 2 * b * c * hw}, F32, library=lambda: torch.mul(y_cx, mask))
+            2 * coil + b * hw * 4, {"float32": 2 * b * c * hw}, F32, library=lambda: torch.mul(y_cx, mask),
+            extra={"ms_sh0": time_ms(lambda: k2.load(y, mask, False)),
+                   **traced_kernel_ms(lambda: k2.load(y, mask, True), "load_kernel")})
         del x_c, k_c, p_c
 
         for dt, dname, es, tol in ((torch.float32, "float32", 4, F32), (torch.bfloat16, "bfloat16", 2, K3_BF16)):

@@ -11,7 +11,9 @@
 //
 // What bounds it on an H100: memory. Each stage streams coil tensors once:
 // about 91 MB of elementwise traffic per slice per step at 15 coils and 320x320,
-// besides the FFTs.
+// besides the FFTs. At B=8 one coil tensor is 98.3 MB, twice the 50 MB L2, so
+// every coil stream comes from and goes to HBM; eta, g and the mask (one
+// [B, H, W] plane, 1/15 of a coil tensor's traffic) are reused by every coil.
 //
 // Design: the centering shifts never become copies. With sh = n/2 on a centered
 // axis (0 otherwise), ifftshift reads index (i + sh) mod n and fftshift reads
@@ -35,8 +37,20 @@
 //   (mask)        K[c, k] *= m[ifs(k)] in place on the FFT output;
 //   (reduce_acc)  out[i] = g[i, :2] + sum_c conj(s_c[i]) * P[c, fs(i)] / sigma^2,
 //                 [B, H, W, 2].
-// One thread per element, float32 only: the JAX package runs the full DC in
-// float32 whatever dc_dtype says.
+// Expand and load: one thread takes one pixel of one row of one example (rows
+// and columns from a 2D grid, no division), holds eta's (or the mask's) pixel
+// in a register and walks a group of COILS_PER_THREAD coils, issuing UNROLL
+// coil loads before the first is used: 8 bytes a coil, 24 in flight a thread.
+// eta and the mask are read through the read-only path (__ldg). The coil
+// tensors keep the default cache policy: at the configs' B=1 a coil tensor
+// (12.3 MB) stays in L2 for the FFT or reduce that reads it next. Streaming
+// hints (ld/st.global.cs), tried, sped some of the chains around these stages
+// and slowed others, at B=1 and at B=8 (tools/torch_k2_variants.py). Each
+// output element is one complex product (expand) or one real-times-complex
+// product (load), the products of their plain versions in
+// kernels/k2_full_dc.py. Residual, mask and both reduces are one thread per
+// element. Float32 only: the JAX package runs the full DC in float32 whatever
+// dc_dtype says.
 #include "common.cuh"
 
 using namespace mridc;
@@ -50,17 +64,59 @@ __device__ __forceinline__ int wrap(int i, int s, int n) {
   return i >= n ? i - n : i;
 }
 
-// grid: (ceil(H*W / THREADS), B*C); eta's pixels lie es float2s apart
-__global__ void expand_kernel(const float2* __restrict__ eta, const float2* __restrict__ sens,
-                              float2* __restrict__ X, int C, int H, int W, int sh_h, int sh_w, int es) {
-  const int p = blockIdx.x * THREADS + threadIdx.x;
-  if (p >= H * W) return;
-  const int bc = blockIdx.y, b = bc / C;
-  const int i = p / W, j = p - i * W;
-  const size_t src = (size_t)wrap(i, sh_h, H) * W + wrap(j, sh_w, W);
-  const float2 s = sens[(size_t)bc * H * W + src];
-  const float2 e = eta[((size_t)b * H * W + src) * es];
-  X[(size_t)bc * H * W + p] = make_float2(e.x * s.x - e.y * s.y, e.x * s.y + e.y * s.x);
+// ---- expand and load: one pixel of a row a thread, a group of coils ----
+
+constexpr int TX = 32, TY = 8;       // block: TX pixels of a row by TY rows
+constexpr int COILS_PER_THREAD = 3;  // the coil group a thread walks
+constexpr int UNROLL = 3;            // coil loads issued before the first is used
+
+// out[c] = op(in[c]) for the n coils from in and out, HW float2s apart
+template <typename Op>
+__device__ __forceinline__ void coil_run(const float2* __restrict__ in, float2* __restrict__ out, size_t HW, int n,
+                                         Op op) {
+  for (int c = 0; c < n; c += UNROLL) {
+    float2 v[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      if (c + u < n) v[u] = in[(size_t)(c + u) * HW];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      if (c + u < n) out[(size_t)(c + u) * HW] = op(v[u]);
+  }
+}
+
+// a thread's work: pixel (i, j) of example b, coils c0 .. c0 + COILS_PER_THREAD
+// - 1 (fewer in the last group)
+struct Unit {
+  int b, c0, i, j;
+};
+
+// grid: (ceil(W / TX), ceil(H / TY), B * groups), block (TX, TY); false past the edge
+__device__ __forceinline__ bool unit_of(int H, int W, int groups, Unit* u) {
+  u->j = blockIdx.x * TX + threadIdx.x;
+  u->i = blockIdx.y * TY + threadIdx.y;
+  u->b = blockIdx.z / groups;
+  u->c0 = (blockIdx.z - u->b * groups) * COILS_PER_THREAD;
+  return u->i < H && u->j < W;
+}
+
+// X[b, c, i, j] = s[b, c, ifs(i, j)] * eta[b, ifs(i, j)] over unit u; eta's pixels lie es float2s apart
+__device__ __forceinline__ void expand_unit(const Unit& u, const float2* __restrict__ eta,
+                                            const float2* __restrict__ sens, float2* __restrict__ X, int C, int H,
+                                            int W, int sh_h, int sh_w, int es) {
+  const size_t HW = (size_t)H * W, src = (size_t)wrap(u.i, sh_h, H) * W + wrap(u.j, sh_w, W);
+  const float2 e = __ldg(eta + ((size_t)u.b * HW + src) * es);
+  const size_t plane = ((size_t)u.b * C + u.c0) * HW;
+  coil_run(sens + plane + src, X + plane + (size_t)u.i * W + u.j, HW, min(C - u.c0, COILS_PER_THREAD),
+           [&](float2 s) { return make_float2(e.x * s.x - e.y * s.y, e.x * s.y + e.y * s.x); });
+}
+
+__global__ void __launch_bounds__(TX * TY) expand_kernel(const float2* __restrict__ eta,
+                                                         const float2* __restrict__ sens, float2* __restrict__ X,
+                                                         int C, int H, int W, int sh_h, int sh_w, int es,
+                                                         int groups) {
+  Unit u;
+  if (unit_of(H, W, groups, &u)) expand_unit(u, eta, sens, X, C, H, W, sh_h, sh_w, es);
 }
 
 __global__ void residual_kernel(float2* __restrict__ K, const float2* __restrict__ y,
@@ -89,19 +145,27 @@ __global__ void mask_kernel(float2* __restrict__ K, const float* __restrict__ ma
   *k = make_float2(m * kv.x, m * kv.y);
 }
 
-__global__ void load_kernel(const float2* __restrict__ y, const float* __restrict__ mask,
-                            float2* __restrict__ Q, int C, int H, int W, int sh_h, int sh_w) {
-  const int p = blockIdx.x * THREADS + threadIdx.x;
-  if (p >= H * W) return;
-  const int bc = blockIdx.y, b = bc / C;
-  const int i = p / W, j = p - i * W;
-  const size_t src = (size_t)wrap(i, sh_h, H) * W + wrap(j, sh_w, W);
-  float2 v = y[(size_t)bc * H * W + src];
-  if (mask != nullptr) {
-    const float m = mask[(size_t)b * H * W + src];
-    v = make_float2(m * v.x, m * v.y);
+// Q[b, c, i, j] = m[b, ifs(i, j)] * y[b, c, ifs(i, j)] over unit u, or the shifted copy without a mask
+__device__ __forceinline__ void load_unit(const Unit& u, const float2* __restrict__ y, const float* __restrict__ mask,
+                                          float2* __restrict__ Q, int C, int H, int W, int sh_h, int sh_w) {
+  const size_t HW = (size_t)H * W, src = (size_t)wrap(u.i, sh_h, H) * W + wrap(u.j, sh_w, W);
+  const size_t plane = ((size_t)u.b * C + u.c0) * HW;
+  const float2* in = y + plane + src;
+  float2* out = Q + plane + (size_t)u.i * W + u.j;
+  const int n = min(C - u.c0, COILS_PER_THREAD);
+  if (mask == nullptr) {
+    coil_run(in, out, HW, n, [](float2 q) { return q; });
+    return;
   }
-  Q[(size_t)bc * H * W + p] = v;
+  const float m = __ldg(mask + (size_t)u.b * HW + src);
+  coil_run(in, out, HW, n, [&](float2 q) { return make_float2(m * q.x, m * q.y); });
+}
+
+__global__ void __launch_bounds__(TX * TY) load_kernel(const float2* __restrict__ y, const float* __restrict__ mask,
+                                                       float2* __restrict__ Q, int C, int H, int W, int sh_h,
+                                                       int sh_w, int groups) {
+  Unit u;
+  if (unit_of(H, W, groups, &u)) load_unit(u, y, mask, Q, C, H, W, sh_h, sh_w);
 }
 
 // sum_c conj(s_c[p]) * P[c, fs(p)] / sigma^2 of example b
@@ -155,16 +219,28 @@ bool bad(int B, int C, int H, int W) {
   return B <= 0 || C <= 0 || H <= 0 || W <= 0 || (long long)B * C > 65535 || (long long)H * W > (1LL << 30);
 }
 
+// expand's and load's grid and coil groups, or false where the operands do not fit it
+bool unit_grid(int B, int C, int H, int W, int sh_h, int sh_w, dim3* grid, int* groups) {
+  if (B <= 0 || C <= 0 || H <= 0 || W <= 0 || (long long)H * W > (1LL << 30)) return false;
+  if (sh_h < 0 || sh_h >= H || sh_w < 0 || sh_w >= W) return false;
+  *groups = (C + COILS_PER_THREAD - 1) / COILS_PER_THREAD;
+  const long long gx = ((long long)W + TX - 1) / TX, gy = ((long long)H + TY - 1) / TY, gz = (long long)B * *groups;
+  if (gy > 65535 || gz > 65535) return false;
+  *grid = dim3((unsigned)gx, (unsigned)gy, (unsigned)gz);
+  return true;
+}
+
 }  // namespace
 
 // eta_stride: float2s from one pixel of eta to the next (1: [B, H, W, 2];
 // 2: channels 2:4 of a [B, H, W, 4] gradient, eta pointing at channel 2)
 extern "C" int k2_expand(const void* eta, const void* sens, void* X, int B, int C, int H, int W, int sh_h,
                          int sh_w, int eta_stride, void* stream) {
-  if (bad(B, C, H, W) || eta_stride < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid(blocks_for((long long)H * W, THREADS), B * C);
-  expand_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>((const float2*)eta, (const float2*)sens,
-                                                            (float2*)X, C, H, W, sh_h, sh_w, eta_stride);
+  dim3 grid;
+  int groups = 0;
+  if (eta_stride < 1 || !unit_grid(B, C, H, W, sh_h, sh_w, &grid, &groups)) return (int)cudaErrorInvalidValue;
+  expand_kernel<<<grid, dim3(TX, TY), 0, (cudaStream_t)stream>>>((const float2*)eta, (const float2*)sens, (float2*)X,
+                                                                 C, H, W, sh_h, sh_w, eta_stride, groups);
   return (int)cudaGetLastError();
 }
 
@@ -179,10 +255,11 @@ extern "C" int k2_residual(void* K, const void* y, const void* mask, int B, int 
 
 extern "C" int k2_load(const void* y, const void* mask, void* Q, int B, int C, int H, int W, int sh_h, int sh_w,
                        void* stream) {
-  if (bad(B, C, H, W)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(blocks_for((long long)H * W, THREADS), B * C);
-  load_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>((const float2*)y, (const float*)mask, (float2*)Q, C,
-                                                          H, W, sh_h, sh_w);
+  dim3 grid;
+  int groups = 0;
+  if (!unit_grid(B, C, H, W, sh_h, sh_w, &grid, &groups)) return (int)cudaErrorInvalidValue;
+  load_kernel<<<grid, dim3(TX, TY), 0, (cudaStream_t)stream>>>((const float2*)y, (const float*)mask, (float2*)Q, C, H,
+                                                               W, sh_h, sh_w, groups);
   return (int)cudaGetLastError();
 }
 

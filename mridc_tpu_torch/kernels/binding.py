@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
@@ -92,6 +92,7 @@ QUERIES: Dict[str, Dict[str, tuple]] = {
 LAUNCHES: Dict[str, int] = {sym: 0 for syms in SOURCES.values() for sym in syms}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[str, Callable[..., int]] = {}  # entry point -> its bound function
 
 
 def reset_launch_counts() -> None:
@@ -169,13 +170,25 @@ def library(name: str) -> ctypes.CDLL:
 
 def launch(name: str, symbol: str, device: torch.device, *args) -> None:
     """Launch ``symbol`` of library ``name`` on the current stream of
-    ``device``; raise if the launch was refused, count it if it was not."""
-    lib = library(name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, symbol)(*args, ctypes.c_void_p(stream))
+    ``device``; raise if the launch was refused, count it if it was not.
+
+    A launch sits on the host's path between two kernels, so it reads the raw
+    stream handle and switches the current device only when ``device`` is
+    not the current one: a ``Stream`` object and a device guard cost more host
+    time than the ctypes call itself."""
+    fn = _ENTRIES.get(symbol)
+    if fn is None:
+        fn = _ENTRIES[symbol] = getattr(library(name), symbol)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == current:
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
     if err != 0:
-        raise RuntimeError(f"{symbol}: CUDA error {err} ({lib.mridc_error_string(err).decode()})")
+        raise RuntimeError(f"{symbol}: CUDA error {err} ({library(name).mridc_error_string(err).decode()})")
     LAUNCHES[symbol] += 1
 
 

@@ -57,8 +57,9 @@ def check_operand(
     shape: Sequence[int],
     dtypes: Sequence[torch.dtype],
     channels_last: bool = False,
+    align: int = 16,
 ) -> None:
-    """Shape, dtype, layout and 16-byte alignment the kernel relies on."""
+    """Shape, dtype, layout and alignment (bytes) the kernel relies on."""
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if t.dtype not in dtypes:
@@ -67,5 +68,5 @@ def check_operand(
     if not t.is_contiguous(memory_format=fmt):
         layout = "channels_last" if channels_last else "contiguous"
         raise ValueError(f"{name}: the kernel needs a {layout} tensor")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: the kernel needs a 16-byte aligned tensor (got a view with an offset)")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: the kernel needs a {align}-byte aligned tensor (got a view with an offset)")

@@ -255,7 +255,7 @@ def expand(eta, sens, centered: bool) -> torch.Tensor:
     if dev.type == "cpu":
         return expand_plain(eta, sens, centered)
     b, c, h, w = _coil_dims("full_dc.expand", sens)
-    check_operand("full_dc.expand.sens", sens, (b, c, h, w, 2), _F32)
+    check_operand("full_dc.expand.sens", sens, (b, c, h, w, 2), _F32, align=8)
     es = _eta_stride(eta, b, h, w)
     x = torch.empty((b, c, h, w), dtype=torch.complex64, device=dev)
     launch("full_dc", "k2_expand", dev, eta.data_ptr(), sens.data_ptr(), x.data_ptr(), b, c, h, w,
@@ -298,7 +298,7 @@ def load(y, mask: Optional[torch.Tensor], centered: bool, fftshift: bool = False
     if dev.type == "cpu":
         return load_plain(y, mask, centered, fftshift)
     b, c, h, w = _coil_dims("full_dc.load", y)
-    check_operand("full_dc.load.y", y, (b, c, h, w, 2), _F32)
+    check_operand("full_dc.load.y", y, (b, c, h, w, 2), _F32, align=8)
     m = None if mask is None else _mask_operand("full_dc.load.mask", mask, b, h, w)
     q = torch.empty((b, c, h, w), dtype=torch.complex64, device=dev)
     launch("full_dc", "k2_load", dev, y.data_ptr(), None if m is None else m.data_ptr(), q.data_ptr(),
