@@ -528,6 +528,8 @@ def data_per_step(run: str) -> dict:
 # at 7.09 (flagship, B=2) and 0.016 at 7.44 (main path, B=8); K3 0.016 at 6.72
 # and 0.0039 at 1.82 (one bf16 ulp at each).
 F32, K1_BF16, K3_BF16 = (1e-4, 1e-4), (1e-2, 1e-2), (1e-2, 1e-3)
+# K2's mask stage is one real-times-complex product, its plain version's: equal
+EXACT = (0.0, 0.0)
 # a bf16 model on the card against the same bf16 model on the CPU: the two
 # round at other places (cuDNN's and the CPU's bf16 convolutions, K1-bf16's
 # staging): rtol 3e-2 and atol 3e-2 of the largest magnitude
@@ -873,7 +875,10 @@ def kernel_category(name: str) -> str:
 def trace_call(fn, ms_per_call):
     """Device time and kernel launches of one call of ``fn`` (a forward or a
     training step) by kernel, by layer and by ATen op, from torch.profiler's
-    CUDA kernel events (CUPTI), beside the unprofiled wall time of a call."""
+    CUDA kernel events (CUPTI), beside the unprofiled wall time of a call;
+    ``copy_launches``/``copy_ms``: ATen's copy kernels among them (``copy_``,
+    ``contiguous``, ``to``: a mask densified at every K2 stage would show
+    there, one a stage)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -893,7 +898,9 @@ def trace_call(fn, ms_per_call):
         launches[kernel_category(name)] = launches.get(kernel_category(name), 0) + calls[name]
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    copies = [n for n in by_name if "direct_copy_kernel" in n]
     return {"device_ms": busy, "wall_ms": ms_per_call,
+            "copy_launches": sum(calls[n] for n in copies), "copy_ms": sum(by_name[n] for n in copies),
             "device_busy_share": busy / ms_per_call if ms_per_call else None,
             "by_layer_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
             "by_layer_launches": dict(sorted(launches.items(), key=lambda kv: -kv[1])),
@@ -901,11 +908,13 @@ def trace_call(fn, ms_per_call):
 
 
 def traced_kernel_ms(fn, name_part=None, calls=20):
-    """Device time a call of the kernels whose name holds ``name_part`` (every
-    kernel when None) in a torch.profiler trace of ``calls`` back-to-back calls
-    of ``fn``, as {"traced_device_ms", "traced_kernels"}; CUDA events around the
-    same calls (:func:`time_ms`) also hold any gap the host leaves between
-    kernels."""
+    """Device time of the one kernel a call of ``fn`` launches whose name
+    holds ``name_part`` (every kernel when None), in a torch.profiler trace of
+    ``calls`` back-to-back calls, as {"traced_device_ms", "traced_kernels"}:
+    the mean over the kernel events the trace kept (the profiler at times
+    drops some; ``traced_kernels`` below ``calls`` shows it). CUDA events
+    around the same calls (:func:`time_ms`) also hold any gap the host leaves
+    between kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -917,7 +926,7 @@ def traced_kernel_ms(fn, name_part=None, calls=20):
         torch.cuda.synchronize()
     us = [e.time_range.elapsed_us() for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA and (name_part is None or name_part in e.name)]
-    return {"traced_device_ms": sum(us) / calls / 1e3 if us else None, "traced_kernels": len(us)}
+    return {"traced_device_ms": sum(us) / len(us) / 1e3 if us else None, "traced_kernels": len(us)}
 
 
 def check_all(name, got: dict, want: dict, rtol, atol_rel, note=""):
@@ -2703,6 +2712,9 @@ def run(t_start, masks, s_masks) -> int:
                 errors.setdefault("k2_residual", []).append(
                     check(f"k2_residual[{tag}]", torch.view_as_real(k2.residual(kk.clone(), y, mask, centered)),
                           torch.view_as_real(k2.residual_plain(kk, y, mask, centered)), *F32))
+                errors.setdefault("k2_mask", []).append(
+                    check(f"k2_mask[{tag}]", k2.apply_mask(kk.clone(), mask, centered),
+                          k2.apply_mask_plain(kk, mask, centered), *EXACT))
                 for m in (mask, None):
                     errors.setdefault("k2_load", []).append(
                         check(f"k2_load[{tag}{'' if m is None else '/mask'}]",
@@ -2737,11 +2749,14 @@ def run(t_start, masks, s_masks) -> int:
                 errors.setdefault(sym, []).append(
                     check(f"{sym}[{label}]", kernels.indrnn(*args), rounded_once(kernels.indrnn_plain, *args), *tol))
 
-        # K2's expand and load at the shapes their index arithmetic must take:
-        # 34 x 38 centered (an odd column shift), an odd H with 7 coils (coil
-        # groups of 3, 3 and 1) with and without the fftshift, the main width;
-        # eta as channels 2:4 of a [B, H, W, 4] g (eta_stride 2), views one
-        # pixel off 16 bytes, load with and without the mask
+        # K2's expand, load and mask at the shapes their index arithmetic must
+        # take: 34 x 38 centered (an odd column shift), an odd H with 7 coils
+        # (coil groups of 3, 3 and 1) with and without the fftshift, the main
+        # width; eta as channels 2:4 of a [B, H, W, 4] g (eta_stride 2), views
+        # one pixel off 16 bytes, load with and without the mask; mask in place
+        # on a fresh clone of an FFT output, by bench.py's 1D mask, by a
+        # [B, 1, 1, W] row the wrapper broadcasts and by a mask of values in
+        # [0, 1) (a product, not a select)
         for label, (b, c, h, w) in {"w38": (2, 3, 34, 38), "odd_h": (2, 7, 33, 40),
                                     "flagship_b2": (2, COILS, H, W)}.items():
             y, sens, mask = (t(a) for a in bench_data(b, c, h, w, seed=5))
@@ -2758,6 +2773,12 @@ def run(t_start, masks, s_masks) -> int:
                         errors.setdefault("k2_load", []).append(check(
                             f"k2_load[{label}/{cu}{'/fftshift' if fftshift else ''}/{tag}]",
                             k2.load(yy, m, centered, fftshift), k2.load_plain(yy, m, centered, fftshift), *F32))
+                kk = torch.fft.fft2(k2.expand_plain(eta, sens, centered), norm="ortho")
+                soft = torch.rand((b, 1, h, w), generator=torch.Generator().manual_seed(7)).to(dev)
+                for tag, m in (("mask", mask), ("row", mask[:, :, :1]), ("soft", soft)):
+                    errors.setdefault("k2_mask", []).append(check(
+                        f"k2_mask[{label}/{cu}/{tag}]", k2.apply_mask(kk.clone(), m, centered),
+                        k2.apply_mask_plain(kk, m, centered), *EXACT))
 
         # K1 forward and backward at the edges of its tiles. bf16: 64 rows by
         # 64 columns, 64 by 32 where W > 320; f32: 32 by 32 up to W = 320, 16
@@ -3013,7 +3034,8 @@ def run(t_start, masks, s_masks) -> int:
         plain_ms = time_ms(lambda: plain(*args))
         library_ms = None if library is None else time_ms(library)
         if extra is not None and library is not None:
-            extra["library_traced_device_ms"] = traced_kernel_ms(library)["traced_device_ms"]
+            lib = traced_kernel_ms(library)
+            extra.update(library_traced_device_ms=lib["traced_device_ms"], library_traced_kernels=lib["traced_kernels"])
         bound_ms, by = bound(nbytes, flops)
         table = PER_FORWARD if per == "forward" else PER_STEP
         rows.append({"name": sym, "route": "cuda", "source": source, "replaces": replaces,
@@ -3301,9 +3323,18 @@ def run(t_start, masks, s_masks) -> int:
         p_c = torch.fft.ifft2(k_c, norm=norm)
         coil = b * c * hw * 8
         src, rep = "mridc_tpu_torch/csrc/full_dc.cu", "mridc_tpu/nn/dc.py:81 (log_likelihood_gradient, backward)"
+        # mask prints what expand and load print in phase 6, timed on a copy of
+        # k_c (it works in place; the 0/1 mask leaves repeated products
+        # unchanged), and the in-place library call on a line of its own
+        k_t = k_c.clone()
         row("k2_mask", src, rep, k2.apply_mask, k2.apply_mask_plain, (k_c, mk, centered),
-            2 * coil + b * hw * 4, {"float32": 2 * b * c * hw}, F32, train_counts, "step",
-            library=lambda: torch.mul(k_c, mk))
+            2 * coil + b * hw * 4, {"float32": 2 * b * c * hw}, EXACT, train_counts, "step",
+            library=lambda: torch.mul(k_c, mk),
+            extra={"ms_sh0": time_ms(lambda: k2.apply_mask(k_t, mk, False)),
+                   **traced_kernel_ms(lambda: k2.apply_mask(k_t, mk, centered), "mask_kernel")})
+        emit({"kernel": "k2_mask", "yardstick": "k.mul_(mask), in place", "ms": time_ms(lambda: k_t.mul_(mk)),
+              **traced_kernel_ms(lambda: k_t.mul_(mk)), "card": card})
+        del k_t
         row("k2_reduce_acc", src, rep, k2.reduce_acc, k2.reduce_acc_plain, (p_c, sk, g, centered, sigma),
             2 * coil + b * hw * 16 + b * hw * 8, {"float32": 8 * b * c * hw + 2 * b * hw}, F32, train_counts, "step")
         del k_c, p_c

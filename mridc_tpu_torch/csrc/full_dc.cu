@@ -37,20 +37,22 @@
 //   (mask)        K[c, k] *= m[ifs(k)] in place on the FFT output;
 //   (reduce_acc)  out[i] = g[i, :2] + sum_c conj(s_c[i]) * P[c, fs(i)] / sigma^2,
 //                 [B, H, W, 2].
-// Expand and load: one thread takes one pixel of one row of one example (rows
-// and columns from a 2D grid, no division), holds eta's (or the mask's) pixel
-// in a register and walks a group of COILS_PER_THREAD coils, issuing UNROLL
-// coil loads before the first is used: 8 bytes a coil, 24 in flight a thread.
+// Expand, load and mask: one thread takes one pixel of one row of one example
+// (rows and columns from a 2D grid, no division), holds eta's (or the mask's)
+// pixel in a register and walks a group of COILS_PER_THREAD coils, issuing
+// UNROLL coil loads before the first is used: 8 bytes a coil, 24 in flight a
+// thread. Mask works in place on one pointer: a group's loads, then its stores.
 // eta and the mask are read through the read-only path (__ldg). The coil
 // tensors keep the default cache policy: at the configs' B=1 a coil tensor
 // (12.3 MB) stays in L2 for the FFT or reduce that reads it next. Streaming
 // hints (ld/st.global.cs), tried, sped some of the chains around these stages
 // and slowed others, at B=1 and at B=8 (tools/torch_k2_variants.py). Each
 // output element is one complex product (expand) or one real-times-complex
-// product (load), the products of their plain versions in
-// kernels/k2_full_dc.py. Residual, mask and both reduces are one thread per
-// element. Float32 only: the JAX package runs the full DC in float32 whatever
-// dc_dtype says.
+// product (load, mask), the products of their plain versions in
+// kernels/k2_full_dc.py: a multiply, not a select, so that a NaN or an inf of
+// the k-space stays one under a zero of the mask, as in the JAX package.
+// Residual and both reduces are one thread per element. Float32 only: the JAX
+// package runs the full DC in float32 whatever dc_dtype says.
 #include "common.cuh"
 
 using namespace mridc;
@@ -64,7 +66,7 @@ __device__ __forceinline__ int wrap(int i, int s, int n) {
   return i >= n ? i - n : i;
 }
 
-// ---- expand and load: one pixel of a row a thread, a group of coils ----
+// ---- expand, load and mask: one pixel of a row a thread, a group of coils ----
 
 constexpr int TX = 32, TY = 8;       // block: TX pixels of a row by TY rows
 constexpr int COILS_PER_THREAD = 3;  // the coil group a thread walks
@@ -82,6 +84,22 @@ __device__ __forceinline__ void coil_run(const float2* __restrict__ in, float2* 
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u)
       if (c + u < n) out[(size_t)(c + u) * HW] = op(v[u]);
+  }
+}
+
+// io[c] = op(io[c]) in place for the n coils from io, HW float2s apart: a
+// group's loads, then its stores (coil_run's in and out are __restrict__, and
+// one tensor passed as both would alias them)
+template <typename Op>
+__device__ __forceinline__ void coil_run_in_place(float2* __restrict__ io, size_t HW, int n, Op op) {
+  for (int c = 0; c < n; c += UNROLL) {
+    float2 v[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      if (c + u < n) v[u] = io[(size_t)(c + u) * HW];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      if (c + u < n) io[(size_t)(c + u) * HW] = op(v[u]);
   }
 }
 
@@ -133,18 +151,6 @@ __global__ void residual_kernel(float2* __restrict__ K, const float2* __restrict
   *k = make_float2(m * (kv.x - yv.x), m * (kv.y - yv.y));
 }
 
-__global__ void mask_kernel(float2* __restrict__ K, const float* __restrict__ mask, int C, int H, int W, int sh_h,
-                            int sh_w) {
-  const int p = blockIdx.x * THREADS + threadIdx.x;
-  if (p >= H * W) return;
-  const int bc = blockIdx.y, b = bc / C;
-  const int i = p / W, j = p - i * W;
-  const float m = mask[(size_t)b * H * W + (size_t)wrap(i, sh_h, H) * W + wrap(j, sh_w, W)];
-  float2* k = K + (size_t)bc * H * W + p;
-  const float2 kv = *k;
-  *k = make_float2(m * kv.x, m * kv.y);
-}
-
 // Q[b, c, i, j] = m[b, ifs(i, j)] * y[b, c, ifs(i, j)] over unit u, or the shifted copy without a mask
 __device__ __forceinline__ void load_unit(const Unit& u, const float2* __restrict__ y, const float* __restrict__ mask,
                                           float2* __restrict__ Q, int C, int H, int W, int sh_h, int sh_w) {
@@ -166,6 +172,21 @@ __global__ void __launch_bounds__(TX * TY) load_kernel(const float2* __restrict_
                                                        int sh_w, int groups) {
   Unit u;
   if (unit_of(H, W, groups, &u)) load_unit(u, y, mask, Q, C, H, W, sh_h, sh_w);
+}
+
+// K[b, c, i, j] *= m[b, ifs(i, j)] in place over unit u
+__device__ __forceinline__ void mask_unit(const Unit& u, float2* __restrict__ K, const float* __restrict__ mask, int C,
+                                          int H, int W, int sh_h, int sh_w) {
+  const size_t HW = (size_t)H * W, src = (size_t)wrap(u.i, sh_h, H) * W + wrap(u.j, sh_w, W);
+  const float m = __ldg(mask + (size_t)u.b * HW + src);
+  coil_run_in_place(K + ((size_t)u.b * C + u.c0) * HW + (size_t)u.i * W + u.j, HW, min(C - u.c0, COILS_PER_THREAD),
+                    [&](float2 k) { return make_float2(m * k.x, m * k.y); });
+}
+
+__global__ void __launch_bounds__(TX * TY) mask_kernel(float2* __restrict__ K, const float* __restrict__ mask, int C,
+                                                       int H, int W, int sh_h, int sh_w, int groups) {
+  Unit u;
+  if (unit_of(H, W, groups, &u)) mask_unit(u, K, mask, C, H, W, sh_h, sh_w);
 }
 
 // sum_c conj(s_c[p]) * P[c, fs(p)] / sigma^2 of example b
@@ -219,7 +240,7 @@ bool bad(int B, int C, int H, int W) {
   return B <= 0 || C <= 0 || H <= 0 || W <= 0 || (long long)B * C > 65535 || (long long)H * W > (1LL << 30);
 }
 
-// expand's and load's grid and coil groups, or false where the operands do not fit it
+// expand's, load's and mask's grid and coil groups, or false where the operands do not fit it
 bool unit_grid(int B, int C, int H, int W, int sh_h, int sh_w, dim3* grid, int* groups) {
   if (B <= 0 || C <= 0 || H <= 0 || W <= 0 || (long long)H * W > (1LL << 30)) return false;
   if (sh_h < 0 || sh_h >= H || sh_w < 0 || sh_w >= W) return false;
@@ -274,9 +295,11 @@ extern "C" int k2_reduce(const void* P, const void* sens, const void* eta, void*
 }
 
 extern "C" int k2_mask(void* K, const void* mask, int B, int C, int H, int W, int sh_h, int sh_w, void* stream) {
-  if (bad(B, C, H, W) || mask == nullptr) return (int)cudaErrorInvalidValue;
-  const dim3 grid(blocks_for((long long)H * W, THREADS), B * C);
-  mask_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>((float2*)K, (const float*)mask, C, H, W, sh_h, sh_w);
+  dim3 grid;
+  int groups = 0;
+  if (mask == nullptr || !unit_grid(B, C, H, W, sh_h, sh_w, &grid, &groups)) return (int)cudaErrorInvalidValue;
+  mask_kernel<<<grid, dim3(TX, TY), 0, (cudaStream_t)stream>>>((float2*)K, (const float*)mask, C, H, W, sh_h, sh_w,
+                                                               groups);
   return (int)cudaGetLastError();
 }
 

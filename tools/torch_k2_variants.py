@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time design variants of mridc_tpu_torch's K2 expand and load kernels on one
-NVIDIA GPU, alone and in the chains that call them.
+"""Time design variants of mridc_tpu_torch's K2 expand, load and mask kernels
+on one NVIDIA GPU, alone and in the chains that call them.
 
 Each variant is ``mridc_tpu_torch/csrc/full_dc.cu`` with a few text
 substitutions (defined below): coils a thread, loads in flight, cache hints,
@@ -10,25 +10,31 @@ together, and timed at phase 6's operands of chip_smoke.py: B=8, 15 coils,
 320x320, bench.py's k-space, maps and 1D mask (``chip_smoke.bench_data``) and a
 seeded eta, float32. Cases: ``expand`` and ``load`` with the mask, centered
 (the shifts of phase 6) and at sh = 0, ``load`` without a mask with the
-fftshift (the k-space reorder), and expand and load centered at B=1 (the
-configs' batch; ~5 us a call, L2-resident, so the device time of a profiler
-trace is read beside the CUDA events, which there hold the host's launch time
-too). Every variant is checked against the plain version at chip_smoke.py's
-F32 limits (rtol 1e-4, atol 1e-4 x max). Beside them, the yardsticks that the
-port never calls: ``torch.mul`` of the complex maps by eta (expand) and of the
-complex k-space by the mask (load), as phase 6 times them, and ``clone`` of
-the coil tensor for the copy. Each round times every variant in turns (the
-order, then the order reversed), so that drift shows as a difference between
-the two readings.
+fftshift (the k-space reorder), ``mask`` in place on an FFT output (centered
+and at sh = 0), and expand, load and mask centered at B=1 (the configs' batch;
+~5 us a call, L2-resident, so the device time of a profiler trace is read
+beside the CUDA events, which there hold the host's launch time too; the mask
+cases read it at B=8 too). Every variant is checked against the plain version
+at chip_smoke.py's F32 limits (rtol 1e-4, atol 1e-4 x max), and mask exactly.
+Beside them, the yardsticks that the port never calls: ``torch.mul`` of the
+complex maps by eta (expand) and of the complex k-space by the mask (load,
+mask), as phase 6 times them, the in-place ``mul_`` by the mask (mask), and
+``clone`` of the coil tensor for the copy. Each round times every variant in
+turns (the order, then the order reversed), so that drift shows as a
+difference between the two readings.
 
 Then the chains (``CHAIN_VARIANTS`` and the baseline): each of those builds is
 put in place of the package's ``full_dc`` library and the package's own
-``sens_expand``, ``sens_reduce``, ``normal_op`` and ``full_dc`` run centered
-at B=1 and B=8, in turns, with CUDA events and with the summed device time of
-every kernel of a call in a profiler trace: what a kernel's cache hints cost
-the FFTs and reduces that read its output or its operands after it.
+``sens_expand`` (without and with the mask), ``sens_reduce``, ``normal_op``,
+``full_dc`` and ``full_dc_bwd`` run centered at B=1 and B=8, in turns, with
+CUDA events and with the summed device time of every kernel of a call in a
+profiler trace: what a kernel's cache hints cost the FFTs and reduces that
+read its output or its operands after it.
 
-    python3 tools/torch_k2_variants.py [--rounds N] [--baseline FILE]
+    python3 tools/torch_k2_variants.py [--rounds N] [--baseline FILE] [--cases PREFIX ...]
+
+``--cases`` keeps the cases whose name starts with one of the prefixes (for
+instance ``mask``), and the chains that run one of their stages.
 
 ``--baseline`` adds another version of ``full_dc.cu`` with the same C
 interface (for instance the parent commit's, from ``git show``), built and
@@ -102,12 +108,18 @@ _HINTS = [
     ("v[u] = in[(size_t)(c + u) * HW];", "v[u] = __ldcs(in + (size_t)(c + u) * HW);"),
     ("out[(size_t)(c + u) * HW] = op(v[u]);", "__stcs(out + (size_t)(c + u) * HW, op(v[u]));"),
 ]
+# the same on the mask stage's in-place run alone
+_HINTS_IN_PLACE = [
+    ("v[u] = io[(size_t)(c + u) * HW];", "v[u] = __ldcs(io + (size_t)(c + u) * HW);"),
+    ("io[(size_t)(c + u) * HW] = op(v[u]);", "__stcs(io + (size_t)(c + u) * HW, op(v[u]));"),
+]
 
 SHIPPED = "shipped: 1 pixel, 3 coils a thread (5 groups), 3 loads ahead, 32x8 blocks"
 # name -> substitutions
 VARIANTS = {
     SHIPPED: [],
-    "streaming cache hints on the coil tensors": _HINTS,
+    "streaming cache hints on the coil tensors": _HINTS + _HINTS_IN_PLACE,
+    "streaming cache hints on the mask stage alone": _HINTS_IN_PLACE,
     "15 coils a thread (1 group), 5 loads ahead": _coils(15, 5),
     "5 coils a thread (3 groups), 5 loads ahead": _coils(5, 5),
     "1 coil a thread (15 groups: the first version's grid shape)": _coils(1, 1),
@@ -117,7 +129,7 @@ VARIANTS = {
     "grid-stride over one wave, 15 coils a unit": _GRID_STRIDE + _coils(15, 5),
 }
 # the builds also timed in the package's chains (with the baseline)
-CHAIN_VARIANTS = (SHIPPED, "streaming cache hints on the coil tensors")
+CHAIN_VARIANTS = (SHIPPED, "streaming cache hints on the coil tensors", "streaming cache hints on the mask stage alone")
 
 
 def variant_source(src: str, name: str) -> str:
@@ -154,7 +166,7 @@ def build(nvcc: str, names, argtypes: dict, baseline=None) -> dict:
             continue
         regs, kern = {}, None
         for ln in out.splitlines():
-            m = re.search(r"(expand|load)_kernel", ln)
+            m = re.search(r"(expand|load|mask)_kernel", ln)
             if "Compiling entry function" in ln:
                 kern = m.group(1) if m else None
             elif "Used" in ln and "registers" in ln and kern:
@@ -178,6 +190,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--baseline", default=None, help="another full_dc.cu to build and time as it is")
+    ap.add_argument("--cases", nargs="*", default=None, help="keep the cases whose name starts with one of these")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_k2_variants: no CUDA device", file=sys.stderr)
@@ -210,7 +223,8 @@ def main() -> int:
 
     def traced_ms(fn, calls=50):
         """Mean device time a call: every kernel of ``calls`` calls in a trace;
-        None when the trace holds no kernel (the profiler at times loses them)."""
+        None when the trace lost kernel events (the profiler at times drops
+        some: their count is then no multiple of ``calls``)."""
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -218,43 +232,56 @@ def main() -> int:
                 fn()
             torch.cuda.synchronize()
         us = [e.time_range.elapsed_us() for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        return sum(us) / calls / 1e3 if us else None
+        return sum(us) / calls / 1e3 if us and len(us) % calls == 0 else None
 
     def operands(b):
         y, sens, mask = (torch.from_numpy(a).to(dev) for a in bench_data(b, C, H, W))
-        eta = torch.from_numpy(np.random.default_rng(5).standard_normal((b, H, W, 2)).astype(np.float32)).to(dev)
-        return dict(b=b, y=y, sens=sens, mask=mask, eta=eta,
+        rng = np.random.default_rng(5)
+        eta = torch.from_numpy(rng.standard_normal((b, H, W, 2)).astype(np.float32)).to(dev)
+        g = torch.from_numpy(rng.standard_normal((b, H, W, 4)).astype(np.float32)).to(dev)
+        # the mask stage's operand: an FFT output, and the buffer it works on in place
+        kspace = torch.fft.fft2(k2.expand_plain(eta, sens, True), norm="ortho")
+        return dict(b=b, y=y, sens=sens, mask=mask, eta=eta, g=g, k=kspace, kw=kspace.clone(),
                     out=torch.empty((b, C, H, W), dtype=torch.complex64, device=dev),
                     **{f"{k}_cx": torch.view_as_complex(v) for k, v in (("y", y), ("sens", sens), ("eta", eta))})
 
     ops = {8: operands(8), 1: operands(1)}
-    # case -> (batch, kernel, centered, fftshift, masked, plain version, yardstick, bytes moved once);
+    # case -> (batch, kernel, centered, fftshift, masked, plain version, {yardstick: call}, bytes moved once);
     # B=1 is the configs' batch: each call is ~5 us, so the trace's device time is read beside the events'
     cases = {}
     for b, tag in ((8, ""), (1, "/B=1")):
         o = ops[b]
         coil = b * C * H * W * 8
-
+        mul_eta = {"torch.mul": lambda o=o: torch.mul(o["eta_cx"].unsqueeze(1), o["sens_cx"])}
+        mul_y = {"torch.mul": lambda o=o: torch.mul(o["y_cx"], o["mask"])}
+        # the mask stage's: the out-of-place product (phase 6's library call) and the in-place one
+        mul_k = {"torch.mul": lambda o=o: torch.mul(o["kw"], o["mask"]), "mul_": lambda o=o: o["kw"].mul_(o["mask"])}
         cases.update({
             f"expand/centered{tag}": (b, "k2_expand", True, False, False,
-                                      lambda o=o: k2.expand_plain(o["eta"], o["sens"], True),
-                                      lambda o=o: torch.mul(o["eta_cx"].unsqueeze(1), o["sens_cx"]),
+                                      lambda o=o: k2.expand_plain(o["eta"], o["sens"], True), mul_eta,
                                       2 * coil + b * H * W * 8),
             f"load/centered{tag}": (b, "k2_load", True, False, True, lambda o=o: k2.load_plain(o["y"], o["mask"], True),
-                                    lambda o=o: torch.mul(o["y_cx"], o["mask"]), 2 * coil + b * H * W * 4),
+                                    mul_y, 2 * coil + b * H * W * 4),
+            f"mask/centered{tag}": (b, "k2_mask", True, False, True,
+                                    lambda o=o: k2.apply_mask_plain(o["k"], o["mask"], True), mul_k,
+                                    2 * coil + b * H * W * 4),
         })
         if b == 8:
             cases.update({
                 "expand/sh=0": (b, "k2_expand", False, False, False,
-                                lambda o=o: k2.expand_plain(o["eta"], o["sens"], False),
-                                lambda o=o: torch.mul(o["eta_cx"].unsqueeze(1), o["sens_cx"]),
+                                lambda o=o: k2.expand_plain(o["eta"], o["sens"], False), mul_eta,
                                 2 * coil + b * H * W * 8),
                 "load/sh=0": (b, "k2_load", False, False, True, lambda o=o: k2.load_plain(o["y"], o["mask"], False),
-                              lambda o=o: torch.mul(o["y_cx"], o["mask"]), 2 * coil + b * H * W * 4),
+                              mul_y, 2 * coil + b * H * W * 4),
                 "load/no mask, fftshift": (b, "k2_load", True, True, False,
                                            lambda o=o: k2.load_plain(o["y"], None, True, True),
-                                           lambda o=o: o["y_cx"].clone(), 2 * coil),
+                                           {"clone": lambda o=o: o["y_cx"].clone()}, 2 * coil),
+                "mask/sh=0": (b, "k2_mask", False, False, True,
+                              lambda o=o: k2.apply_mask_plain(o["k"], o["mask"], False), mul_k,
+                              2 * coil + b * H * W * 4),
             })
+    if args.cases is not None:
+        cases = {k: v for k, v in cases.items() if k.startswith(tuple(args.cases))}
 
     def caller(name, case):
         b, sym, centered, fftshift, masked, *_ = cases[case]
@@ -263,6 +290,8 @@ def main() -> int:
         sh = k2._shifts(H, W, centered, fftshift)
         if sym == "k2_expand":
             argv = (o["eta"].data_ptr(), o["sens"].data_ptr(), o["out"].data_ptr(), b, C, H, W, *sh, 1)
+        elif sym == "k2_mask":  # in place on kw
+            argv = (o["kw"].data_ptr(), o["mask"].data_ptr(), b, C, H, W, *sh)
         else:
             argv = (o["y"].data_ptr(), o["mask"].data_ptr() if masked else None, o["out"].data_ptr(), b, C, H, W,
                     *sh)
@@ -275,28 +304,34 @@ def main() -> int:
         return call
 
     for case, (b, sym, *_, plain, yard, nbytes) in cases.items():
+        o = ops[b]
         want = torch.view_as_real(plain())
-        out = torch.view_as_real(ops[b]["out"])
-        scale = float(want.abs().max())
+        in_place = sym == "k2_mask"
+        out = torch.view_as_real(o["kw"] if in_place else o["out"])
+        # the mask stage is one product of its plain version: exact
+        rtol, atol = (0.0, 0.0) if in_place else (1e-4, 1e-4 * float(want.abs().max()))
         for name in names:
             call = caller(name, case)
-            out.zero_()
+            if in_place:
+                o["kw"].copy_(o["k"])
+            else:
+                out.zero_()
             call()
             torch.cuda.synchronize()
             err = float((out - want).abs().max())
-            if not torch.allclose(out, want, rtol=1e-4, atol=1e-4 * scale):
+            if not torch.allclose(out, want, rtol=rtol, atol=atol):
                 raise AssertionError(f"{name} {case}: disagrees with the plain version (max abs err {err})")
             print(json.dumps({"check": case, "variant": name, "max_abs_err": err, "ok": True}), flush=True)
 
     for rnd in range(args.rounds):
         for case, (b, sym, *_, yard, nbytes) in cases.items():
-            order = ["yardstick", *names]
+            order = [*yard, *names]
             reading = {}
             for name in order + order[::-1]:
-                fn = yard if name == "yardstick" else caller(name, case)
+                fn = yard[name] if name in yard else caller(name, case)
                 rec = reading.setdefault(name, {"ms": [], "traced_ms": []})
                 rec["ms"].append(time_ms(fn))
-                if b == 1:
+                if b == 1 or sym == "k2_mask":
                     rec["traced_ms"].append(traced_ms(fn))
             bound = nbytes / HBM * 1e3
             for name, rec in reading.items():
@@ -315,18 +350,25 @@ def main() -> int:
         binding._ENTRIES.clear()
 
     def chains(o):
-        x = o["eta"]
+        """{chain: (call, plain version)} of the chains that run a kept case's stage"""
+        x, g, m, sens = o["eta"], o["g"], o["mask"], o["sens"]
         mu = torch.tensor([0.05], device=dev)
-        return {
-            "sens_expand": (lambda: k2.sens_expand(x, o["sens"], True, "ortho"),
-                            lambda: k2.sens_expand_plain(x, o["sens"], True, "ortho")),
-            "sens_reduce": (lambda: k2.sens_reduce(o["y"], o["sens"], o["mask"], True, "ortho"),
-                            lambda: k2.sens_reduce_plain(o["y"], o["sens"], o["mask"], True, "ortho")),
-            "normal_op": (lambda: k2.normal_op(x, o["sens"], o["mask"], mu, True, "ortho"),
-                          lambda: k2.normal_op_plain(x, o["sens"], o["mask"], mu, True, "ortho")),
-            "full_dc": (lambda: k2.full_dc(x, o["y"], o["sens"], o["mask"], 1.0, True, "ortho"),
-                        lambda: k2.full_dc_plain(x, o["y"], o["sens"], o["mask"], 1.0, True, "ortho")),
+        every = {  # chain: (stages it runs, call, plain version)
+            "sens_expand": (("expand", "load"), lambda: k2.sens_expand(x, sens, True, "ortho"),
+                            lambda: k2.sens_expand_plain(x, sens, True, "ortho")),
+            "sens_expand masked": (("expand", "mask", "load"), lambda: k2.sens_expand(x, sens, True, "ortho", mask=m),
+                                   lambda: k2.sens_expand_plain(x, sens, True, "ortho", mask=m)),
+            "sens_reduce": (("load",), lambda: k2.sens_reduce(o["y"], sens, m, True, "ortho"),
+                            lambda: k2.sens_reduce_plain(o["y"], sens, m, True, "ortho")),
+            "normal_op": (("expand", "mask"), lambda: k2.normal_op(x, sens, m, mu, True, "ortho"),
+                          lambda: k2.normal_op_plain(x, sens, m, mu, True, "ortho")),
+            "full_dc": (("expand",), lambda: k2.full_dc(x, o["y"], sens, m, 1.0, True, "ortho"),
+                        lambda: k2.full_dc_plain(x, o["y"], sens, m, 1.0, True, "ortho")),
+            "full_dc_bwd": (("expand", "mask"), lambda: k2.full_dc_bwd(g, sens, m, 1.0, True, "ortho"),
+                            lambda: k2.full_dc_bwd_plain(g, sens, m, 1.0, True, "ortho")),
         }
+        kept = {case.split("/")[0] for case in cases}
+        return {name: (fn, plain) for name, (stages, fn, plain) in every.items() if kept.intersection(stages)}
 
     with torch.inference_mode():
         for b in (1, 8):
@@ -384,7 +426,9 @@ def main() -> int:
     for label, fn in (("expand centered", lambda: k2.expand(eta, sens, True)),
                       ("expand sh=0", lambda: k2.expand(eta, sens, False)),
                       ("load centered", lambda: k2.load(y, mask, True)),
-                      ("load sh=0", lambda: k2.load(y, mask, False))):
+                      ("load sh=0", lambda: k2.load(y, mask, False)),
+                      ("mask centered", lambda: k2.apply_mask(o["kw"], mask, True)),
+                      ("mask sh=0", lambda: k2.apply_mask(o["kw"], mask, False))):
         print(json.dumps({"wrapper": label, "event_ms": time_ms(fn, iters=20), "traced_device_ms": traced_ms(fn, 20)}),
               flush=True)
 
