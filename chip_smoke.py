@@ -138,6 +138,16 @@ Phases (any failure raises; no phase catches its own):
      slices/s, peak memory, launches per step against ``ZOO2_PER_STEP``);
      traces by layer and ATen op; live BatchNorm card against CPU
      (``zoo2_phase``);
+  Z3. RecurrentVarNet, MultiDomainNet, CS (l1-wavelet and TV) and PICS at
+     their projects/reconstruction/conf widths, and CS as
+     projects/unselfsupervised/conf/base_cs_run.yaml sets it (``ZOO3_CFGS``),
+     on bench_data: serving B=8 (ms, slices/s, launches per forward against
+     ``ZOO3_PER_FORWARD``, the prediction against K2's plain twins); RVN and
+     MultiDomainNet training at the configs' B=1 (first-step loss and
+     gradients against the plain twins, ms, slices/s, peak memory, launches
+     per step against ``ZOO3_PER_STEP``); CS one step that updates nothing;
+     traces of the RVN, MultiDomainNet and CS forwards and of an RVN step
+     (``zoo3_phase``);
   S. ``python -m mridc_tpu_torch run -c`` (``cli.main``) of
      projects/unselfsupervised/conf's base_ssdu_train.yaml (ResNet) and
      base_n2r_train.yaml (UNet) as written, at batch 1 on phantom volumes:
@@ -431,6 +441,62 @@ ZOO2_BIG_TRAIN = "ccnn"  # also trained at B=8
 # the BatchNorm check: CascadeNet with live statistics, cut to 4 cascades, B=2
 ZOO2_BN_CFG = {**ZOO2_CFGS["ccnn"], "num_cascades": 4, "batchnorm": True, "train_batch_stats": True}
 ZOO2_BN_BATCH = 2
+
+# Z3: RecurrentVarNet, MultiDomainNet, CS and PICS as projects/reconstruction/
+# conf's base_{rvn,multidomainnet,cs,pics}_train.yaml configure them (the
+# model keys; tests/test_torch_port_zoo3.py holds them against the YAMLs),
+# with ZOO_COMMON; CS also in its other cs_type (``cs_tv``) and as
+# projects/unselfsupervised/conf/base_cs_run.yaml sets it (``cs_unsup``:
+# centered ortho FFT, reg_wt 0.05); on bench_data at 15 coils, 320x320
+ZOO3_CFGS = {
+    "rvn": {"model_name": "RVN", "in_channels": 2, "recurrent_hidden_channels": 64, "recurrent_num_layers": 4,
+            "num_steps": 8, "no_parameter_sharing": True, "learned_initializer": True,
+            "initializer_initialization": "sense", "initializer_channels": [32, 32, 64, 64],
+            "initializer_dilations": [1, 1, 2, 4], "initializer_multiscale": 1},
+    "multidomainnet": {"model_name": "MultiDomainNet", "standardization": True, "num_filters": 16,
+                       "num_pool_layers": 2},
+    "cs": {"model_name": "CS", "cs_type": "l1_wavelet", "reg_wt": 0.005, "num_iters": 60},
+    "cs_tv": {"model_name": "CS", "cs_type": "total_variation", "reg_wt": 0.005, "num_iters": 60},
+    "pics": {"model_name": "PICS", "reg_wt": 0.005, "num_iters": 60},
+    "cs_unsup": {"model_name": "CS", "cs_type": "l1_wavelet", "reg_wt": 0.05, "num_iters": 60, "fft_centered": True,
+                 "fft_normalization": "ortho"},
+}
+ZOO3_SOURCES = {
+    "rvn": "projects/reconstruction/conf/base_rvn_train.yaml",
+    "multidomainnet": "projects/reconstruction/conf/base_multidomainnet_train.yaml",
+    "cs": "projects/reconstruction/conf/base_cs_train.yaml",
+    "cs_tv": "projects/reconstruction/conf/base_cs_train.yaml, cs_type total_variation",
+    "pics": "projects/reconstruction/conf/base_pics_train.yaml",
+    "cs_unsup": "projects/unselfsupervised/conf/base_cs_run.yaml",
+}
+# launches per forward (the prediction's SENSE combine of k-space is
+# sens_reduce, uncentered and unmasked: the inverse FFT and one reduce).
+# RVN at 8 steps: the SENSE image of the initializer, per step one reduction
+# and one expansion, and the prediction. MultiDomainNet: the
+# standardization's coil combination (the reduce stage alone on the inverse
+# FFT's output). The FISTA solvers: x0 = sens_reduce(y, mask=m) (load,
+# inverse FFT, reduce), then per iteration the normal operator on m^2 (expand,
+# FFT, mask, inverse FFT, reduce), centered or not (the shifts are the
+# stages' indices)
+_FISTA_60 = {"k2_load": 1, "k2_reduce": 61, "k2_expand": 60, "k2_mask": 60}
+ZOO3_PER_FORWARD = {
+    "rvn": {"k2_reduce": 10, "k2_expand": 8},
+    "multidomainnet": {"k2_reduce": 1},
+    "cs": _FISTA_60, "cs_tv": _FISTA_60, "pics": _FISTA_60, "cs_unsup": _FISTA_60,
+}
+# launches per training step: the forward's, and the adjoint of every call
+# whose input takes a gradient: RVN's expansions (8 reductions back) and its
+# reductions of steps 1-7 and of the prediction (8 expansions back); the
+# initializer's reduction and step 0's read y, which takes none. The
+# standardization's input is y's; the final coil combination is plain. CS has
+# no parameters: its step is the forward and the loss
+ZOO3_PER_STEP = {
+    "train_rvn": {"k2_reduce": 18, "k2_expand": 16},
+    "train_multidomainnet": {"k2_reduce": 1},
+    "train_cs": _FISTA_60,
+}
+ZOO3_TRAIN_BATCH = 1  # base_{rvn,multidomainnet,cs}_train.yaml train at batch 1
+ZOO3_TRACED = ("rvn", "multidomainnet", "cs")  # a forward of each traced; RVN's training step too
 
 # S: projects/unselfsupervised/conf/base_ssdu_train.yaml and base_n2r_train.yaml
 # as written (tests/test_torch_port_selfsup.py holds them equal to the YAMLs)
@@ -2064,6 +2130,140 @@ def op_device_ms(prof, top=14) -> dict:
     return dict(sorted(out.items(), key=lambda kv: -kv[1])[:top])
 
 
+def serve_and_check(run, check_name, model, inputs, per_forward, card, **extra):
+    """Serving: ``WARMUP`` and ``ITERS`` timed forwards of ``model`` on
+    ``inputs`` (y, sens, mask), the launch counters zeroed before and read
+    after (launches per forward against ``per_forward``), the prediction
+    finite and [B, H, W, 2], and held against the same forward with K2's plain
+    twins on the card (F32). Returns (ms per forward, the launches)."""
+    import torch
+
+    from mridc_tpu_torch import kernels
+
+    b, _, h, w, _ = inputs[0].shape
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        for _ in range(WARMUP):
+            model(*inputs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            pred = model(*inputs).prediction
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    delta = {k: v for k, v in kernels.launch_counts().items() if v}
+    want = {k: v * (WARMUP + ITERS) for k, v in per_forward.items()}
+    ms = dt / ITERS * 1e3
+    emit({"run": run, **extra, "batch": b, "forwards_timed": ITERS, "seconds": dt, "slices_per_s": ITERS * b / dt,
+          "ms_per_forward": ms, "launches_per_forward": {k: v / (WARMUP + ITERS) for k, v in delta.items()},
+          "card": card})
+    if delta != want:
+        raise AssertionError(f"{run}: launches {delta} != expected {want}")
+    if not bool(torch.isfinite(pred).all()) or tuple(pred.shape) != (b, h, w, 2):
+        raise AssertionError(f"{run}: prediction not finite or of shape {tuple(pred.shape)}")
+    with torch.inference_mode(), plain_k2():
+        plain = model(*inputs).prediction
+    check(check_name, pred, plain, *F32, note="the same forward with K2's plain twins on the card")
+    return ms, delta
+
+
+def first_step_check(loss_name, grads_name, fresh, batch) -> None:
+    """The first training step's loss (F32) and parameter gradients of a
+    fresh model (``fresh()``) on ``batch`` against the same with K2's plain
+    twins on the card: relative l2 1e-3 whole and 2e-2 a parameter where the
+    gradient is well posed, else 3x the plain twins' own spread under a 1e-7
+    relative change of y."""
+    import torch
+
+    from mridc_tpu_torch.train.losses import process_reconstruction_loss
+
+    y, sens, mask, target = (batch[k] for k in ("masked_kspace", "sensitivity_maps", "mask", "target"))
+    first = {}
+    y_p = y * (1 + 1e-7 * torch.randn(y.shape, generator=torch.Generator().manual_seed(5)).to(y.device))
+    for which, ctx, yb in (("kernel", contextlib.nullcontext, y), ("plain", plain_k2, y),
+                           ("plain_perturbed", plain_k2, y_p)):
+        model = fresh()
+        with ctx():
+            out = model(yb, sens, mask, train=True)
+            loss = process_reconstruction_loss(out, target, "l1")
+            loss.backward()
+        first[which] = (loss.detach(), {k: p.grad.detach().clone() for k, p in model.named_parameters()})
+        del model, loss, out
+    check(loss_name, first["kernel"][0], first["plain"][0], *F32)
+    gc = first["plain"][1]
+
+    def rel_l2(g):
+        rel = {k: float((g[k] - gc[k]).norm() / gc[k].norm()) if float(gc[k].norm()) > 0
+               else float(g[k].norm()) for k in gc}
+        whole = float(torch.cat([(g[k] - gc[k]).flatten() for k in gc]).norm()
+                      / torch.cat([gc[k].flatten() for k in gc]).norm())
+        return rel, whole
+
+    rel, whole = rel_l2(first["kernel"][1])
+    rel_p, whole_p = rel_l2(first["plain_perturbed"][1])
+    # The gradient against the plain twins' at Z8's 1e-3 whole and V1's
+    # 2e-2 a parameter, where the gradient is well posed: a 1e-7
+    # relative change of y moves the plain twins' own whole gradient
+    # less than 1e-3. ReLU, PReLU and LeakyReLU kinks that such a change
+    # flips move single parameters (a PReLU alpha sums g x over a whole
+    # activation). Where it moves more (DUNet's ten random DIDNs: the
+    # chip reads 1.2e-2 whole and 19% for one PReLU alpha), the
+    # first-step gradient is chaotic, and the kernels are held to 3x the
+    # plain twins' own spread, whole gradient
+    posed = whole_p < 1e-3
+    worst = sorted(rel, key=lambda k: -rel[k])[:3]
+    ok = (whole <= 1e-3 and all(v <= 2e-2 for v in rel.values())) if posed else whole <= 3 * whole_p
+    emit({"check": grads_name, "entries": len(rel), "whole_rel_l2": whole,
+          "perturbed_whole_rel_l2": whole_p, "posed": posed,
+          "worst": {k: [rel[k], rel_p[k], gc[k].numel()] for k in worst}, "max_rel_l2": rel[worst[0]],
+          "limit": "1e-3 whole, 2e-2 a parameter" if posed else f"{3 * whole_p:.3g} whole (3x perturbed)",
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"{grads_name}: whole {whole} (perturbed {whole_p}), worst "
+                             f"{worst[0]} at relative l2 {rel[worst[0]]}")
+
+
+def timed_steps(run, trainer, batch, per_step, card):
+    """``TRAIN_WARMUP`` and ``TRAIN_ITERS`` timed ``trainer.training_batch``
+    steps on ``batch``, the launch counters zeroed before and read after
+    (launches per step against ``per_step``): ms, slices/s, peak memory; the
+    loss finite and the parameters moved. Returns (the record, the launches)."""
+    import torch
+
+    from mridc_tpu_torch import kernels
+
+    model, b = trainer.model, batch["masked_kspace"].shape[0]
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    for _ in range(TRAIN_WARMUP):
+        trainer.training_batch(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_ITERS):
+        metrics = trainer.training_batch(batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    delta = {k: v for k, v in kernels.launch_counts().items() if v}
+    steps = TRAIN_WARMUP + TRAIN_ITERS
+    want = {k: v * steps for k, v in per_step.items()}
+    moved = max(float((p.detach() - before[k]).abs().max()) for k, p in model.named_parameters())
+    rec = {"run": run, "batch": b, "steps_timed": TRAIN_ITERS, "seconds": dt,
+           "slices_per_s": TRAIN_ITERS * b / dt, "ms_per_step": dt / TRAIN_ITERS * 1e3,
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+           "max_param_change": moved, "launches_per_step": {k: v / steps for k, v in delta.items()},
+           "card": card}
+    emit(rec)
+    if delta != want:
+        raise AssertionError(f"{run}: launches {delta} != expected {want}")
+    if not np.isfinite(rec["loss"]) or not moved > 0:
+        raise AssertionError(f"{run}: loss {rec['loss']} not finite or parameters unchanged ({moved})")
+    return rec, delta
+
+
 def zoo2_phase(dev, card, rows) -> None:
     """Phase Z2: CascadeNet, CRNNet, XPDNet, KIKINet, LPDNet, VSNet and DUNet
     at the widths of their projects/reconstruction/conf configs
@@ -2093,12 +2293,10 @@ def zoo2_phase(dev, card, rows) -> None:
     either sign on the card and the CPU alike."""
     import torch
 
-    from mridc_tpu_torch import kernels
     from mridc_tpu_torch.kernels import binding
     from mridc_tpu_torch.kernels import k2_full_dc as k2
     from mridc_tpu_torch.models import build_model
     from mridc_tpu_torch.nn import mwcnn as tmwcnn
-    from mridc_tpu_torch.train.losses import process_reconstruction_loss
     from mridc_tpu_torch.train.trainer import Trainer
 
     t_z2 = time.perf_counter()
@@ -2136,38 +2334,16 @@ def zoo2_phase(dev, card, rows) -> None:
     serve_ms = {}
     for name in cfgs:
         model = fresh(name)
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        with torch.inference_mode():
-            for _ in range(WARMUP):
-                model(y, sens, mask)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(ITERS):
-                pred = model(y, sens, mask).prediction
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-        delta = {k: v for k, v in kernels.launch_counts().items() if v}
-        want = {k: v * (WARMUP + ITERS) for k, v in ZOO2_PER_FORWARD[name].items()}
-        serve_ms[name] = dt / ITERS * 1e3
-        emit({"run": f"zoo2_{name}", "config": f"projects/reconstruction/conf/base_{name}_train.yaml",
-              "batch": BATCH, "forwards_timed": ITERS, "seconds": dt, "slices_per_s": ITERS * BATCH / dt,
-              "ms_per_forward": serve_ms[name],
-              "launches_per_forward": {k: v / (WARMUP + ITERS) for k, v in delta.items()}, "card": card})
-        if delta != want:
-            raise AssertionError(f"zoo2_{name}: launches {delta} != expected {want}")
-        if not bool(torch.isfinite(pred).all()) or tuple(pred.shape) != (BATCH, H, W, 2):
-            raise AssertionError(f"zoo2_{name}: prediction not finite or of shape {tuple(pred.shape)}")
+        serve_ms[name], delta = serve_and_check(f"zoo2_{name}", f"zoo2[{name}]", model, (y, sens, mask),
+                                                ZOO2_PER_FORWARD[name], card,
+                                                config=f"projects/reconstruction/conf/base_{name}_train.yaml")
         for k, v in delta.items():
             z2_counts[k] += v
-        with torch.inference_mode(), plain_k2():
-            plain = model(y, sens, mask).prediction
-        check(f"zoo2[{name}]", pred, plain, *F32, note="the same forward with K2's plain twins on the card")
         if name == "kikinet":
             with torch.inference_mode():
                 emit({"trace": "zoo2_kikinet", "batch": BATCH,
                       **trace_call(lambda: model(y, sens, mask), serve_ms[name]), "card": card})
-        del model, pred, plain
+        del model
         torch.cuda.empty_cache()
     heaviest = max(serve_ms, key=serve_ms.get)
     if heaviest != "kikinet":  # KIKINet's forward is traced above
@@ -2192,85 +2368,16 @@ def zoo2_phase(dev, card, rows) -> None:
         for b in ((ZOO2_TRAIN_BATCH, BATCH) if name == ZOO2_BIG_TRAIN else (ZOO2_TRAIN_BATCH,)):
             run = f"train_{name}" + (f"_b{b}" if name == ZOO2_BIG_TRAIN else "")
             batch = {"masked_kspace": y[:b], "sensitivity_maps": sens[:b], "mask": mask[:b], "target": target8[:b]}
-            first = {}
-            y_p = y[:b] * (1 + 1e-7 * torch.randn(y[:b].shape, generator=torch.Generator().manual_seed(5)).to(dev))
-            for which, ctx, yb in (("kernel", contextlib.nullcontext, y[:b]), ("plain", plain_k2, y[:b]),
-                                   ("plain_perturbed", plain_k2, y_p)):
-                model = fresh(name)
-                with ctx():
-                    out = model(yb, sens[:b], mask[:b], train=True)
-                    loss = process_reconstruction_loss(out, target8[:b], "l1")
-                    loss.backward()
-                first[which] = (loss.detach(), {k: p.grad.detach().clone() for k, p in model.named_parameters()})
-                del model, loss, out
-            check(f"zoo2_train_loss[{run}]", first["kernel"][0], first["plain"][0], *F32)
-            gc = first["plain"][1]
-
-            def rel_l2(g):
-                rel = {k: float((g[k] - gc[k]).norm() / gc[k].norm()) if float(gc[k].norm()) > 0
-                       else float(g[k].norm()) for k in gc}
-                whole = float(torch.cat([(g[k] - gc[k]).flatten() for k in gc]).norm()
-                              / torch.cat([gc[k].flatten() for k in gc]).norm())
-                return rel, whole
-
-            rel, whole = rel_l2(first["kernel"][1])
-            rel_p, whole_p = rel_l2(first["plain_perturbed"][1])
-            # The gradient against the plain twins' at Z8's 1e-3 whole and V1's
-            # 2e-2 a parameter, where the gradient is well posed: a 1e-7
-            # relative change of y moves the plain twins' own whole gradient
-            # less than 1e-3. ReLU, PReLU and LeakyReLU kinks that such a change
-            # flips move single parameters (a PReLU alpha sums g x over a whole
-            # activation). Where it moves more (DUNet's ten random DIDNs: the
-            # chip reads 1.2e-2 whole and 19% for one PReLU alpha), the
-            # first-step gradient is chaotic, and the kernels are held to 3x the
-            # plain twins' own spread, whole gradient
-            posed = whole_p < 1e-3
-            worst = sorted(rel, key=lambda k: -rel[k])[:3]
-            ok = (whole <= 1e-3 and all(v <= 2e-2 for v in rel.values())) if posed else whole <= 3 * whole_p
-            emit({"check": f"zoo2_train_grads[{run}]", "entries": len(rel), "whole_rel_l2": whole,
-                  "perturbed_whole_rel_l2": whole_p, "posed": posed,
-                  "worst": {k: [rel[k], rel_p[k], gc[k].numel()] for k in worst}, "max_rel_l2": rel[worst[0]],
-                  "limit": "1e-3 whole, 2e-2 a parameter" if posed else f"{3 * whole_p:.3g} whole (3x perturbed)",
-                  "ok": ok})
-            if not ok:
-                raise AssertionError(f"zoo2_train_grads[{run}]: whole {whole} (perturbed {whole_p}), worst "
-                                     f"{worst[0]} at relative l2 {rel[worst[0]]}")
-            del first, gc
+            first_step_check(f"zoo2_train_loss[{run}]", f"zoo2_train_grads[{run}]", lambda: fresh(name), batch)
             model = fresh(name)
             trainer = Trainer(model, optim_cfg=TRAIN_OPTIM, trainer_cfg=TRAIN_CFG, device=dev)
-            before = {k: v.detach().clone() for k, v in model.named_parameters()}
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            kernels.reset_launch_counts()
-            for _ in range(TRAIN_WARMUP):
-                trainer.training_batch(batch)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(TRAIN_ITERS):
-                metrics = trainer.training_batch(batch)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            delta = {k: v for k, v in kernels.launch_counts().items() if v}
-            steps = TRAIN_WARMUP + TRAIN_ITERS
-            want = {k: v * steps for k, v in ZOO2_PER_STEP[f"train_{name}"].items()}
-            moved = max(float((p.detach() - before[k]).abs().max()) for k, p in model.named_parameters())
-            rec = {"run": f"zoo2_{run}", "batch": b, "steps_timed": TRAIN_ITERS, "seconds": dt,
-                   "slices_per_s": TRAIN_ITERS * b / dt, "ms_per_step": dt / TRAIN_ITERS * 1e3,
-                   "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-                   "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
-                   "max_param_change": moved, "launches_per_step": {k: v / steps for k, v in delta.items()},
-                   "card": card}
-            emit(rec)
-            if delta != want:
-                raise AssertionError(f"zoo2_{run}: launches {delta} != expected {want}")
-            if not np.isfinite(rec["loss"]) or not moved > 0:
-                raise AssertionError(f"zoo2_{run}: loss {rec['loss']} not finite or parameters unchanged ({moved})")
+            rec, delta = timed_steps(f"zoo2_{run}", trainer, batch, ZOO2_PER_STEP[f"train_{name}"], card)
             for k, v in delta.items():
                 z2_train_counts[k] += v
             if name == heaviest and b == ZOO2_TRAIN_BATCH:
                 emit({"trace": f"zoo2_{run}", **trace_call(lambda: trainer.training_batch(batch),
                                                               rec["ms_per_step"]), "card": card})
-            del trainer, model, batch, before
+            del trainer, model, batch
             torch.cuda.empty_cache()
 
     # BatchNorm with live statistics: two SGD steps on the card against the CPU
@@ -2371,6 +2478,96 @@ def zoo2_phase(dev, card, rows) -> None:
     if missing:
         raise AssertionError(f"kernels not launched on Z2's paths: {missing}")
     emit({"phase": "Z2", "seconds": time.perf_counter() - t_z2})
+
+def zoo3_phase(dev, card, rows) -> None:
+    """Phase Z3: RecurrentVarNet, MultiDomainNet, CS (both ``cs_type``s, and
+    as the unselfsupervised YAML sets it) and PICS at the widths of their
+    configs (``ZOO3_CFGS``), on ``bench_data`` at 15 coils, 320x320, with
+    random weights from ``ZOO_SEED``. Serving at B=8 (:func:`serve_and_check`:
+    ms, slices/s, launches per forward against ``ZOO3_PER_FORWARD``, the
+    prediction against K2's plain twins on the card at F32), a traced forward
+    of RVN, MultiDomainNet and CS by layer and ATen op. Training at the
+    configs' batch 1 through ``Trainer`` (the YAMLs' Adam under
+    InverseSquareRootAnnealing): RVN and MultiDomainNet's first step against
+    the plain twins (:func:`first_step_check`), then 2 warm-up and 3 timed
+    steps (:func:`timed_steps`, ``ZOO3_PER_STEP``), RVN's step traced; CS one
+    step that computes its loss and updates nothing."""
+    import torch
+
+    from mridc_tpu_torch import kernels
+    from mridc_tpu_torch.kernels import binding
+    from mridc_tpu_torch.models import build_model
+    from mridc_tpu_torch.train.trainer import Trainer
+
+    t_z3 = time.perf_counter()
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    y, sens, mask = (t(a) for a in bench_data(BATCH, COILS, H, W))
+    cfgs = {name: {**ZOO_COMMON, **cfg} for name, cfg in ZOO3_CFGS.items()}
+
+    def fresh(name):
+        return build_model(cfgs[name], device=dev, generator=torch.Generator().manual_seed(ZOO_SEED))
+
+    z3_counts = {k: 0 for k in binding.LAUNCHES}
+    for name in cfgs:
+        model = fresh(name)
+        ms, delta = serve_and_check(f"zoo3_{name}", f"zoo3[{name}]", model, (y, sens, mask),
+                                    ZOO3_PER_FORWARD[name], card, config=ZOO3_SOURCES[name])
+        for k, v in delta.items():
+            z3_counts[k] += v
+        if name in ZOO3_TRACED:
+            with torch.inference_mode():
+                emit({"trace": f"zoo3_{name}", "batch": BATCH, **trace_call(lambda: model(y, sens, mask), ms),
+                      "card": card})
+        del model
+        torch.cuda.empty_cache()
+
+    b = ZOO3_TRAIN_BATCH
+    batch = {"masked_kspace": y[:b], "sensitivity_maps": sens[:b], "mask": mask[:b],
+             "target": t(train_target(b, H, W))}
+    z3_train_counts = {k: 0 for k in binding.LAUNCHES}
+    for name in ("rvn", "multidomainnet"):
+        run = f"train_{name}"
+        first_step_check(f"zoo3_train_loss[{run}]", f"zoo3_train_grads[{run}]", lambda: fresh(name), batch)
+        trainer = Trainer(fresh(name), optim_cfg=TRAIN_OPTIM, trainer_cfg=TRAIN_CFG, device=dev)
+        rec, delta = timed_steps(f"zoo3_{run}", trainer, batch, ZOO3_PER_STEP[run], card)
+        for k, v in delta.items():
+            z3_train_counts[k] += v
+        if name == "rvn":
+            emit({"trace": f"zoo3_{run}", **trace_call(lambda: trainer.training_batch(batch), rec["ms_per_step"]),
+                  "card": card})
+        del trainer
+        torch.cuda.empty_cache()
+
+    # CS trains nothing: one step computes the forward and the loss
+    trainer = Trainer(fresh("cs"), optim_cfg=TRAIN_OPTIM, trainer_cfg=TRAIN_CFG, device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = trainer.training_batch(batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    delta = {k: v for k, v in kernels.launch_counts().items() if v}
+    rec = {"run": "zoo3_train_cs", "batch": b, "ms_per_step": dt * 1e3, "loss": float(metrics["loss"]),
+           "grad_norm": float(metrics["grad_norm"]), "parameters": len(list(trainer.model.parameters())),
+           "optimizer": trainer.state.optimizer is not None, "launches_per_step": delta, "card": card}
+    emit(rec)
+    if delta != ZOO3_PER_STEP["train_cs"]:
+        raise AssertionError(f"zoo3_train_cs: launches {delta} != expected {ZOO3_PER_STEP['train_cs']}")
+    if not np.isfinite(rec["loss"]) or rec["parameters"] or rec["optimizer"] or rec["grad_norm"] != 0:
+        raise AssertionError(f"zoo3_train_cs: a step of a model without parameters: {rec}")
+    for k, v in delta.items():
+        z3_train_counts[k] += v
+    del trainer
+
+    for r in rows:
+        r["zoo3_launches"] = z3_counts.get(r["name"], 0)
+        r["zoo3_train_launches"] = z3_train_counts.get(r["name"], 0)
+    missing = [k for k in set().union(*ZOO3_PER_FORWARD.values()) if z3_counts[k] == 0]
+    missing += [k for k in set().union(*ZOO3_PER_STEP.values()) if z3_train_counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on Z3's paths: {missing}")
+    emit({"phase": "Z3", "seconds": time.perf_counter() - t_z3})
+
 
 def empty_noise_mask_step(run_cfg, batches, dev, card, step) -> None:
     """Phase S, after the n2r_unet run: one consistency step, from a fresh
@@ -3385,6 +3582,10 @@ def run(t_start, masks, s_masks) -> int:
     # Z2. CascadeNet, CRNNet, XPDNet, KIKINet, LPDNet, VSNet and DUNet serving
     # and training, and live BatchNorm card-vs-CPU
     zoo2_phase(dev, card, rows)
+
+    # Z3. RecurrentVarNet, MultiDomainNet, CS and PICS serving, and training
+    # where they learn
+    zoo3_phase(dev, card, rows)
 
     # S. the self-supervised branches from their config files
     selfsup_phase(dev, card, rows, masks)

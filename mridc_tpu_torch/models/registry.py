@@ -1,6 +1,7 @@
 """Model registry (counterpart of ``mridc_tpu/models/registry.py``):
 name -> constructor, plus the names of the JAX registry that are not ported yet,
-each with the ROADMAP item that ports it.
+each with the ROADMAP item that ports it (JointICNet: M8's second half, which
+brings the learned sensitivity maps it trains).
 """
 
 from __future__ import annotations
@@ -9,8 +10,9 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from mridc_tpu_torch.models.recon import (CIRIM, ZF, CascadeNet, CRNNet, DUNet, KIKINet, LPDNet, ProximalGradient,
-                                          ResNet, UNet, VarNet, VSNet, XPDNet)
+from mridc_tpu_torch.models.recon import (CIRIM, CS, PICS, ZF, CascadeNet, CRNNet, DUNet, KIKINet, LPDNet,
+                                          MultiDomainNet, ProximalGradient, RecurrentVarNet, ResNet, UNet, VarNet,
+                                          VSNet, XPDNet)
 from mridc_tpu_torch.utils.typecheck import resolve_device
 
 __all__ = ["MODEL_REGISTRY", "PENDING_MODELS", "build_model", "available_models"]
@@ -26,14 +28,15 @@ MODEL_REGISTRY: Dict[str, Callable] = {
     "XPDNET": XPDNet.from_config, "KIKINET": KIKINet.from_config,
     "LPDNET": LPDNet.from_config, "LPD": LPDNet.from_config,
     "VSNET": VSNet.from_config, "DUNET": DUNet.from_config,
+    "RVN": RecurrentVarNet.from_config, "RECURRENTVARNET": RecurrentVarNet.from_config,
+    "MULTIDOMAINNET": MultiDomainNet.from_config, "MULTIDOMAIN": MultiDomainNet.from_config,
+    "CS": CS.from_config, "PICS": PICS.from_config,
 }
 
-_M9, _M10, _M11, _M12 = "M9 (reconstruction zoo)", "M10 (quantitative)", "M11 (segmentation)", "M12 (multitask)"
+_M8 = "M8 (learned sensitivity maps, second half)"
+_M10, _M11, _M12 = "M10 (quantitative)", "M11 (segmentation)", "M12 (multitask)"
 PENDING_MODELS: Dict[str, str] = {
-    **dict.fromkeys(
-        ("CS", "PICS", "JOINTICNET", "RVN", "RECURRENTVARNET", "MULTIDOMAINNET", "MULTIDOMAIN"),
-        _M9,
-    ),
+    "JOINTICNET": _M8,
     **dict.fromkeys(("QCIRIM", "QRIM", "QVN", "QVARNET"), _M10),
     **dict.fromkeys(
         (

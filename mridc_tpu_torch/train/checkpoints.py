@@ -50,15 +50,19 @@ _STATE_NAME = "checkpoint.pt"
 
 def save_archive(path, cfg: Dict, state_dict: Dict[str, torch.Tensor]) -> Path:
     """Write a ``.mridc`` archive of the model config ``cfg`` and the model's
-    ``state_dict`` (tensors saved from the CPU): reference torch format, or,
-    where the state holds live BatchNorm statistics (``running_mean``), the
-    JAX package's flax msgpack of ``{"params", "batch_stats"}``."""
+    ``state_dict`` (tensors saved from the CPU): reference torch format, or
+    the JAX package's flax msgpack where ``mridc_tpu`` reads no torch weights
+    of the model: ``{"params", "batch_stats"}`` where the state holds live
+    BatchNorm statistics (``running_mean``), the bare param tree for
+    RecurrentVarNet and MultiDomainNet."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    if any(k.endswith("running_mean") for k in state_dict):
+    flax_params = str(cfg.get("model_name", "")).upper() in _FLAX_ARCHIVED
+    if flax_params or any(k.endswith("running_mean") for k in state_dict):
         from mridc_tpu_torch.utils.params import zoo2_params_to_jax
 
-        weights = (FLAX_WEIGHTS_NAME, encode_flax_msgpack(zoo2_params_to_jax(state_dict, cfg)))
+        tree = zoo2_params_to_jax(state_dict, cfg)
+        weights = (FLAX_WEIGHTS_NAME, encode_flax_msgpack(tree if "batch_stats" in tree else tree["params"]))
     else:
         buf = io.BytesIO()
         torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, buf)
@@ -134,7 +138,8 @@ def encode_flax_msgpack(tree: Any) -> bytes:
     return msgpack.packb(tree, default=ext, strict_types=True)
 
 
-_ZOO2 = {"CASCADENET", "CCNN", "CRNNET", "CRNN", "XPDNET", "KIKINET", "LPDNET", "LPD", "VSNET", "DUNET"}
+_FLAX_ARCHIVED = {"RVN", "RECURRENTVARNET", "MULTIDOMAINNET", "MULTIDOMAIN"}
+_ZOO2 = {"CASCADENET", "CCNN", "CRNNET", "CRNN", "XPDNET", "KIKINET", "LPDNET", "LPD", "VSNET", "DUNET", *_FLAX_ARCHIVED}
 
 
 def _state_from_flax(cfg: Dict, tree: Any) -> Dict[str, torch.Tensor]:
@@ -155,7 +160,7 @@ def _state_from_flax(cfg: Dict, tree: Any) -> Dict[str, torch.Tensor]:
         return unet_params_from_jax(tree)
     if name in ("RESNET", "PROXIMALGRADIENT", "PG"):
         return resnet_params_from_jax(tree)
-    if name == "ZF":
+    if name in ("ZF", "CS", "PICS"):
         return {}
     if name in PENDING_MODELS and name not in MODEL_REGISTRY:
         raise NotImplementedError(f"model {name!r} is not ported to mridc_tpu_torch yet: ROADMAP "

@@ -29,7 +29,14 @@ leaf pairs read off a port model built from the config, which
 :func:`zoo2_params_to_jax` reads the other way: the auto-named regulariser
 scopes (``Conv2dCascade_{i}``, ``MWCNN_{i}`` with its ``_Wrap_{i}`` head,
 ``DIDN_{i}``, ``NormUnet_{i}``), frozen BatchNorm entries as parameters and
-``batch_stats`` as buffers.
+``batch_stats`` as buffers. RecurrentVarNet and MultiDomainNet
+(:func:`rvn_params_from_jax`, :func:`multidomainnet_params_from_jax`) take
+the same table: flax creates ``RecurrentInit_0``'s dilated convs and then its
+1x1 convs, and in each ``_RVNBlock_{i}/Conv2dGRU_0`` per layer the cell conv
+and the update, reset and candidate gates (``Conv_{4l}`` to ``Conv_{4l+3}``),
+the output conv last; ``MultiDomainUnet2d_0`` numbers its blocks down,
+bottleneck, up, its transpose convs from the bottom up, and a multi-domain
+conv's image conv before its k-space conv.
 
 The flax scope names depend on ``remat_mode``: a rematerialised scan is named
 ``ScanCheckpoint_*``, a plain one ``Scan_*`` — ``step+cascade`` gives
@@ -50,8 +57,8 @@ import torch
 __all__ = ["cirim_params_from_jax", "rim_block_params_from_jax", "normunet_params_from_jax", "varnet_params_from_jax",
            "unet_params_from_jax", "resnet_params_from_jax", "zoo2_params_from_jax", "zoo2_params_to_jax",
            "cascadenet_params_from_jax", "crnn_params_from_jax", "xpdnet_params_from_jax", "kikinet_params_from_jax",
-           "lpdnet_params_from_jax", "vsnet_params_from_jax", "dunet_params_from_jax", "hwio_to_oihw",
-           "hwio_to_iohw_flipped"]
+           "lpdnet_params_from_jax", "vsnet_params_from_jax", "dunet_params_from_jax", "rvn_params_from_jax",
+           "multidomainnet_params_from_jax", "hwio_to_oihw", "hwio_to_iohw_flipped"]
 
 _CELL_SCOPE = re.compile(r"^(IndRNNCell|ConvGRUCell|ConvMGUCell)_(\d+)$")
 
@@ -391,10 +398,68 @@ def _regulariser_pairs(mod, scopes: _Scopes, p: str):
     raise TypeError(f"no flax mapping for regulariser {type(mod).__name__}")
 
 
+def _recurrent_init_pairs(mod, f: str, p: str):
+    """``RecurrentInit``: its dilated convs, then its 1x1 convs."""
+    n = len(mod.conv_blocks)
+    out = []
+    for i in range(n):
+        out += _conv_pairs(f"{f}Conv_{i}/", f"{p}conv_blocks.{i}.")
+    for j in range(len(mod.out_blocks)):
+        out += _conv_pairs(f"{f}Conv_{n + j}/", f"{p}out_blocks.{j}.")
+    return out
+
+
+def _gru_pairs(mod, f: str, p: str):
+    """``Conv2dGRU``: per layer the cell conv and the update, reset and
+    candidate gates, then the output conv."""
+    out = []
+    for layer in range(mod.num_layers):
+        for k, name in enumerate(("conv_blocks", "update_gates", "reset_gates", "out_gates")):
+            out += _conv_pairs(f"{f}Conv_{4 * layer + k}/", f"{p}{name}.{layer}.")
+    return out + _conv_pairs(f"{f}Conv_{4 * mod.num_layers}/", f"{p}conv_out.")
+
+
+def _rvn_pairs(model):
+    """``RecurrentInit_0`` and each ``_RVNBlock_{i}`` (one when shared)."""
+    out = [] if model.initializer is None else _recurrent_init_pairs(model.initializer, "RecurrentInit_0/",
+                                                                      "initializer.")
+    for i, block in enumerate(model.block_list):
+        out.append(_leaf(f"_RVNBlock_{i}/learning_rate", f"block_list.{i}.learning_rate"))
+        out += _gru_pairs(block.regularizer, f"_RVNBlock_{i}/Conv2dGRU_0/", f"block_list.{i}.regularizer.")
+    return out
+
+
+def _mdconv_pairs(mod, f: str, p: str):
+    """``MultiDomainConv``: the image branch's kernel, then the k-space
+    branch's (``Conv_{j}``, or ``ConvTranspose_{j}`` in the up path)."""
+    from mridc_tpu_torch.nn.layers import ConvTranspose
+
+    if isinstance(mod.image_conv, ConvTranspose):
+        return [_leaf(f"{f}ConvTranspose_{j}/kernel", f"{p}{name}.weight", kind="convT")
+                for j, name in enumerate(("image_conv", "kspace_conv"))]
+    return [_leaf(f"{f}Conv_{j}/kernel", f"{p}{name}.weight", kind="conv")
+            for j, name in enumerate(("image_conv", "kspace_conv"))]
+
+
+def _multidomain_unet_pairs(mod, f: str, p: str):
+    """``MultiDomainUnet2d``: ``MultiDomainConvBlock_{k}`` down, bottleneck,
+    up; ``MultiDomainConv_{i}`` the up path's transpose convs; ``Conv_0``."""
+    blocks = [(b, f"down_sample_layers.{i}") for i, b in enumerate(mod.down_sample_layers)] + [(mod.conv, "conv")]
+    blocks += [(b, f"up_conv.{i}") for i, b in enumerate(mod.up_conv)]
+    out = []
+    for k, (block, name) in enumerate(blocks):
+        for j, conv in enumerate(block.convs):
+            out += _mdconv_pairs(conv, f"{f}MultiDomainConvBlock_{k}/MultiDomainConv_{j}/", f"{p}{name}.convs.{j}.")
+    for i, conv in enumerate(mod.up_transpose_conv):
+        out += _mdconv_pairs(conv, f"{f}MultiDomainConv_{i}/", f"{p}up_transpose_conv.{i}.")
+    return out + _conv_pairs(f"{f}Conv_0/", f"{p}final_conv.")
+
+
 def _model_pairs(model):
-    """The pairs of a whole CascadeNet, CRNNet, XPDNet, KIKINet, LPDNet, VSNet
-    or DUNet, read off the port model."""
-    from mridc_tpu_torch.models.recon import CascadeNet, CRNNet, DUNet, KIKINet, LPDNet, VSNet, XPDNet
+    """The pairs of a whole CascadeNet, CRNNet, XPDNet, KIKINet, LPDNet, VSNet,
+    DUNet, RecurrentVarNet or MultiDomainNet, read off the port model."""
+    from mridc_tpu_torch.models.recon import (CascadeNet, CRNNet, DUNet, KIKINet, LPDNet, MultiDomainNet,
+                                              RecurrentVarNet, VSNet, XPDNet)
 
     scopes, out = _Scopes(), []
     if isinstance(model, CascadeNet):
@@ -426,6 +491,10 @@ def _model_pairs(model):
             out += _regulariser_pairs(reg, scopes, f"regs.{i}.")
         for name, plist in (("lambda", model.lambdas), ("alpha", model.alphas), ("beta", model.betas)):
             out += [_leaf(f"{name}_{i}", f"{name}s.{i}") for i in range(len(plist or []))]
+    elif isinstance(model, RecurrentVarNet):
+        out += _rvn_pairs(model)
+    elif isinstance(model, MultiDomainNet):
+        out += _multidomain_unet_pairs(model.unet, "MultiDomainUnet2d_0/", "unet.")
     else:
         raise TypeError(f"no flax mapping for model {type(model).__name__}")
     return out
@@ -472,7 +541,8 @@ def _unstack_xpd_scan(params: Mapping, num_iter: int) -> Dict:
 
 def zoo2_params_from_jax(tree: Mapping, cfg: Mapping) -> Dict[str, torch.Tensor]:
     """Port ``state_dict`` of a CascadeNet, CRNNet, XPDNet, KIKINet, LPDNet,
-    VSNet or DUNet (``cfg``'s ``model_name``) from a flax variables tree:
+    VSNet, DUNet, RecurrentVarNet or MultiDomainNet (``cfg``'s
+    ``model_name``) from a flax variables tree:
     ``{"params": ..., "batch_stats": ...}`` or the bare params, with numpy
     leaves. Frozen BatchNorm entries (``mean``/``var`` in params) become
     parameters, live ones (``batch_stats``) the buffers ``running_mean`` and
@@ -529,3 +599,5 @@ kikinet_params_from_jax = _named("KIKINet")
 lpdnet_params_from_jax = _named("LPDNet")
 vsnet_params_from_jax = _named("VSNet")
 dunet_params_from_jax = _named("DUNet")
+rvn_params_from_jax = _named("RVN")
+multidomainnet_params_from_jax = _named("MultiDomainNet")
