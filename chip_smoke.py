@@ -153,11 +153,26 @@ Phases (any failure raises; no phase catches its own):
      base_n2r_train.yaml (UNet) as written, at batch 1 on phantom volumes:
      ms per step, slices/s, peak memory, launches per step against
      ``S_PER_STEP``, the run dir, the host pipeline alone and a traced step
-     (``selfsup_phase``).
+     (``selfsup_phase``);
+  Q. qCIRIM and qVN as projects/quantitative/conf's base_{qcirim,qvn}_train.yaml
+     set them (``Q_CFGS``) on phantom echoes (15 coils, 320x320, the YAMLs'
+     4 TEs): serving (``Q_SERVE``: qCIRIM f32 and bf16 and qVN at B=8,
+     qCIRIM with the reconstruction module at B=2; ms, slices/s, launches
+     per forward against ``Q_PER_FORWARD``, the prediction against K2's and
+     K3's plain twins on the card); training through ``QuantitativeTrainer``
+     (``Q_TRAIN``: qCIRIM at B=1 and B=4, qVN at B=1, qCIRIM with the module
+     at B=1; first-step loss and gradients against the plain twins, ms,
+     slices/s, peak memory, launches per step against ``Q_PER_STEP``);
+     traces of the qCIRIM and qVN forwards and of a qCIRIM step split into
+     convs, K3, K2 with cuFFT, the MEGRE passes and the rest (``q_phase``);
+     then ``cli.main(["run", "-c", ...])`` of base_qcirim_train.yaml, of
+     base_qcirim_run.yaml (``mode: test``) on the archive it wrote, and of
+     base_qvn_train.yaml, at batch 1 on phantom volumes with premade masks
+     (``q_launch_phase``).
 
 The poisson2d masks of D1 and D2 (pure-Python dart throwing: minutes a mask
 at 320x320) are drawn at the start, in worker processes that run beside
-phases 2-V4, and S's beside Z and Z8, each by the transform's own masker
+phases 2-V4, and S's and Q's beside Z and Z8, each by the transform's own masker
 with the seed its ``use_seed`` gives each volume, and the source hands them
 to the transform as an h5
 volume's ``mask`` dataset would: the masked k-space and masks are the ones
@@ -180,6 +195,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
@@ -567,6 +583,133 @@ S_PER_STEP = {
 }
 
 
+# Q: projects/quantitative/conf's qCIRIM and qVN as base_{qcirim,qvn}_train.yaml
+# configure them (the model keys; tests/test_torch_port_qcirim.py holds them
+# against the YAMLs), on phantom echoes at 15 coils, 320x320 and the YAMLs'
+# TEs. Serving runs: (config, overrides, batch)
+Q_TES = [3.0, 11.5, 20.0, 28.5]
+Q_GAMMA = [150.0, 150.0, 600.0, 150.0]
+Q_CFGS = {
+    "qcirim": {"model_name": "qCIRIM", "quantitative_module_num_cascades": 5, "quantitative_module_time_steps": 8,
+               "quantitative_module_recurrent_layer": "IndRNN", "quantitative_module_conv_filters": [64, 64, 4],
+               "quantitative_module_recurrent_filters": [64, 64, 0],
+               "quantitative_module_gamma_regularization_factors": Q_GAMMA,
+               "quantitative_module_signal_forward_model_sequence": "MEGRE", "TEs": Q_TES},
+    "qvn": {"model_name": "qVN", "quantitative_module_num_cascades": 8, "quantitative_module_channels": 18,
+            "quantitative_module_pooling_layers": 4, "quantitative_module_gamma_regularization_factors": Q_GAMMA,
+            "TEs": Q_TES},
+}
+# qVN with untrained regularisers diverges at the YAML's gammas (150, 150,
+# 600, 150) on any input, in both packages: a NormUnet adds its input's group
+# mean back to its output, so each cascade feeds the DC residual into the
+# maps, times gamma, and the complex MEGRE terms overflow within 4-5
+# cascades. Phase Q runs qVN at unit gammas, as the JAX package's own
+# quantitative launch and trainer tests do (tests/test_launch_tasks.py:87,
+# tests/test_task_trainers.py:122): gamma is a per-map scalar, so the shapes,
+# the work and the launches are the YAML's
+Q_QVN_GAMMA = {"quantitative_module_gamma_regularization_factors": [1.0, 1.0, 1.0, 1.0]}
+Q_SERVE = {
+    "qcirim_f32": ("qcirim", {}, 8),
+    "qcirim_bf16": ("qcirim", {"compute_dtype": "bfloat16"}, 8),
+    "qvn": ("qvn", Q_QVN_GAMMA, 8),
+    "qcirim_recon": ("qcirim", {"use_reconstruction_module": True}, 2),
+}
+# launches per forward (uncentered FFTs, E = 4 echoes folded into the batch:
+# one row per echo). qCIRIM (5 cascades x 8 steps, 2 cells): x0 = S^H F^-1 M y
+# once (load, inverse FFT, reduce), then per cascade the MEGRE data term, the
+# normal operator (expand, FFT, mask, inverse FFT, reduce), and K3 twice a
+# step. qVN (8 cascades): per cascade the masked expansion (expand, FFT,
+# mask); M y and the echo sum's inverse FFTs are plain. qCIRIM with the
+# reconstruction module (5 cascades x 8 steps a echo, 4 echoes): per echo the
+# SENSE init (inverse FFT, reduce) and per step the full DC (expand, FFT,
+# residual, inverse FFT, reduce) and K3 twice; then y = F(S pred) (expand,
+# FFT) and the qRIM part's
+Q_PER_FORWARD = {
+    "qcirim_f32": {"k2_load": 1, "k2_reduce": 6, "k2_expand": 5, "k2_mask": 5, "k3_indrnn_f32": 80},
+    "qcirim_bf16": {"k2_load": 1, "k2_reduce": 6, "k2_expand": 5, "k2_mask": 5, "k3_indrnn_bf16": 80},
+    "qvn": {"k2_expand": 8, "k2_mask": 8},
+    "qcirim_recon": {"k2_load": 1, "k2_reduce": 170, "k2_expand": 166, "k2_residual": 160, "k2_mask": 5,
+                     "k3_indrnn_f32": 400},
+}
+# launches per training step (remat_mode "step": each step's conv/RNN stack
+# again in the backward, so K3's forward twice a cell): the forward's, and the
+# adjoint of every call whose input takes a gradient. qCIRIM: the normal
+# operator of cascades 1-4 (cascade 0's maps are maps_init's, which take
+# none); x0 reads y, which takes none. qVN: the masked expansion's adjoint
+# (load with the mask, inverse FFT, reduce) in cascades 1-7. With the
+# reconstruction module (B=1): per echo K3 forward 3 x 80 (the recon
+# RIMBlocks' step remat too) and backward 80, full_dc's backward (expand,
+# FFT, mask, inverse FFT, reduce_acc) at steps 1-7 of each cascade (a
+# cascade's first estimate is the SENSE init or the previous one's, detached);
+# y = F(S pred)'s adjoint (a reduce), x0's (expand, FFT, mask), and all 5
+# cascades' normal operators (the maps are fitted from pred)
+Q_PER_STEP = {
+    "train_qcirim": {"k2_load": 1, "k2_reduce": 10, "k2_expand": 9, "k2_mask": 9, "k3_indrnn_f32": 160,
+                     "k3_indrnn_bwd_f32": 80},
+    "train_qvn": {"k2_expand": 8, "k2_mask": 8, "k2_load": 7, "k2_reduce": 7},
+    "train_qcirim_recon": {"k2_load": 1, "k2_reduce": 176, "k2_expand": 312, "k2_residual": 160, "k2_mask": 151,
+                           "k2_reduce_acc": 140, "k3_indrnn_f32": 800, "k3_indrnn_bwd_f32": 400},
+}
+# training runs: (config, overrides, batch); B=4 is the batch of the JAX
+# package's own qCIRIM step measurement
+Q_TRAIN = {
+    "train_qcirim_b1": ("qcirim", {}, 1, "train_qcirim"),
+    "train_qcirim_b4": ("qcirim", {}, 4, "train_qcirim"),
+    "train_qvn_b1": ("qvn", Q_QVN_GAMMA, 1, "train_qvn"),
+    "train_qcirim_recon_b1": ("qcirim", {"use_reconstruction_module": True}, 1, "train_qcirim_recon"),
+}
+Q_TRACED = ("qcirim_f32", "qvn")  # a forward of each traced, and qCIRIM's B=1 step
+
+
+def _q_ds(shuffle, use_seed=True):
+    """A data block of projects/quantitative/conf's YAMLs as written."""
+    return {
+        "data_path": "???", "sense_path": None, "mask_path": None, "challenge": "multicoil", "batch_size": 1,
+        "sample_rate": 1, "volume_sample_rate": None, "consecutive_slices": 1, "data_saved_per_slice": False,
+        "complex_data": True, "apply_prewhitening": False, "apply_gcc": False, "coil_combination_method": "SENSE",
+        "dimensionality": 2,
+        "mask_args": {"type": "poisson2d", "accelerations": [10], "center_fractions": [0.7], "scale": 0.02,
+                      "shift_mask": True, "use_seed": use_seed},
+        "half_scan_percentage": 0.0, "remask": False, "crop_size": None, "kspace_crop": False,
+        "crop_before_masking": True, "kspace_zero_filling_size": None, "normalize_inputs": True, "max_norm": True,
+        "fft_centered": False, "fft_normalization": "backward", "spatial_dims": [-2, -1], "coil_dim": 1,
+        "use_seed": use_seed, "shuffle": shuffle, "drop_last": False,
+    }
+
+
+def _q_cfg(name, model, mode):
+    """base_{qcirim,qvn}_{train,run}.yaml as written (``mode``: train or test)."""
+    common = {"coil_combination_method": "SENSE", "use_sens_net": False, "sens_chans": 8, "sens_pools": 4,
+              "sens_mask_type": "2D", "fft_centered": False, "fft_normalization": "backward",
+              "spatial_dims": [-2, -1], "coil_dim": 1, "complex_data": True, "log_images": True,
+              "train_loss_fn": "l1", "val_loss_fn": "l1"}
+    if mode == "train":
+        blocks = {"optim": {"name": "adam", "lr": 0.001, "betas": [0.9, 0.98], "weight_decay": 0.0,
+                            "sched": {"name": "InverseSquareRootAnnealing", "min_lr": 0.0, "warmup_ratio": 0.1}},
+                  "train_ds": _q_ds(True), "validation_ds": _q_ds(False), "test_ds": _q_ds(False)}
+    else:
+        blocks = {"test_ds": _q_ds(False, use_seed=False)}
+    return {
+        "pretrained": mode != "train", "checkpoint": None if mode == "train" else "???", "mode": mode,
+        "model": {**common, **blocks, **model},
+        "trainer": {"max_epochs": 20, "max_steps": -1, "accelerator": "tpu", "devices": -1, "precision": "highest",
+                    "gradient_clip_val": 0.0, "log_every_n_steps": 50},
+        "exp_manager": {"exp_dir": "output", "name": name, "create_tensorboard_logger": True,
+                        "resume_if_exists": False,
+                        "checkpoint_callback_params": {"monitor": "val_loss", "mode": "min", "save_top_k": 3},
+                        "ema": {"enable": False, "decay": 0.999}},
+    }
+
+
+QCIRIM_TRAIN_CFG = _q_cfg("qcirim", Q_CFGS["qcirim"], "train")
+QCIRIM_RUN_CFG = _q_cfg("qcirim", Q_CFGS["qcirim"], "test")
+QVN_TRAIN_CFG = _q_cfg("qvn", Q_CFGS["qvn"], "train")
+# the config-file runs' phantom volumes: 1 training volume of Q_SLICES slices
+# (Q_SLICES steps at batch 1) and 1 validation volume of 1 slice, each with
+# the poisson2d mask the YAML's masker draws for its file name, premade; qVN
+# takes Q_QVN_STEPS steps
+Q_SLICES, Q_QVN_STEPS = 4, 2
+
 def fed_per_step(phase8_run: str) -> dict:
     """Launches per training step fed by the loader: those of phase 8's run
     but the SENSE init's (one ``k2_load`` and one ``k2_reduce``). The loader's
@@ -938,13 +1081,14 @@ def kernel_category(name: str) -> str:
     return "elementwise: pad, cast, add, copy"
 
 
-def trace_call(fn, ms_per_call):
+def trace_call(fn, ms_per_call, ranges=()):
     """Device time and kernel launches of one call of ``fn`` (a forward or a
     training step) by kernel, by layer and by ATen op, from torch.profiler's
     CUDA kernel events (CUPTI), beside the unprofiled wall time of a call;
     ``copy_launches``/``copy_ms``: ATen's copy kernels among them (``copy_``,
     ``contiguous``, ``to``: a mask densified at every K2 stage would show
-    there, one a stage)."""
+    there, one a stage); ``ranges``: the device time under each of these
+    ``record_function`` ranges (``ranges_ms``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -965,7 +1109,14 @@ def trace_call(fn, ms_per_call):
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     copies = [n for n in by_name if "direct_copy_kernel" in n]
-    return {"device_ms": busy, "wall_ms": ms_per_call,
+    extra = {}
+    if ranges:
+        # the kernels launched inside each range (its CPU events' device time,
+        # children included), not the range's span on the device timeline
+        cpu = torch.autograd.DeviceType.CPU
+        extra["ranges_ms"] = {r: sum(_device_us(e) for e in prof.events() if e.name == r and e.device_type == cpu)
+                              / 1e3 for r in ranges}
+    return {"device_ms": busy, "wall_ms": ms_per_call, **extra,
             "copy_launches": sum(calls[n] for n in copies), "copy_ms": sum(by_name[n] for n in copies),
             "device_busy_share": busy / ms_per_call if ms_per_call else None,
             "by_layer_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
@@ -2117,6 +2268,13 @@ def zoo_phases(dev, card, rows) -> None:
     emit({"phase": "Z8", "seconds": time.perf_counter() - t_z8})
 
 
+def _device_us(e) -> float:
+    """An averaged profiler entry's total device time (its kernels and its
+    children's), in microseconds."""
+    us = getattr(e, "device_time_total", None)
+    return getattr(e, "cuda_time_total", 0.0) if us is None else us
+
+
 def op_device_ms(prof, top=14) -> dict:
     """Total device time by ATen op (its kernels and its children's) of a
     profiled call: where a layer's passes go (``aten::where`` is the PReLU
@@ -2168,28 +2326,34 @@ def serve_and_check(run, check_name, model, inputs, per_forward, card, **extra):
     return ms, delta
 
 
-def first_step_check(loss_name, grads_name, fresh, batch) -> None:
-    """The first training step's loss (F32) and parameter gradients of a
-    fresh model (``fresh()``) on ``batch`` against the same with K2's plain
-    twins on the card: relative l2 1e-3 whole and 2e-2 a parameter where the
-    gradient is well posed, else 3x the plain twins' own spread under a 1e-7
-    relative change of y."""
-    import torch
-
+def _recon_step_loss(model, batch, y):
     from mridc_tpu_torch.train.losses import process_reconstruction_loss
 
-    y, sens, mask, target = (batch[k] for k in ("masked_kspace", "sensitivity_maps", "mask", "target"))
+    return process_reconstruction_loss(model(y, batch["sensitivity_maps"], batch["mask"], train=True),
+                                       batch["target"], "l1")
+
+
+def first_step_check(loss_name, grads_name, fresh, batch, loss_of=_recon_step_loss, y_key="masked_kspace",
+                     twins=plain_k2) -> None:
+    """The first training step's loss (F32) and parameter gradients of a
+    fresh model (``fresh()``) on ``batch`` (``loss_of(model, batch, y)`` with
+    the k-space ``batch[y_key]``: the reconstruction loss by default) against
+    the same on the plain ``twins`` on the card (K2's by default): relative
+    l2 1e-3 whole and 2e-2 a parameter where the gradient is well posed, else
+    3x the plain twins' own spread under a 1e-7 relative change of y."""
+    import torch
+
+    y = batch[y_key]
     first = {}
     y_p = y * (1 + 1e-7 * torch.randn(y.shape, generator=torch.Generator().manual_seed(5)).to(y.device))
-    for which, ctx, yb in (("kernel", contextlib.nullcontext, y), ("plain", plain_k2, y),
-                           ("plain_perturbed", plain_k2, y_p)):
+    for which, ctx, yb in (("kernel", contextlib.nullcontext, y), ("plain", twins, y),
+                           ("plain_perturbed", twins, y_p)):
         model = fresh()
         with ctx():
-            out = model(yb, sens, mask, train=True)
-            loss = process_reconstruction_loss(out, target, "l1")
+            loss = loss_of(model, batch, yb)
             loss.backward()
         first[which] = (loss.detach(), {k: p.grad.detach().clone() for k, p in model.named_parameters()})
-        del model, loss, out
+        del model, loss
     check(loss_name, first["kernel"][0], first["plain"][0], *F32)
     gc = first["plain"][1]
 
@@ -2233,7 +2397,7 @@ def timed_steps(run, trainer, batch, per_step, card):
 
     from mridc_tpu_torch import kernels
 
-    model, b = trainer.model, batch["masked_kspace"].shape[0]
+    model, b = trainer.model, batch["masked_kspace" if "masked_kspace" in batch else "kspace"].shape[0]
     before = {k: v.detach().clone() for k, v in model.named_parameters()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2764,6 +2928,521 @@ def selfsup_phase(dev, card, rows, masks) -> None:
     emit({"phase": "S", "seconds": time.perf_counter() - t_s})
 
 
+@contextlib.contextmanager
+def plain_k3():
+    """While active, K3's forward and backward launches are their plain
+    versions whatever device the tensors lie on (the oracle beside
+    ``plain_k2``); they launch nothing, so they count nothing."""
+    from mridc_tpu_torch.kernels import k3_indrnn as k3
+
+    def bwd(g, x, h, out, weight, hh, need_dx, need_dh):
+        dx, dh, dw, db, du = k3.indrnn_bwd_plain(g, x, h, out, weight, hh)
+        return (dx if need_dx else None), (dh if need_dh else None), dw, db, du
+
+    saved = k3._forward_kernel, k3._bwd_launch
+    k3._forward_kernel, k3._bwd_launch = k3.indrnn_plain, bwd
+    try:
+        yield
+    finally:
+        k3._forward_kernel, k3._bwd_launch = saved
+
+
+@contextlib.contextmanager
+def plain_twins():
+    """K2's and K3's plain twins together."""
+    with plain_k2(), plain_k3():
+        yield
+
+
+@contextlib.contextmanager
+def megre_ranges():
+    """While active, the MEGRE signal model, its derivative terms and the map
+    fit run under the profiler range ``megre`` (their elementwise passes: the
+    K2 data term between them stays outside), so that a trace can read their
+    device time."""
+    from torch.profiler import record_function
+
+    from mridc_tpu_torch.models.quantitative import qcirim, qvn
+    from mridc_tpu_torch.models.quantitative import signal_model as sm
+
+    def ranged(fn):
+        def wrapped(*a, **kw):
+            with record_function("megre"):
+                return fn(*a, **kw)
+        return wrapped
+
+    names = [(sm, "megre_signal"), (sm, "_gradient_channels"), (qvn, "megre_signal"), (qvn, "megre_signal_complex"),
+             (qvn, "fit_megre_maps"), (qcirim, "fit_megre_maps")]
+    saved = [(mod, n, getattr(mod, n)) for mod, n in names]
+    for mod, n, fn in saved:
+        setattr(mod, n, ranged(fn))
+    try:
+        yield
+    finally:
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
+
+
+def q_trace(fn, ms_per_call):
+    """:func:`trace_call` of ``fn`` under :func:`megre_ranges`, with the split
+    phase Q reports: convs (cuDNN), K3, K2 with cuFFT, the MEGRE elementwise
+    passes of the forward (their backward's land in the rest) and the rest."""
+    with megre_ranges():
+        traced = trace_call(fn, ms_per_call, ranges=("megre",))
+    by = traced["by_layer_ms"]
+    split = {"convs": by.get("conv and GEMM (cuDNN, cuBLAS)", 0.0),
+             "K3": by.get("K3 indrnn", 0.0) + by.get("K3 indrnn backward", 0.0),
+             "K2 and cuFFT": by.get("K2 stages", 0.0) + by.get("K2 backward stages", 0.0) + by.get("cuFFT", 0.0),
+             "MEGRE elementwise": traced["ranges_ms"].get("megre", 0.0)}
+    split["rest"] = traced["device_ms"] - sum(split.values())
+    return {**traced, "q_split_ms": split}
+
+
+def q_phantom(rng, h, w):
+    """Piecewise-smooth quantitative maps [H, W, 4] = (R2* in 1/s, S0, B0 in
+    rad/s, phi) inside a head ellipse (zero outside), and the head mask
+    [H, W]: constant R2* and S0 regions (ellipses of random tissue values, so
+    that maxima tie), a smooth S0 shading, a smooth B0 field, a small phi."""
+    yy, xx = np.mgrid[-1:1:h * 1j, -1:1:w * 1j]
+    head = (xx / 0.85) ** 2 + (yy / 0.95) ** 2 <= 1
+    r2s, s0 = np.where(head, 20.0, 0.0), np.where(head, 0.8, 0.0)
+    for _ in range(6):
+        cy, cx = rng.uniform(-0.5, 0.5, 2)
+        ry, rx = rng.uniform(0.1, 0.35, 2)
+        inside = head & ((((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2) <= 1)
+        r2s[inside], s0[inside] = rng.choice([15.0, 25.0, 40.0, 60.0]), rng.choice([0.5, 0.7, 1.0])
+    s0 = s0 * (1 + 0.05 * np.cos(np.pi * xx) * np.cos(np.pi * yy))
+    b0 = np.where(head, 30 * xx + 15 * yy + 10 * np.sin(2 * np.pi * xx * yy), 0.0)
+    phi = np.where(head, 0.1 * s0 * np.sin(np.pi * yy), 0.0)
+    return np.stack([r2s, s0, b0, phi], -1).astype(np.float32), head.astype(np.float32)
+
+
+def q_sens(coils, h, w):
+    """Smooth unit-RSS coil maps with phase ramps [C, H, W] (phantom_volume's)."""
+    yy, xx = np.mgrid[:h, :w].astype(np.float32)
+    mags = [np.exp(-((yy - h * (c + 1) / (coils + 1)) ** 2) / (h * w)) + 0.5 for c in range(coils)]
+    sens = np.stack([m * np.exp(1j * 2 * np.pi * (c * xx / w + c * yy / (2 * h)) / coils)
+                     for c, m in enumerate(mags)]).astype(np.complex64)
+    return sens / np.sqrt((np.abs(sens) ** 2).sum(0, keepdims=True))
+
+
+def q_echoes(maps, sens, tes, rng):
+    """Multi-echo k-space [E, C, H, W] (uncentered, backward-normalised, as
+    the YAMLs' FFT) of phantom maps [H, W, 4] through the port's MEGRE model,
+    with 1% complex noise on the coil images."""
+    import torch
+
+    from mridc_tpu_torch.models.quantitative.signal_model import megre_signal
+
+    m = torch.from_numpy(maps)[None]
+    echo = torch.view_as_complex(megre_signal(m[..., 0], m[..., 1], m[..., 2], m[..., 3], tes)[0].contiguous())
+    coil = echo[:, None].numpy() * sens[None]
+    noise = rng.standard_normal(coil.shape, np.float32) + 1j * rng.standard_normal(coil.shape, np.float32)
+    coil = (coil + 0.01 * float(np.abs(coil).max()) * noise).astype(np.complex64)
+    return np.fft.fft2(coil, axes=(-2, -1)).astype(np.complex64)
+
+
+def q_batch(b, coils, h, w, dev, seed=0):
+    """A quantitative batch at ``b`` phantom slices on ``dev``: k-space under a
+    random 2D mask (a fifth of k-space and its 24x24 centre), the maps, the
+    mask, maps_init fitted (``fit_megre_maps``, plain torch) from the
+    zero-filled SENSE echoes, the phantom maps as the target, the head as
+    mask_brain, the TEs and the fully sampled SENSE echoes (the reconstruction
+    module's target)."""
+    import torch
+
+    from mridc_tpu_torch.models.quantitative.signal_model import fit_megre_maps
+
+    rng = np.random.default_rng(seed)
+    sens = q_sens(coils, h, w)
+    ks, maps, heads, masks = [], [], [], []
+    for _ in range(b):
+        m, head = q_phantom(rng, h, w)
+        ks.append(q_echoes(m, sens, Q_TES, rng))
+        maps.append(m)
+        heads.append(head)
+        mask = np.zeros((h, w), np.float32)
+        mask[rng.random((h, w)) < 0.2] = 1
+        mask[h // 2 - 12 : h // 2 + 12, w // 2 - 12 : w // 2 + 12] = 1
+        masks.append(np.fft.ifftshift(mask)[None])  # the centre of uncentered k-space is at the corners
+    rv = lambda z: torch.view_as_real(torch.from_numpy(np.ascontiguousarray(z))).to(dev)  # noqa: E731
+    full = rv(np.stack(ks))
+    mask = torch.from_numpy(np.stack(masks)).to(dev)
+    s = rv(np.broadcast_to(sens, (b, coils, h, w)))
+    kspace = full * mask[:, None, :, :, :, None]
+
+    def sense(k):
+        img = torch.view_as_real(torch.fft.ifft2(torch.view_as_complex(k.contiguous())))
+        return (torch.stack([img[..., 0] * s[:, None, ..., 0] + img[..., 1] * s[:, None, ..., 1],
+                             img[..., 1] * s[:, None, ..., 0] - img[..., 0] * s[:, None, ..., 1]], -1)).sum(2)
+
+    tes = torch.tensor(Q_TES, dtype=torch.float32, device=dev)
+    return {"kspace": kspace, "sensitivity_maps": s, "mask": mask, "maps_init": fit_megre_maps(sense(kspace), tes),
+            "maps_target": torch.from_numpy(np.stack(maps)).to(dev),
+            "mask_brain": torch.from_numpy(np.stack(heads)).to(dev), "TEs": tes, "target": sense(full)}
+
+
+def q_inputs(batch):
+    return tuple(batch[k] for k in ("kspace", "sensitivity_maps", "mask", "maps_init", "TEs"))
+
+
+def q_serve(run, model, batch, per_forward, card, bf16, **extra):
+    """Serving: ``WARMUP`` and ``ITERS`` timed forwards, the launch counters
+    zeroed before and read after (against ``per_forward``), the prediction
+    finite and [B, H, W, 4], and held against the same forward on K2's and
+    K3's plain twins on the card (F32; bf16: Z2's bf16 limits). Returns (ms
+    per forward, the launches)."""
+    import torch
+
+    from mridc_tpu_torch import kernels
+
+    inputs = q_inputs(batch)
+    b, h, w = inputs[0].shape[0], inputs[0].shape[3], inputs[0].shape[4]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        for _ in range(WARMUP):
+            model(*inputs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            pred = model(*inputs).prediction
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    delta = {k: v for k, v in kernels.launch_counts().items() if v}
+    want = {k: v * (WARMUP + ITERS) for k, v in per_forward.items()}
+    ms = dt / ITERS * 1e3
+    emit({"run": run, **extra, "batch": b, "echoes": len(Q_TES), "forwards_timed": ITERS, "seconds": dt,
+          "slices_per_s": ITERS * b / dt, "ms_per_forward": ms,
+          "launches_per_forward": {k: v / (WARMUP + ITERS) for k, v in delta.items()}, "card": card})
+    if delta != want:
+        raise AssertionError(f"{run}: launches {delta} != expected {want}")
+    if not bool(torch.isfinite(pred).all()) or tuple(pred.shape) != (b, h, w, 4):
+        raise AssertionError(f"{run}: prediction not finite or of shape {tuple(pred.shape)}")
+    with torch.inference_mode(), plain_twins():
+        plain = model(*inputs).prediction
+    note = "the same forward with K2's and K3's plain twins on the card"
+    if not bf16:
+        check(f"q[{run}]", pred, plain, *F32, note=note)
+    else:
+        rel = float((pred.float() - plain.float()).norm() / plain.float().norm())
+        check(f"q[{run}]", pred, plain, *BF16_MODEL, note=f"{note}; rel l2 {rel:.3g} (limit {BF16_REL_L2})")
+        if rel > BF16_REL_L2:
+            raise AssertionError(f"{run}: relative l2 {rel} against the plain twins")
+    return ms, delta
+
+
+def q_step_loss(model, batch, y):
+    """The quantitative training loss of ``model`` on ``batch`` with k-space
+    ``y`` (l1, the YAMLs' factors of one, plus the per-echo reconstruction
+    loss where the model has the module)."""
+    from mridc_tpu_torch.train.task_trainers import quantitative_loss_fn, quantitative_recon_loss_fn
+
+    out = model(y, *q_inputs(batch)[1:], train=True)
+    gamma = out.intermediates.new_tensor(model.gamma) if out.intermediates.ndim == 6 else None
+    preds = out.intermediates * gamma if gamma is not None else out.prediction[None, None]
+    loss, _ = quantitative_loss_fn(batch["maps_target"], preds, batch["mask_brain"], [1.0] * 4, "l1")
+    if out.recon_intermediates is not None:
+        loss = loss + quantitative_recon_loss_fn(batch["target"], out.recon_intermediates, "l1")
+    return loss
+
+
+def q_phase(dev, card, rows) -> None:
+    """Phase Q: qCIRIM and qVN (``Q_CFGS``, as base_{qcirim,qvn}_train.yaml
+    configure them) on phantom echoes (``q_batch``: 15 coils, 320x320, the
+    YAMLs' 4 TEs), random weights from ``ZOO_SEED`` (qVN at unit gammas,
+    ``Q_QVN_GAMMA``). Serving (``Q_SERVE``:
+    qCIRIM f32 and bf16 and qVN at B=8, qCIRIM with the reconstruction module
+    at B=2; :func:`q_serve`), traces of the qCIRIM and qVN forwards split by
+    layer (:func:`q_trace`). Training through ``QuantitativeTrainer`` under
+    the YAMLs' Adam and InverseSquareRootAnnealing (``Q_TRAIN``): the first
+    step's loss and gradients against the plain twins
+    (:func:`first_step_check` on K2's and K3's), 2 warm-up and 3 timed steps
+    (:func:`timed_steps`, ``Q_PER_STEP``), qCIRIM's B=1 step traced."""
+    import torch
+
+    from mridc_tpu_torch.kernels import binding
+    from mridc_tpu_torch.models import build_model
+    from mridc_tpu_torch.train.task_trainers import QuantitativeTrainer
+
+    t_q = time.perf_counter()
+    batches = {b: q_batch(b, COILS, H, W, dev) for b in sorted({v[2] for v in Q_SERVE.values()}
+                                                                 | {v[2] for v in Q_TRAIN.values()})}
+
+    def fresh(cfg_name, overrides):
+        return build_model({**Q_CFGS[cfg_name], **overrides}, device=dev,
+                           generator=torch.Generator().manual_seed(ZOO_SEED))
+
+    q_counts = {k: 0 for k in binding.LAUNCHES}
+    for run, (cfg_name, overrides, b) in Q_SERVE.items():
+        model = fresh(cfg_name, overrides)
+        ms, delta = q_serve(f"q_{run}", model, batches[b], Q_PER_FORWARD[run], card,
+                            bf16="compute_dtype" in overrides,
+                            config=f"projects/quantitative/conf/base_{cfg_name}_train.yaml", overrides=overrides)
+        for k, v in delta.items():
+            q_counts[k] += v
+        if run in Q_TRACED:
+            with torch.inference_mode():
+                emit({"trace": f"q_{run}", "batch": b, **q_trace(lambda: model(*q_inputs(batches[b])), ms),
+                      "card": card})
+        del model
+        torch.cuda.empty_cache()
+
+    optim = QCIRIM_TRAIN_CFG["model"]["optim"]
+    q_train_counts = {k: 0 for k in binding.LAUNCHES}
+    for run, (cfg_name, overrides, b, table) in Q_TRAIN.items():
+        batch = batches[b]
+        first_step_check(f"q_train_loss[{run}]", f"q_train_grads[{run}]", lambda: fresh(cfg_name, overrides),
+                         batch, loss_of=q_step_loss, y_key="kspace", twins=plain_twins)
+        trainer = QuantitativeTrainer(fresh(cfg_name, overrides), optim_cfg=optim, trainer_cfg=TRAIN_CFG,
+                                      loss_type="l1", device=dev)
+        trainer.init_state(batch)  # qVN's regularisers take their width from the batch
+        rec, delta = timed_steps(f"q_{run}", trainer, batch, Q_PER_STEP[table], card)
+        for k, v in delta.items():
+            q_train_counts[k] += v
+        if run == "train_qcirim_b1":
+            emit({"trace": f"q_{run}", **q_trace(lambda: trainer.training_batch(batch), rec["ms_per_step"]),
+                  "card": card})
+        del trainer
+        torch.cuda.empty_cache()
+    del batches
+    torch.cuda.empty_cache()
+
+    for r in rows:
+        r["q_launches"] = q_counts.get(r["name"], 0)
+        r["q_train_launches"] = q_train_counts.get(r["name"], 0)
+    missing = [k for k in set().union(*Q_PER_FORWARD.values()) if q_counts[k] == 0]
+    missing += [k for k in set().union(*Q_PER_STEP.values()) if q_train_counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on Q's paths: {missing}")
+    emit({"phase": "Q", "seconds": time.perf_counter() - t_q})
+
+def q_mask(h, w, fname):
+    """The mask the YAMLs' quantitative loader draws for every slice of
+    ``fname`` (its poisson2d masker, seeded by the file name, as
+    ``QBatchLoader`` calls it) and the seconds it took; run in the worker
+    processes."""
+    from mridc_tpu_torch.data.subsample import create_masker
+
+    a = _q_ds(True)["mask_args"]
+    t0 = time.perf_counter()
+    out = create_masker(a["type"], a["center_fractions"], a["accelerations"])(np.array([1, h, w, 2]),
+                                                                            tuple(map(ord, fname)))
+    return out, time.perf_counter() - t0
+
+
+class QPhantomSource:
+    """An indexable source of quantitative slices over in-memory phantom
+    volumes ({file name: (k-space [S, E, C, H, W], maps [C, H, W], map targets
+    [S, H, W, 4], head masks [S, H, W])}): ``__getitem__`` returns what
+    ``qMRIDataset.__getitem__`` returns after its h5 read (no mask in the
+    file, no initial maps, no target)."""
+
+    def __init__(self, volumes):
+        self.volumes = volumes
+        self.examples = [(fname, s) for fname in sorted(volumes) for s in range(volumes[fname][0].shape[0])]
+
+    def __len__(self):
+        return len(self.examples)
+
+    def __getitem__(self, i):
+        fname, s = self.examples[i]
+        kspace, sens, maps, heads = self.volumes[fname]
+        qmaps = {}
+        for j, name in enumerate(("R2star", "S0", "B0", "phi")):
+            qmaps[f"{name}_map_target"], qmaps[f"{name}_map_init"] = maps[s][..., j], np.empty([])
+        return kspace[s], sens, qmaps, None, heads[s], np.empty([]), None, {}, fname, s
+
+
+def q_volumes(prefix, n, slices, coils, h, w, seed):
+    rng = np.random.default_rng(seed)
+    sens = q_sens(coils, h, w)
+    out = {}
+    for i in range(n):
+        maps, heads = zip(*(q_phantom(rng, h, w) for _ in range(slices)))
+        out[f"{prefix}_{i}.h5"] = (np.stack([q_echoes(m, sens, Q_TES, rng) for m in maps]), sens, np.stack(maps),
+                                   np.stack(heads))
+    return out
+
+
+def q_launch_phase(dev, card, rows, q_masks) -> None:
+    """Phase Q, from the config files: ``python -m mridc_tpu_torch run -c``
+    (``cli.main``) of base_qcirim_train.yaml (``QCIRIM_TRAIN_CFG``, one epoch
+    of ``Q_SLICES`` steps, ``trainer.limit_val_batches`` 1), then
+    base_qcirim_run.yaml (``mode: test``) on the archive that run wrote, then
+    base_qvn_train.yaml for ``Q_QVN_STEPS`` steps (at unit gammas,
+    ``Q_QVN_GAMMA``), at the configs' batch 1 on the card. The h5 read is replaced by phantom volumes (``QPhantomSource``:
+    15 coils, 320x320, 4 echoes; 1 training volume, 1 validation volume of 1
+    slice) and the masker by the masks it draws for their file names,
+    premade. ms per step (between the starts of consecutive steps), slices/s,
+    launches per step (``Q_PER_STEP``), the host pipeline's ms per batch
+    (``QBatchLoader``: the mask, the zero-filled SENSE echoes and
+    ``fit_quantitative_maps``, whose phase unwrap runs once per echo) and one
+    traced step (the device's idle share); ``validate()``'s ``val_NMSE_*``
+    finite; the test run's maps, which it writes through h5py (replaced here
+    by a capture: the card's machine has no h5py), finite and [S, H, W, 4]."""
+    import json as json_mod
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    import torch
+
+    from mridc_tpu_torch import cli, kernels
+    from mridc_tpu_torch.data import subsample, task_loaders
+    from mridc_tpu_torch.train.config import apply_overrides
+    from mridc_tpu_torch.train.task_trainers import QuantitativeTrainer
+
+    t_ql = time.perf_counter()
+    vols = {"phantom/q/train": q_volumes("q", 1, Q_SLICES, COILS, H, W, seed=41),
+            "phantom/q/val": q_volumes("q_val", 1, 1, COILS, H, W, seed=42)}
+    premade = {}
+    for fname in [f for v in vols.values() for f in v]:
+        out, seconds = q_masks[fname].result()
+        premade[tuple(map(ord, fname))] = out
+        emit({"q_mask": fname, "poisson2d_seconds": seconds, "card": card})
+    draw = subsample.create_masker
+
+    def masker(*args, **kw):
+        real = draw(*args, **kw)
+
+        def call(shape, seed=None, *a, **k):
+            return premade[tuple(seed)] if tuple(seed) in premade else real(shape, seed, *a, **k)
+        return call
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_q_"))
+    record = {"marks": [], "counts": [], "outs": [], "trainer": None, "validations": []}
+    step, validate = QuantitativeTrainer.training_batch, QuantitativeTrainer.validate
+
+    def validating(self, *a, **kw):
+        out = validate(self, *a, **kw)
+        record["validations"].append(dict(out))
+        return out
+
+    def recording(self, batch):
+        record["trainer"] = self
+        record["marks"].append(time.perf_counter())
+        before = kernels.launch_counts()
+        out = step(self, batch)
+        after = kernels.launch_counts()
+        record["counts"].append({k: after[k] - before[k] for k in after if after[k] != before[k]})
+        record["outs"].append(out)
+        return out
+
+    written = {}
+
+    class _H5Capture:
+        def __init__(self, path, mode):
+            self.name = Path(path).name
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def create_dataset(self, key, data):
+            written[(self.name, key)] = np.asarray(data)
+
+    q_counts = {k: 0 for k in kernels.launch_counts()}
+    runs = (("launch_qcirim", QCIRIM_TRAIN_CFG, "base_qcirim_train", Q_SLICES, "train_qcirim"),
+            ("test_qcirim", QCIRIM_RUN_CFG, "base_qcirim_run", None, None),
+            ("launch_qvn", QVN_TRAIN_CFG, "base_qvn_train", Q_QVN_STEPS, "train_qvn"))
+    archive = None
+    try:
+        with mock.patch.object(task_loaders, "qMRIDataset", lambda root, **_: QPhantomSource(vols[root])), \
+                mock.patch.object(subsample, "create_masker", masker), \
+                mock.patch.object(QuantitativeTrainer, "training_batch", recording), \
+                mock.patch.object(QuantitativeTrainer, "validate", validating):
+            for run, cfg, yaml_name, steps, table in runs:
+                cfg_path = tmp / f"{yaml_name}.json"
+                cfg_path.write_text(json_mod.dumps(cfg))
+                overrides = [f'exp_manager.exp_dir="{tmp / run}"', 'model.validation_ds.data_path="phantom/q/val"',
+                             'model.test_ds.data_path="phantom/q/val"']
+                if steps is None:
+                    overrides.append(f'checkpoint="{archive}"')
+                else:
+                    overrides += ["trainer.max_epochs=1", f"trainer.limit_train_batches={steps}",
+                                  "trainer.limit_val_batches=1", 'model.train_ds.data_path="phantom/q/train"']
+                if cfg is QVN_TRAIN_CFG:  # unit gammas (Q_QVN_GAMMA)
+                    overrides.append("model.quantitative_module_gamma_regularization_factors=[1.0,1.0,1.0,1.0]")
+                emit({"phase": "Q", "run": run, "config": f"projects/quantitative/conf/{yaml_name}.yaml",
+                      "overrides": overrides, "batch": 1, "card": card})
+                record.update(marks=[], counts=[], outs=[], trainer=None, validations=[])
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                h5py = sys.modules.get("h5py")
+                sys.modules["h5py"] = types.SimpleNamespace(File=_H5Capture)  # the writer's only (reads are mocked)
+                try:
+                    cli.main(["run", "-c", str(cfg_path), *overrides])
+                finally:
+                    sys.modules.pop("h5py")
+                    if h5py is not None:
+                        sys.modules["h5py"] = h5py
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                for k, v in kernels.launch_counts().items():
+                    q_counts[k] += v
+                exp_dir = tmp / run / cfg["exp_manager"]["name"]
+                (run_dir,) = exp_dir.iterdir()
+                files = sorted(p.name for p in run_dir.iterdir())
+                if steps is None:
+                    maps = written.get(("q_val_0.h5", "reconstruction"))
+                    ok = maps is not None and maps.shape == (1, H, W, 4) and bool(np.isfinite(maps).all())
+                    emit({"q": run, "seconds": seconds, "run_dir": files, "written": sorted(written),
+                          "shape": None if maps is None else list(maps.shape), "finite_maps": ok,
+                          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30, "card": card})
+                    if not ok:
+                        raise AssertionError(f"{run}: the written maps {None if maps is None else maps.shape}")
+                    continue
+                trainer = record["trainer"]
+                marks = record["marks"]
+                ms = (marks[-1] - marks[0]) / (len(marks) - 1) * 1e3
+                bad = [c for c in record["counts"] if c != Q_PER_STEP[table]]
+                rec = {"q": run, "batch": 1, "steps": len(marks), "ms_per_step": ms, "slices_per_s": 1e3 / ms,
+                       "steps_timed": len(marks) - 1, "seconds": seconds,
+                       "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       "launches_per_step": record["counts"][-1], "losses": [float(o["loss"]) for o in record["outs"]],
+                       "grad_norms": [float(o["grad_norm"]) for o in record["outs"]],
+                       "validations": record["validations"], "run_dir": files,
+                       "note": "ms per step between the starts of consecutive steps: the loader's host pipeline "
+                               "(the masked echoes' SENSE images and the map fit) and the step, at batch 1",
+                       "card": card}
+                emit(rec)
+                run_cfg = apply_overrides(cfg, overrides)
+                from mridc_tpu_torch.launch import _build_task_loader
+
+                loader = _build_task_loader("quantitative", run_cfg["model"]["train_ds"], run_cfg["model"], False,
+                                            dev)
+                t0 = time.perf_counter()
+                host = [b for _, b in zip(range(1), loader)]
+                host_ms = (time.perf_counter() - t0) / len(host) * 1e3
+                traced = trace_call(lambda: step(trainer, host[-1]), ms)
+                emit({"trace": run, "host_pipeline_ms_per_batch": host_ms,
+                      "device_idle_share": None if traced.get("device_ms") is None else 1 - traced["device_ms"] / ms,
+                      **traced, "card": card})
+                del loader, host
+                if len(marks) != steps or bad:
+                    raise AssertionError(f"{run}: {len(marks)} steps; launches per step, expected: {bad[:1]}")
+                if not np.isfinite(rec["losses"] + rec["grad_norms"]).all():
+                    raise AssertionError(f"{run}: losses {rec['losses']}, gradient norms {rec['grad_norms']}")
+                if len(rec["validations"]) != 2 or not all(np.isfinite(v) for val in rec["validations"]
+                                                           for v in val.values()):
+                    raise AssertionError(f"{run}: validations {rec['validations']} (the initial and the epoch's)")
+                if f"{cfg['exp_manager']['name']}.mridc" not in files:
+                    raise AssertionError(f"{run}: no archive in the run dir {files}")
+                archive = run_dir / f"{cfg['exp_manager']['name']}.mridc"
+                del trainer
+                record["trainer"] = None
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r in rows:
+        r["q_launch_launches"] = q_counts.get(r["name"], 0)
+    emit({"phase": "Q launch", "seconds": time.perf_counter() - t_ql})
+
 def main() -> int:
     import torch
 
@@ -2786,10 +3465,12 @@ def main() -> int:
                  + [("d1", D1_HW, D1_HW, f"d1_{i}.h5") for i in range(D1_VOLUMES)]}
 
         def s_masks():
-            # phase S's masks, drawn beside phases Z and Z8 (after the host-bound
-            # phases that D's masks run beside)
-            return {key: mask_pool.submit(poisson2d_mask, _S_DS, *key[1:]) for key in
-                    [("s", H, W, f"s_{i}.h5") for i in range(S_TRAIN_VOLUMES)] + [("s", H, W, "s_val_0.h5")]}
+            # phase S's and Q's masks, drawn beside phases Z and Z8 (after the
+            # host-bound phases that D's masks run beside)
+            out = {key: mask_pool.submit(poisson2d_mask, _S_DS, *key[1:]) for key in
+                   [("s", H, W, f"s_{i}.h5") for i in range(S_TRAIN_VOLUMES)] + [("s", H, W, "s_val_0.h5")]}
+            out.update({fname: mask_pool.submit(q_mask, H, W, fname) for fname in ("q_0.h5", "q_val_0.h5")})
+            return out
 
         return run(t_start, masks, s_masks)
     finally:
@@ -3589,6 +4270,10 @@ def run(t_start, masks, s_masks) -> int:
 
     # S. the self-supervised branches from their config files
     selfsup_phase(dev, card, rows, masks)
+
+    # Q. qCIRIM and qVN serving and training, and from their config files
+    q_phase(dev, card, rows)
+    q_launch_phase(dev, card, rows, masks)
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})

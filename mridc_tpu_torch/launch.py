@@ -5,8 +5,12 @@ then fits, any other mode tests and writes the reconstructions.
 
 The run is on the card unless ``run_from_config`` is given ``device="cpu"``
 or the config says ``trainer.accelerator: cpu``; the configs' ``tpu`` means the
-card here. Reconstruction models only: the segmentation, multitask and
-quantitative branches raise, naming their ROADMAP.md items. ``pretrained:
+card here. Reconstruction and quantitative models: the segmentation and
+multitask branches raise, naming their ROADMAP.md items (M11, M12). The
+quantitative task reads AHEAD-format volumes through ``qMRIDataset`` and
+``QBatchLoader`` (the model config's ``TEs``; ``fft_centered`` true and
+``fft_normalization`` "ortho" where the model config omits them, as the JAX
+package does) and trains with ``QuantitativeTrainer``. ``pretrained:
 true`` takes a ``.mridc`` archive path, of the reference torch format or
 ``mridc_tpu``'s.
 """
@@ -31,7 +35,7 @@ SEGMENTATION_MODELS = {
     "SEGMENTATIONDYNUNET", "SEGMENTATIONUNETR",
 }
 MULTITASK_MODELS = {"MTLRS", "JRSCIRIM", "IDSLR", "IDSLRUNET", "SEGNET", "RECSEGNET", "RECSEGUNET", "SERANET"}
-_UNPORTED_TASKS = {"segmentation": "M11", "multitask": "M12", "quantitative": "M10"}
+_UNPORTED_TASKS = {"segmentation": "M11", "multitask": "M12"}
 
 
 def model_task(model_name: str) -> str:
@@ -52,10 +56,30 @@ def _check_task(task: str) -> None:
 
 
 def _build_task_loader(task, ds_cfg, model_cfg, shuffle, device):
-    from mridc_tpu_torch.data.factory import build_dataloader
+    from mridc_tpu_torch.data.factory import async_loader, build_dataloader
 
     _check_task(task)
-    return build_dataloader(ds_cfg, model_cfg, shuffle=shuffle, device=device)
+    if task != "quantitative":
+        return build_dataloader(ds_cfg, model_cfg, shuffle=shuffle, device=device)
+    from mridc_tpu_torch.data.seg_pipeline import QBatchLoader
+    from mridc_tpu_torch.data.subsample import create_masker
+    from mridc_tpu_torch.data.task_loaders import qMRIDataset
+
+    mask_args = ds_cfg.get("mask_args") or {}
+    mask_func = None
+    if mask_args.get("type"):
+        mask_func = create_masker(mask_args["type"], mask_args.get("center_fractions", [0.08]),
+                                  mask_args.get("accelerations", [4]))
+    ds = qMRIDataset(root=ds_cfg["data_path"], sample_rate=ds_cfg.get("sample_rate"),
+                     consecutive_slices=ds_cfg.get("consecutive_slices", 1))
+    return async_loader(
+        lambda **kw: QBatchLoader(
+            ds, tes=model_cfg.get("TEs", [3.0, 11.5, 20.0, 28.5]), mask_func=mask_func,
+            batch_size=ds_cfg.get("batch_size", 1), shuffle=shuffle,
+            fft_centered=model_cfg.get("fft_centered", True),
+            fft_normalization=model_cfg.get("fft_normalization", "ortho"),
+            compute_target=bool(model_cfg.get("use_reconstruction_module", False)), **kw),
+        ds_cfg, device=device)
 
 
 def maybe_init_distributed(trainer_cfg: dict, device):
@@ -130,6 +154,7 @@ def run_from_config(cfg: dict, device=None):
     ``device="cpu"`` or ``trainer.accelerator: cpu``."""
     from mridc_tpu_torch.models import build_model
     from mridc_tpu_torch.train.exp_manager import ExpManager
+    from mridc_tpu_torch.train.task_trainers import QuantitativeTrainer
     from mridc_tpu_torch.train.trainer import Trainer, _limit_batches
     from mridc_tpu_torch.utils.typecheck import resolve_device
 
@@ -171,8 +196,14 @@ def run_from_config(cfg: dict, device=None):
     # spellings (reference nn/base.py:86-92)
     if "n2r_loss_regularization_factor" in model_cfg:
         trainer_cfg.setdefault("n2r_loss_weight", float(model_cfg["n2r_loss_regularization_factor"]))
-    trainer = Trainer(
+    task_kwargs = {}
+    trainer_cls = Trainer
+    if task == "quantitative":
+        trainer_cls = QuantitativeTrainer
+        task_kwargs["loss_regularization_factors"] = model_cfg.get("loss_regularization_factors")
+    trainer = trainer_cls(
         model,
+        **task_kwargs,
         optim_cfg=model_cfg.get("optim"),
         trainer_cfg=trainer_cfg,
         loss_type=model_cfg.get("train_loss_fn", model_cfg.get("loss_fn", "l1")),
@@ -189,18 +220,20 @@ def run_from_config(cfg: dict, device=None):
 
     def _first_batch(loader):
         # a first batch of a fresh iteration, where the JAX launcher takes one
-        # (it advances a shuffled loader's epoch)
+        # (it advances a shuffled loader's epoch); a model whose widths follow
+        # the data is built at its shapes
         it = iter(loader)
-        next(it)
+        batch = next(it)
         getattr(it, "close", lambda: None)()
+        return batch
 
     def _install_pretrained(loader):
-        _first_batch(loader)
+        batch = _first_batch(loader)
         if trainer.schedule is None:
             trainer.setup_optimization(num_samples=len(getattr(loader, "dataset", [])) or 1,
                                        batch_size=getattr(loader, "batch_size", 1))
         model.load_state_dict(pretrained)
-        trainer.init_state()
+        trainer.init_state(batch)
 
     if mode == "train":
         train_loader = _build_task_loader(task, model_cfg["train_ds"], model_cfg, True, dev)
@@ -213,14 +246,12 @@ def run_from_config(cfg: dict, device=None):
         if exp_cfg.get("resume_if_exists") and trainer.state is None:
             # restore before the initial validation and fit, or a preempted
             # run would restart from fresh weights in its own run dir
-            _first_batch(train_loader)
-            trainer.init_state()
+            trainer.init_state(_first_batch(train_loader))
             exp.maybe_resume(trainer)
         if val_loader is not None:
             # the starting point on record: validate before fit
             if trainer.state is None:
-                _first_batch(val_loader)
-                trainer.init_state()
+                trainer.init_state(_first_batch(val_loader))
             initial = trainer.validate(val_loader,
                                        limit=_limit_batches(trainer_cfg.get("limit_val_batches", 1.0), val_loader))
             logger.info("initial validation: " + " ".join(f"{k}={v:.5f}" for k, v in initial.items()))
@@ -234,9 +265,9 @@ def run_from_config(cfg: dict, device=None):
         if pretrained is not None:
             _install_pretrained(test_loader)
         else:
-            _first_batch(test_loader)
+            batch = _first_batch(test_loader)
             trainer.setup_optimization()
-            trainer.init_state()
+            trainer.init_state(batch)
             exp.maybe_resume(trainer)
     recons, means = trainer.test(test_loader)
     logger.info("Test metrics: " + " ".join(f"{k}={v:.4f}" for k, v in means.items()))

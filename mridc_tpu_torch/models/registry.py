@@ -1,7 +1,8 @@
 """Model registry (counterpart of ``mridc_tpu/models/registry.py``):
 name -> constructor, plus the names of the JAX registry that are not ported yet,
-each with the ROADMAP item that ports it (JointICNet: M8's second half, which
-brings the learned sensitivity maps it trains).
+each with the ROADMAP item that ports it: JointICNet (M8's second half, which
+brings the learned sensitivity maps it trains), the segmentation models (M11)
+and the multitask models (M12).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 from mridc_tpu_torch.models.recon import (CIRIM, CS, PICS, ZF, CascadeNet, CRNNet, DUNet, KIKINet, LPDNet,
                                           MultiDomainNet, ProximalGradient, RecurrentVarNet, ResNet, UNet, VarNet,
                                           VSNet, XPDNet)
+from mridc_tpu_torch.models.quantitative import qCIRIM, qVarNet
 from mridc_tpu_torch.utils.typecheck import resolve_device
 
 __all__ = ["MODEL_REGISTRY", "PENDING_MODELS", "build_model", "available_models"]
@@ -31,13 +33,14 @@ MODEL_REGISTRY: Dict[str, Callable] = {
     "RVN": RecurrentVarNet.from_config, "RECURRENTVARNET": RecurrentVarNet.from_config,
     "MULTIDOMAINNET": MultiDomainNet.from_config, "MULTIDOMAIN": MultiDomainNet.from_config,
     "CS": CS.from_config, "PICS": PICS.from_config,
+    "QCIRIM": qCIRIM.from_config, "QRIM": qCIRIM.from_config,
+    "QVN": qVarNet.from_config, "QVARNET": qVarNet.from_config,
 }
 
 _M8 = "M8 (learned sensitivity maps, second half)"
-_M10, _M11, _M12 = "M10 (quantitative)", "M11 (segmentation)", "M12 (multitask)"
+_M11, _M12 = "M11 (segmentation)", "M12 (multitask)"
 PENDING_MODELS: Dict[str, str] = {
     "JOINTICNET": _M8,
-    **dict.fromkeys(("QCIRIM", "QRIM", "QVN", "QVARNET"), _M10),
     **dict.fromkeys(
         (
             "SEGMENTATIONUNET", "SEGMENTATION2DUNET", "SEGMENTATION3DUNET", "SEGMENTATIONATTENTIONUNET",

@@ -54,7 +54,7 @@ def save_archive(path, cfg: Dict, state_dict: Dict[str, torch.Tensor]) -> Path:
     the JAX package's flax msgpack where ``mridc_tpu`` reads no torch weights
     of the model: ``{"params", "batch_stats"}`` where the state holds live
     BatchNorm statistics (``running_mean``), the bare param tree for
-    RecurrentVarNet and MultiDomainNet."""
+    RecurrentVarNet, MultiDomainNet, qCIRIM and qVarNet."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     flax_params = str(cfg.get("model_name", "")).upper() in _FLAX_ARCHIVED
@@ -138,7 +138,7 @@ def encode_flax_msgpack(tree: Any) -> bytes:
     return msgpack.packb(tree, default=ext, strict_types=True)
 
 
-_FLAX_ARCHIVED = {"RVN", "RECURRENTVARNET", "MULTIDOMAINNET", "MULTIDOMAIN"}
+_FLAX_ARCHIVED = {"RVN", "RECURRENTVARNET", "MULTIDOMAINNET", "MULTIDOMAIN", "QCIRIM", "QRIM", "QVN", "QVARNET"}
 _ZOO2 = {"CASCADENET", "CCNN", "CRNNET", "CRNN", "XPDNET", "KIKINET", "LPDNET", "LPD", "VSNET", "DUNET", *_FLAX_ARCHIVED}
 
 

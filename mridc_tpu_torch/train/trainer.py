@@ -336,6 +336,12 @@ class Trainer:
                                init_pred, train=True)
             loss = float(self.trainer_cfg.get("n2r_loss_weight", 1.0)) * loss_of(
                 ModelOutput(prediction=out_n.prediction), out.prediction, self.kspace_reconstruction_loss)
+        return {"loss": loss.detach(), "grad_norm": self._apply_loss(loss)}
+
+    def _apply_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """The step's tail on its loss: the backward, the gradients' global
+        norm (returned), accumulation, clipping and the optimizer, the EMA and
+        the step count."""
         st = self.state
         opt = st.optimizer
         if opt is None:  # no parameters: the loss, and the norm of no gradients
@@ -373,7 +379,7 @@ class Trainer:
                     e = st.ema_params[k]
                     e.mul_(d).add_(p, alpha=1 - d)
         st.step += 1
-        return {"loss": loss.detach(), "grad_norm": grad_norm.detach()}
+        return grad_norm.detach()
 
     def _optimizer_step(self, opt: torch.optim.Optimizer, params: List[torch.Tensor],
                         norm: Optional[torch.Tensor] = None) -> None:

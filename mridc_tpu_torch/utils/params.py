@@ -24,7 +24,8 @@ two; the reference's ``conv1``, ``layers2.{i}``, ``layers1.{i}``,
 which is all ProximalGradient has.
 
 CascadeNet, CRNNet, XPDNet, KIKINet, LPDNet, VSNet and DUNet (their
-``*_params_from_jax``, all :func:`zoo2_params_from_jax`) map by one table of
+``*_params_from_jax``, all :func:`zoo2_params_from_jax`), and qCIRIM and
+qVarNet (:func:`qcirim_params_from_jax`, :func:`qvn_params_from_jax`) map by one table of
 leaf pairs read off a port model built from the config, which
 :func:`zoo2_params_to_jax` reads the other way: the auto-named regulariser
 scopes (``Conv2dCascade_{i}``, ``MWCNN_{i}`` with its ``_Wrap_{i}`` head,
@@ -58,7 +59,8 @@ __all__ = ["cirim_params_from_jax", "rim_block_params_from_jax", "normunet_param
            "unet_params_from_jax", "resnet_params_from_jax", "zoo2_params_from_jax", "zoo2_params_to_jax",
            "cascadenet_params_from_jax", "crnn_params_from_jax", "xpdnet_params_from_jax", "kikinet_params_from_jax",
            "lpdnet_params_from_jax", "vsnet_params_from_jax", "dunet_params_from_jax", "rvn_params_from_jax",
-           "multidomainnet_params_from_jax", "hwio_to_oihw", "hwio_to_iohw_flipped"]
+           "multidomainnet_params_from_jax", "qcirim_params_from_jax", "qvn_params_from_jax", "hwio_to_oihw",
+           "hwio_to_iohw_flipped"]
 
 _CELL_SCOPE = re.compile(r"^(IndRNNCell|ConvGRUCell|ConvMGUCell)_(\d+)$")
 
@@ -455,14 +457,63 @@ def _multidomain_unet_pairs(mod, f: str, p: str):
     return out + _conv_pairs(f"{f}Conv_0/", f"{p}final_conv.")
 
 
+def _rim_stack_pairs(block, f: str, p: str):
+    """A RIM step's conv/RNN stack (``RIMBlock``'s or ``qRIMBlock``'s, under
+    the step's scan scope ``f``): ``ConvNonlinear_{h}`` and the cells
+    (``{Cell}_{h}``: ``Conv_0`` the input conv, IndRNN's ``hh`` or a gated
+    cell's ``Conv_1``), the last ``ConvNonlinear`` the final conv."""
+    from mridc_tpu_torch.nn.rnn_cells import IndRNNCell
+
+    out = []
+    for h, layer in enumerate(block.layers):
+        conv, cell = layer.convs.conv_layer, layer.rnn
+        out += _conv_pairs(f"{f}ConvNonlinear_{h}/Conv_0/", f"{p}layers.{h}.convs.conv_layer.", conv.bias is not None)
+        scope = f"{f}{type(cell).__name__}_{h}/"
+        out += _conv_pairs(f"{scope}Conv_0/", f"{p}layers.{h}.rnn.ih.", cell.ih.bias is not None)
+        out += ([_leaf(f"{scope}hh", f"{p}layers.{h}.rnn.hh", kind="hh")] if isinstance(cell, IndRNNCell)
+                else _conv_pairs(f"{scope}Conv_1/", f"{p}layers.{h}.rnn.hh.", False))
+    final = block.final_layer[0].conv_layer
+    return out + _conv_pairs(f"{f}ConvNonlinear_{len(block.layers)}/Conv_0/", f"{p}final_layer.0.conv_layer.",
+                             final.bias is not None)
+
+
+def _quantitative_pairs(model):
+    """qCIRIM: the reconstruction module's ``RIMBlock_{e * R + c}`` (a
+    rematerialised step scan) and each ``qRIMBlock_{i}``'s step scan
+    (``ScanCheckpoint_QRIMStep_0`` under remat "step", ``Scan_QRIMStep_0``
+    under "none"). qVarNet: the shared ``_VarNetBlock_{j}``, then
+    ``NormUnet_{i}`` and ``dc_weight_{i}`` per cascade."""
+    from mridc_tpu_torch.models.quantitative import qCIRIM
+
+    out = []
+    if isinstance(model, qCIRIM):
+        for k, block in enumerate(model.recon):
+            out += _rim_stack_pairs(block, f"RIMBlock_{k}/ScanCheckpoint_RIMStep_0/", f"recon.{k}.")
+        for i, block in enumerate(model.qrim):
+            scan = "ScanCheckpoint_QRIMStep_0" if block.remat else "Scan_QRIMStep_0"
+            out += _rim_stack_pairs(block, f"qRIMBlock_{i}/{scan}/", f"qrim.{i}.")
+        return out
+    for j, block in enumerate(model.recon):
+        out += _normunet_pairs(block.model, f"_VarNetBlock_{j}/NormUnet_0/", f"recon.{j}.model.")
+        out.append(_leaf(f"_VarNetBlock_{j}/dc_weight", f"recon.{j}.dc_weight"))
+    for i, reg in enumerate(model.regs):
+        out += _normunet_pairs(reg, f"NormUnet_{i}/", f"regs.{i}.")
+        out.append(_leaf(f"dc_weight_{i}", f"dc_weights.{i}"))
+    return out
+
+
 def _model_pairs(model):
     """The pairs of a whole CascadeNet, CRNNet, XPDNet, KIKINet, LPDNet, VSNet,
-    DUNet, RecurrentVarNet or MultiDomainNet, read off the port model."""
+    DUNet, RecurrentVarNet, MultiDomainNet, qCIRIM or qVarNet, read off the
+    port model."""
+    from mridc_tpu_torch.models.quantitative import qCIRIM, qVarNet
     from mridc_tpu_torch.models.recon import (CascadeNet, CRNNet, DUNet, KIKINet, LPDNet, MultiDomainNet,
                                               RecurrentVarNet, VSNet, XPDNet)
 
     scopes, out = _Scopes(), []
-    if isinstance(model, CascadeNet):
+    if isinstance(model, (qCIRIM, qVarNet)):
+        out += _quantitative_pairs(model)
+    elif isinstance(model, CascadeNet):
         for i, block in enumerate(model.cascades):
             out += _cascade_pairs(block.model, f"Conv2dCascade_{i}/", f"cascades.{i}.model.")
             out.append(_leaf(f"dc_weight_{i}", f"cascades.{i}.dc_weight"))
@@ -500,10 +551,15 @@ def _model_pairs(model):
     return out
 
 
-def _port_model(cfg: Mapping):
+def _port_model(cfg: Mapping, in_chans=None):
+    """The port model of ``cfg`` on the CPU; a qVarNet's regularisers built at
+    ``in_chans`` (read off the weights by the caller)."""
     from mridc_tpu_torch.models.registry import build_model
 
-    return build_model(dict(cfg), device="cpu")
+    model = build_model(dict(cfg), device="cpu")
+    if in_chans is not None and hasattr(model, "materialize"):
+        model.materialize(int(in_chans))
+    return model
 
 
 def _collections(tree: Mapping):
@@ -514,8 +570,10 @@ def _collections(tree: Mapping):
     return tree, {}
 
 
-_FROM = {None: lambda a: a, "conv": hwio_to_oihw, "convT": hwio_to_iohw_flipped}
+_FROM = {None: lambda a: a, "conv": hwio_to_oihw, "convT": hwio_to_iohw_flipped,
+         "hh": lambda a: np.ascontiguousarray(np.transpose(np.asarray(a), (0, 3, 1, 2)))}
 _TO = {None: lambda a: a, "conv": lambda a: np.ascontiguousarray(np.transpose(a, (2, 3, 1, 0))),
+       "hh": lambda a: np.ascontiguousarray(np.transpose(a, (0, 2, 3, 1))),
        "convT": lambda a: np.ascontiguousarray(np.transpose(a[..., ::-1, ::-1], (2, 3, 0, 1)))}
 
 
@@ -548,8 +606,10 @@ def zoo2_params_from_jax(tree: Mapping, cfg: Mapping) -> Dict[str, torch.Tensor]
     parameters, live ones (``batch_stats``) the buffers ``running_mean`` and
     ``running_var``. XPDNet's ``Scan_XPDIter_0`` layout is taken as well as
     the unrolled one. Every leaf is used once."""
-    model = _port_model(cfg)
     params, stats = _collections(tree)
+    first = params.get("NormUnet_0", {}).get("Unet_0", {}).get("ConvBlock_0", {}).get("Conv_0", {}) \
+        if isinstance(params, Mapping) else {}
+    model = _port_model(cfg, np.shape(first["kernel"])[2] if "kernel" in first else None)
     if isinstance(params, Mapping) and "Scan_XPDIter_0" in params:
         params = _unstack_xpd_scan(params, len(model.iterations))
     name = str(cfg.get("model_name"))
@@ -566,7 +626,10 @@ def zoo2_params_to_jax(state: Mapping[str, torch.Tensor], cfg: Mapping) -> Dict:
     model tracks live statistics (numpy leaves; XPDNet in the unrolled
     layout: a live-statistics model, the one the port archives this way,
     refuses ``scan_iterations``)."""
-    model = _port_model(cfg)
+    from mridc_tpu_torch.models.quantitative.qvn import FIRST_CONV
+
+    first = state.get(FIRST_CONV)
+    model = _port_model(cfg, None if first is None else first.shape[1])
     out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
     left = set(state)
     for coll, f, p, kind in _model_pairs(model):
@@ -601,3 +664,5 @@ vsnet_params_from_jax = _named("VSNet")
 dunet_params_from_jax = _named("DUNet")
 rvn_params_from_jax = _named("RVN")
 multidomainnet_params_from_jax = _named("MultiDomainNet")
+qcirim_params_from_jax = _named("qCIRIM")
+qvn_params_from_jax = _named("qVN")
