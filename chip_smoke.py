@@ -168,7 +168,25 @@ Phases (any failure raises; no phase catches its own):
      then ``cli.main(["run", "-c", ...])`` of base_qcirim_train.yaml, of
      base_qcirim_run.yaml (``mode: test``) on the archive it wrote, and of
      base_qvn_train.yaml, at batch 1 on phantom volumes with premade masks
-     (``q_launch_phase``).
+     (``q_launch_phase``);
+  G. the seven segmentation trunks as projects/segmentation/conf's YAMLs set
+     them (``G_CFGS``: U-Net, 3D U-Net, attention U-Net, lambda U-Net,
+     V-Net, DynUNet, UNETR) on phantom slices (15 coils, 320x320, the SENSE
+     magnitude through the port's transform, 2-class labels): serving at B=8
+     (``G_SERVE``: float32, the U-Net and UNETR also bf16; the 3D U-Net
+     reads the batch as a volume of depth 8) with 0 hand-kernel launches
+     asserted, a traced forward each split into convs, dense layers, norms,
+     attention or lambda products and the rest (``g_trace``), each against
+     the port's CPU forward of the same weights at 128x128; training through
+     ``SegmentationTrainer`` under the YAMLs' Adam (``G_TRAIN``: every trunk
+     at batch 1, U-Net, attention U-Net and DynUNet also at 8; first-step
+     loss and gradients against the CPU, V-Net's with the same host-drawn
+     dropout masks; ms, slices/s, peak memory; 0 launches); then
+     ``cli.main(["run", "-c", ...])`` of base_segmentation_unet_train.yaml,
+     of base_segmentation_unet_run.yaml (``mode: test``: per-volume classes
+     and DICE, IOU, F1, HD95) on its archive, and of
+     base_segmentation_lambda_unet3d_train.yaml (5 slices folded into the
+     batch) on ``SegPhantomSource`` volumes (``g_launch_phase``).
 
 The poisson2d masks of D1 and D2 (pure-Python dart throwing: minutes a mask
 at 320x320) are drawn at the start, in worker processes that run beside
@@ -661,11 +679,12 @@ Q_TRAIN = {
 Q_TRACED = ("qcirim_f32", "qvn")  # a forward of each traced, and qCIRIM's B=1 step
 
 
-def _q_ds(shuffle, use_seed=True):
-    """A data block of projects/quantitative/conf's YAMLs as written."""
+def _q_ds(shuffle, use_seed=True, consecutive=1):
+    """A data block of projects/quantitative/conf's YAMLs as written (the
+    segmentation YAMLs' are the same, with their ``consecutive_slices``)."""
     return {
         "data_path": "???", "sense_path": None, "mask_path": None, "challenge": "multicoil", "batch_size": 1,
-        "sample_rate": 1, "volume_sample_rate": None, "consecutive_slices": 1, "data_saved_per_slice": False,
+        "sample_rate": 1, "volume_sample_rate": None, "consecutive_slices": consecutive, "data_saved_per_slice": False,
         "complex_data": True, "apply_prewhitening": False, "apply_gcc": False, "coil_combination_method": "SENSE",
         "dimensionality": 2,
         "mask_args": {"type": "poisson2d", "accelerations": [10], "center_fractions": [0.7], "scale": 0.02,
@@ -677,8 +696,10 @@ def _q_ds(shuffle, use_seed=True):
     }
 
 
-def _q_cfg(name, model, mode):
-    """base_{qcirim,qvn}_{train,run}.yaml as written (``mode``: train or test)."""
+def _q_cfg(name, model, mode, consecutive=1):
+    """base_{qcirim,qvn}_{train,run}.yaml as written (``mode``: train or test);
+    projects/segmentation/conf's YAMLs share their layout and every block
+    but the model keys and the experiment's name."""
     common = {"coil_combination_method": "SENSE", "use_sens_net": False, "sens_chans": 8, "sens_pools": 4,
               "sens_mask_type": "2D", "fft_centered": False, "fft_normalization": "backward",
               "spatial_dims": [-2, -1], "coil_dim": 1, "complex_data": True, "log_images": True,
@@ -686,9 +707,10 @@ def _q_cfg(name, model, mode):
     if mode == "train":
         blocks = {"optim": {"name": "adam", "lr": 0.001, "betas": [0.9, 0.98], "weight_decay": 0.0,
                             "sched": {"name": "InverseSquareRootAnnealing", "min_lr": 0.0, "warmup_ratio": 0.1}},
-                  "train_ds": _q_ds(True), "validation_ds": _q_ds(False), "test_ds": _q_ds(False)}
+                  "train_ds": _q_ds(True, consecutive=consecutive), "validation_ds": _q_ds(False, consecutive=consecutive),
+                  "test_ds": _q_ds(False, consecutive=consecutive)}
     else:
-        blocks = {"test_ds": _q_ds(False, use_seed=False)}
+        blocks = {"test_ds": _q_ds(False, use_seed=False, consecutive=consecutive)}
     return {
         "pretrained": mode != "train", "checkpoint": None if mode == "train" else "???", "mode": mode,
         "model": {**common, **blocks, **model},
@@ -704,6 +726,46 @@ def _q_cfg(name, model, mode):
 QCIRIM_TRAIN_CFG = _q_cfg("qcirim", Q_CFGS["qcirim"], "train")
 QCIRIM_RUN_CFG = _q_cfg("qcirim", Q_CFGS["qcirim"], "test")
 QVN_TRAIN_CFG = _q_cfg("qvn", Q_CFGS["qvn"], "train")
+# G: the segmentation models as projects/segmentation/conf's YAMLs set them
+# (every train YAML's model keys but the model's name are G_COMMON; the
+# 5-slice lambda config adds its temporal kernel and slice count)
+G_COMMON = {"segmentation_module_input_channels": 2, "segmentation_module_output_channels": 2,
+            "segmentation_module_channels": 32, "segmentation_module_pooling_layers": 4,
+            "segmentation_loss_fn": ["cross_entropy", "dice"], "cross_entropy_loss_weighting_factor": 0.5,
+            "dice_loss_weighting_factor": 0.5, "magnitude_input": True, "normalize_segmentation_output": True}
+G_CFGS = {
+    "unet": {"model_name": "SegmentationUNet", **G_COMMON},
+    "unet3d": {"model_name": "Segmentation3DUNet", **G_COMMON},
+    "attention_unet": {"model_name": "SegmentationAttentionUNet", **G_COMMON},
+    "lambda_unet": {"model_name": "SegmentationLambdaUNet", **G_COMMON},
+    "vnet": {"model_name": "SegmentationVNet", **G_COMMON},
+    "dynunet": {"model_name": "SegmentationDYNUNet", **G_COMMON},
+    "unetr": {"model_name": "SegmentationUNetR", **G_COMMON},
+    "lambda_unet3d": {"model_name": "SegmentationLambdaUNet", **G_COMMON, "segmentation_module_temporal_kernel": 3,
+                      "consecutive_slices": 5},
+}
+G_TRUNKS = ("unet", "unet3d", "attention_unet", "lambda_unet", "vnet", "dynunet", "unetr")
+# serving at B=8 (the 3D U-Net: one volume of depth 8, as the JAX package
+# reads a 4D batch), float32 and the U-Net and UNETR also in bfloat16
+G_BATCH = 8
+G_SERVE = {**{name: (name, {}) for name in G_TRUNKS},
+           "unet_bf16": ("unet", {"compute_dtype": "bfloat16"}), "unetr_bf16": ("unetr", {"compute_dtype": "bfloat16"})}
+# training at the YAMLs' batch 1, and the U-Net, attention U-Net and DynUNet
+# also at 8
+G_TRAIN = {**{f"{name}_b1": (name, 1) for name in G_TRUNKS},
+           "unet_b8": ("unet", 8), "attention_unet_b8": ("attention_unet", 8), "dynunet_b8": ("dynunet", 8)}
+G_CHECK_HW = 128  # the card-against-CPU checks: one slice (the gradients: batch 1) at 128x128
+# the first-step gradient check of the lambda U-Net runs at 1 pool: each of
+# its lambda layers multiplies a relative change by 2-4, and at the YAML's 4
+# pools (18 layers) a 1e-7 change of the image moves the CPU's own gradient
+# by 15-65%, so that no comparison there tells a fault from roundoff; at 1
+# pool it moves it by ~4e-4 (its timed steps keep the YAML's depth)
+G_GRAD_CHECK = {"lambda_unet": {"segmentation_module_pooling_layers": 1}}
+SEG_UNET_TRAIN_CFG = _q_cfg("segmentation_unet", G_CFGS["unet"], "train")
+SEG_UNET_RUN_CFG = _q_cfg("segmentation_unet", G_CFGS["unet"], "test")
+SEG_LAMBDA5_TRAIN_CFG = _q_cfg("lambdaunet3d", G_CFGS["lambda_unet3d"], "train", consecutive=5)
+# the config-file runs: G_STEPS steps at batch 1 and 1 validation batch
+G_STEPS = 3
 # the config-file runs' phantom volumes: 1 training volume of Q_SLICES slices
 # (Q_SLICES steps at batch 1) and 1 validation volume of 1 slice, each with
 # the poisson2d mask the YAML's masker draws for its file name, premade; qVN
@@ -1099,7 +1161,8 @@ def trace_call(fn, ms_per_call, ranges=()):
         torch.cuda.synchronize()
     by_name, calls = {}, {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # a range's own event on the device timeline spans its kernels: not one
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in ranges:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
             calls[e.name] = calls.get(e.name, 0) + 1
     by_cat, launches = {}, {}
@@ -2397,7 +2460,8 @@ def timed_steps(run, trainer, batch, per_step, card):
 
     from mridc_tpu_torch import kernels
 
-    model, b = trainer.model, batch["masked_kspace" if "masked_kspace" in batch else "kspace"].shape[0]
+    model = trainer.model
+    b = next(batch[k] for k in ("masked_kspace", "kspace", "image") if k in batch).shape[0]
     before = {k: v.detach().clone() for k, v in model.named_parameters()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3443,6 +3507,500 @@ def q_launch_phase(dev, card, rows, q_masks) -> None:
         r["q_launch_launches"] = q_counts.get(r["name"], 0)
     emit({"phase": "Q launch", "seconds": time.perf_counter() - t_ql})
 
+def g_volume(rng, slices, coils, h, w):
+    """:func:`phantom_volume`'s slices as the segmentation YAMLs read them:
+    uncentered, backward-normalised k-space [S, C, H, W], the maps [C, H, W],
+    and 2-class labels [S, 2, H, W] one-hot (the RSS image above half its
+    maximum), as a labelled h5 volume holds them."""
+    from scipy import fft as sp_fft
+
+    kspace, sens, rss = phantom_volume(rng, slices, coils, h, w)
+    imgs = sp_fft.fftshift(sp_fft.ifft2(sp_fft.ifftshift(kspace, axes=(-2, -1)), norm="ortho", workers=-1),
+                           axes=(-2, -1))
+    kspace = sp_fft.fft2(imgs, workers=-1).astype(np.complex64)
+    labels = (rss > 0.5 * rss.max()).astype(np.int64)
+    return kspace, sens, np.moveaxis(np.eye(2, dtype=np.float32)[labels], -1, 1)
+
+
+def g_transform():
+    """The segmentation YAMLs' transform (SENSE, the magnitude, normalised;
+    uncentered backward FFTs; 2 classes)."""
+    from mridc_tpu_torch.data.seg_pipeline import SegmentationDataTransforms
+
+    return SegmentationDataTransforms(complex_data=True, magnitude_input=True, input_channels=2, output_classes=2,
+                                      coil_combination_method="SENSE")
+
+
+def g_batch(n, h, w, dev, seed=0):
+    """``n`` phantom slices (15 coils) through :func:`g_transform` and the
+    port's batcher: {"image" [n, H, W, 1], "segmentation" [n, H, W, 2]} on
+    ``dev``."""
+    import torch
+
+    from mridc_tpu_torch.data.seg_pipeline import SegBatchLoader
+
+    kspace, sens, seg = g_volume(np.random.default_rng(seed), n, COILS, h, w)
+    tfm = g_transform()
+    batch = SegBatchLoader._collate([tfm(kspace[s], sens, None, np.array([]), seg[s], {}, "g.h5", s)
+                                     for s in range(n)])
+    return {k: torch.from_numpy(batch[k]).to(dev) for k in ("image", "segmentation")}
+
+
+class _RangedTorch:
+    """``torch`` as ``nn/seg_blocks.py`` sees it while :func:`seg_ranges` is
+    active: its einsums, matmuls and softmaxes under the profiler range
+    ``products``."""
+
+    def __init__(self, torch_mod, ranged):
+        self._torch = torch_mod
+        self.einsum, self.matmul, self.softmax = (ranged(getattr(torch_mod, n), "products")
+                                                  for n in ("einsum", "matmul", "softmax"))
+
+    def __getattr__(self, name):
+        return getattr(self._torch, name)
+
+
+@contextlib.contextmanager
+def seg_ranges():
+    """While active, the segmentation trunks' convolutions run under the
+    profiler range ``convs`` (``nn/layers.py:conv2d``, 2D, 3D and transposed),
+    UNETR's Dense layers under ``dense``, every norm (InstanceNorm,
+    BatchNorm, the token norm, LayerNorm) under ``norms`` and the attention's
+    and lambda layers' products (einsum, matmul, softmax) under
+    ``products``."""
+    import torch
+    from torch.profiler import record_function
+
+    from mridc_tpu_torch.nn import layers, seg_blocks
+
+    def ranged(fn, name):
+        def wrapped(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return wrapped
+
+    saved = [(layers, "conv2d"), (layers.Dense, "forward"), (layers.InstanceNorm, "forward"),
+             (layers.BatchNorm, "forward"), (seg_blocks, "_token_instance_norm"), (seg_blocks._LayerNorm, "forward"),
+             (seg_blocks, "torch")]
+    saved = [(obj, n, getattr(obj, n)) for obj, n in saved]
+    for (obj, n, fn), rng in zip(saved, ("convs", "dense", "norms", "norms", "norms", "norms")):
+        setattr(obj, n, ranged(fn, rng))
+    seg_blocks.torch = _RangedTorch(torch, ranged)
+    try:
+        yield
+    finally:
+        for obj, n, fn in saved:
+            setattr(obj, n, fn)
+
+
+def g_trace(fn, ms_per_call):
+    """:func:`trace_call` of ``fn`` under :func:`seg_ranges`, with G's split of
+    the device time: convs (cuDNN), UNETR's dense layers, norms, the
+    attention or lambda products, and the rest."""
+    with seg_ranges():
+        traced = trace_call(fn, ms_per_call, ranges=("convs", "dense", "norms", "products"))
+    split = {k: traced["ranges_ms"][r] for k, r in (("convs", "convs"), ("dense layers", "dense"), ("norms", "norms"),
+                                                   ("attention or lambda products", "products"))}
+    split["rest"] = traced["device_ms"] - sum(split.values())
+    return {**traced, "g_split_ms": split}
+
+
+def g_fresh(cfg, where):
+    """The model of ``cfg`` on ``where`` with ``ZOO_SEED``'s weights (the
+    trunk drawn from it whenever it is built)."""
+    import torch
+
+    from mridc_tpu_torch.models import build_model
+
+    return build_model(cfg, device=where, generator=torch.Generator().manual_seed(ZOO_SEED))
+
+
+def g_host_masks(seed=3):
+    """V-Net's channel-dropout keep masks drawn on the host, one per call in
+    call order (the same sequence each time this is called)."""
+    rng = np.random.default_rng(seed)
+    return lambda shape, p: rng.random(shape) >= p
+
+
+def g_serve(run, model, image, card, bf16, **extra):
+    """Serving: ``WARMUP`` and ``ITERS`` timed forwards on ``image``, the
+    launch counters zeroed before and read after (no hand kernel runs on this
+    path: none may launch), the logits finite and [B, H, W, 2]. Returns (ms
+    per forward, the launches)."""
+    import torch
+
+    from mridc_tpu_torch import kernels
+
+    b, h, w = image.shape[:3]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        for _ in range(WARMUP):
+            model(image)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            logits = model(image)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    delta = {k: v for k, v in kernels.launch_counts().items() if v}
+    ms = dt / ITERS * 1e3
+    emit({"run": run, **extra, "batch": b, "forwards_timed": ITERS, "seconds": dt, "slices_per_s": ITERS * b / dt,
+          "ms_per_forward": ms, "launches_per_forward": delta, "bf16": bf16, "card": card})
+    if delta:
+        raise AssertionError(f"{run}: hand kernels launched on the segmentation path: {delta}")
+    if not bool(torch.isfinite(logits).all()) or tuple(logits.shape) != (b, h, w, 2):
+        raise AssertionError(f"{run}: logits not finite or of shape {tuple(logits.shape)}")
+    return ms, delta
+
+
+def g_card_vs_cpu(run, cfg, dev, bf16) -> None:
+    """The card's forward against the port's CPU forward of the same weights
+    on one phantom slice at ``G_CHECK_HW``: F32 (bfloat16: phase Q's bf16
+    limits) where the forward is well posed, that is where a 1e-7 relative
+    change of the image moves the CPU's own forward by less than F32's
+    limit; else (the lambda U-Net at random weights, whose InstanceNorms
+    amplify roundoff) the largest error at 3x that spread."""
+    import torch
+
+    cpu = g_fresh(cfg, "cpu")
+    x = g_batch(1, G_CHECK_HW, G_CHECK_HW, "cpu", seed=7)["image"]
+    x_p = x * (1 + 1e-7 * torch.randn(x.shape, generator=torch.Generator().manual_seed(5)))
+    with torch.inference_mode():
+        want, moved = cpu(x), cpu(x_p)
+        card_model = g_fresh(cfg, dev)
+        card_model.load_state_dict(cpu.state_dict())
+        got = card_model(x.to(dev)).cpu()
+    scale = float(want.abs().max())
+    spread = float((moved - want).abs().max())
+    note = (f"the card's forward against the port's CPU forward, 1 slice at {G_CHECK_HW}x{G_CHECK_HW}; the CPU's "
+            f"own spread under a 1e-7 change of the image {spread:.3g} of {scale:.3g}")
+    if bf16:
+        rel = float((got - want).norm() / want.norm())
+        check(f"g[{run}]", got, want, *BF16_MODEL, note=f"{note}; rel l2 {rel:.3g} (limit {BF16_REL_L2})")
+        if rel > BF16_REL_L2:
+            raise AssertionError(f"{run}: relative l2 {rel} against the CPU")
+    elif spread <= F32[1] * scale:
+        check(f"g[{run}]", got, want, *F32, note=note)
+    else:
+        err = float((got - want).abs().max())
+        ok = bool(torch.isfinite(got).all()) and err <= 3 * spread
+        emit({"check": f"g[{run}]", "max_abs_err": err, "max_abs_ref": scale, "limit": 3 * spread,
+              "note": note + "; ill-posed: held at 3x the spread", "ok": ok})
+        if not ok:
+            raise AssertionError(f"{run}: card against CPU {err} (3x the CPU's spread: {3 * spread})")
+
+
+def g_grad_check(run, cfg, dev, loss_cfg) -> None:
+    """The first step's loss and gradients on the card against the port's CPU
+    of the same weights (batch 1 at ``G_CHECK_HW``; V-Net with the same
+    host-drawn dropout masks on both sides): the loss at F32 and the whole
+    gradient at relative l2 1e-3 where the gradient is well posed (a 1e-7
+    relative change of the image moves the CPU's own by less than 1e-3), else
+    each at 3x the CPU's own spread under that change (the lambda U-Net's
+    float32 forward and gradient are ill-conditioned at random weights:
+    ``tests/test_torch_port_seg.py``)."""
+    import torch
+
+    from mridc_tpu_torch.nn.seg_blocks import dropout_masks
+    from mridc_tpu_torch.train.task_trainers import segmentation_loss_fn
+
+    batch = g_batch(1, G_CHECK_HW, G_CHECK_HW, "cpu", seed=9)
+    x_p = batch["image"] * (1 + 1e-7 * torch.randn(batch["image"].shape, generator=torch.Generator().manual_seed(5)))
+    out = {}
+    for which, where, x in (("card", dev, batch["image"]), ("cpu", "cpu", batch["image"]), ("cpu_perturbed", "cpu", x_p)):
+        model = g_fresh(cfg, where)
+        with dropout_masks(g_host_masks()):
+            loss = segmentation_loss_fn(batch["segmentation"].to(where), model(x.to(where), train=True), **loss_cfg)
+        loss.backward()
+        out[which] = (loss.detach().cpu(), torch.cat([p.grad.detach().cpu().flatten() for p in model.parameters()
+                                                      if p.grad is not None]))
+        del model, loss
+    ref = out["cpu"][1]
+    whole = float((out["card"][1] - ref).norm() / ref.norm())
+    spread = float((out["cpu_perturbed"][1] - ref).norm() / ref.norm())
+    posed = spread < 1e-3
+    if posed:
+        check(f"g_train_loss[{run}]", out["card"][0], out["cpu"][0], *F32)
+    else:  # the loss held as the gradient is: at 3x the CPU's own spread
+        err, loss_spread = (float((out[k][0] - out["cpu"][0]).abs()) for k in ("card", "cpu_perturbed"))
+        loss_limit = max(F32[1] * float(out["cpu"][0].abs()), 3 * loss_spread)
+        emit({"check": f"g_train_loss[{run}]", "max_abs_err": err, "perturbed_abs_err": loss_spread,
+              "limit": loss_limit, "ok": err <= loss_limit})
+        if err > loss_limit:
+            raise AssertionError(f"g_train_loss[{run}]: {err} (3x the CPU's spread: {3 * loss_spread})")
+    limit = 1e-3 if posed else 3 * spread
+    emit({"check": f"g_train_grads[{run}]", "whole_rel_l2": whole, "perturbed_whole_rel_l2": spread,
+          "limit": limit, "ok": whole <= limit})
+    if whole > limit:
+        raise AssertionError(f"g_train_grads[{run}]: whole relative l2 {whole} (CPU spread {spread})")
+
+
+def g_phase(dev, card, rows) -> None:
+    """Phase G: the seven segmentation trunks as projects/segmentation/conf's
+    YAMLs set them (``G_CFGS``) on phantom slices (15 coils, 320x320, SENSE
+    magnitude images through the port's transform, 2-class labels), random
+    weights from ``ZOO_SEED``. Serving (``G_SERVE``: every trunk at B=8 in
+    float32, the U-Net and UNETR also in bfloat16; :func:`g_serve`), each
+    forward traced and split (:func:`g_trace`), each checked against the
+    port's CPU forward (:func:`g_card_vs_cpu`). Training through
+    ``SegmentationTrainer`` under the YAMLs' Adam and
+    InverseSquareRootAnnealing (``G_TRAIN``): the first step's loss and
+    gradients against the CPU (:func:`g_grad_check`, at batch 1; the lambda
+    U-Net at ``G_GRAD_CHECK``'s depth), 2 warm-up
+    and 3 timed steps (:func:`timed_steps`: ms, slices/s, peak memory; no
+    launches). V-Net trains with the YAML's dropout in the timed steps."""
+    import torch
+
+    from mridc_tpu_torch import kernels
+    from mridc_tpu_torch.train.task_trainers import SegmentationTrainer, seg_loss_cfg_from_model_cfg
+
+    t_g = time.perf_counter()
+    batches = {b: g_batch(b, H, W, dev) for b in sorted({G_BATCH} | {b for _, b in G_TRAIN.values()})}
+    counts = {k: 0 for k in kernels.launch_counts()}
+    for run, (name, overrides) in G_SERVE.items():
+        cfg = {**G_CFGS[name], **overrides}
+        bf16 = "compute_dtype" in overrides
+        model = g_fresh(cfg, dev)
+        ms, delta = g_serve(f"g_{run}", model, batches[G_BATCH]["image"], card, bf16,
+                            config=f"projects/segmentation/conf/base_segmentation_{name}_train.yaml",
+                            overrides=overrides)
+        for k, v in delta.items():
+            counts[k] += v
+        with torch.inference_mode():
+            emit({"trace": f"g_{run}", "batch": G_BATCH,
+                  **g_trace(lambda: model(batches[G_BATCH]["image"]), ms), "card": card})
+        del model
+        torch.cuda.empty_cache()
+        g_card_vs_cpu(run, cfg, dev, bf16)
+
+    optim = SEG_UNET_TRAIN_CFG["model"]["optim"]
+    loss_cfg = seg_loss_cfg_from_model_cfg(G_COMMON)
+    train_counts = {k: 0 for k in kernels.launch_counts()}
+    for run, (name, b) in G_TRAIN.items():
+        cfg = G_CFGS[name]
+        if b == 1:
+            g_grad_check(run, {**cfg, **G_GRAD_CHECK.get(name, {})}, dev, loss_cfg)
+        trainer = SegmentationTrainer(g_fresh(cfg, dev), optim_cfg=optim, trainer_cfg=TRAIN_CFG, seg_loss_cfg=loss_cfg,
+                                      device=dev)
+        trainer.init_state(batches[b])
+        _, delta = timed_steps(f"g_train_{run}", trainer, batches[b], {}, card)
+        for k, v in delta.items():
+            train_counts[k] += v
+        del trainer
+        torch.cuda.empty_cache()
+    del batches
+    torch.cuda.empty_cache()
+    for r in rows:
+        r["g_launches"] = counts.get(r["name"], 0)
+        r["g_train_launches"] = train_counts.get(r["name"], 0)
+    emit({"phase": "G", "seconds": time.perf_counter() - t_g})
+
+
+class SegPhantomSource:
+    """An indexable source of segmentation samples over in-memory phantom
+    volumes ({file name: (k-space [S, C, H, W], maps, labels [S, 2, H, W])})
+    in place of ``SegmentationMRIDataset``: windows of ``consecutive_slices``
+    slices as its h5 read takes them, each through ``transform``."""
+
+    def __init__(self, volumes, transform, consecutive_slices=1):
+        self.volumes, self.transform, self.consecutive = volumes, transform, int(consecutive_slices or 1)
+        self.examples = [(fname, s) for fname in sorted(volumes)
+                         for s in range(volumes[fname][0].shape[0] - (self.consecutive - 1))]
+
+    def __len__(self):
+        return len(self.examples)
+
+    def __getitem__(self, i):
+        fname, s = self.examples[i]
+        kspace, sens, seg = self.volumes[fname]
+        window = slice(s, s + self.consecutive) if self.consecutive > 1 else s
+        maps = np.broadcast_to(sens, kspace[window].shape) if self.consecutive > 1 else sens
+        return self.transform(kspace[window], maps, None, np.array([]), seg[window], {}, fname, s)
+
+
+def g_launch_phase(dev, card, rows) -> None:
+    """Phase G, from the config files: ``python -m mridc_tpu_torch run -c``
+    (``cli.main``) of base_segmentation_unet_train.yaml (``G_STEPS`` steps at
+    its batch 1, 1 validation batch), base_segmentation_unet_run.yaml
+    (``mode: test``, the repaired test mode) on the archive that run wrote,
+    and base_segmentation_lambda_unet3d_train.yaml (5 consecutive slices
+    folded into the lambda U-Net's batch, ``G_STEPS`` steps), on the card.
+    The h5 read is replaced by phantom volumes (``SegPhantomSource``: 15
+    coils, 320x320, labels) and the writer of ``mode: test`` by a capture
+    (the card's machine has no h5py). ms per step (between the starts of
+    consecutive steps, the card synchronised at each), the host pipeline's
+    ms per batch, one traced step's
+    device idle share, no hand-kernel launches; the test run's classes [S, H,
+    W, 2], one class a pixel, and its DICE, IOU, F1 and HD95 finite."""
+    import json as json_mod
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    import torch
+
+    from mridc_tpu_torch import cli, kernels
+    from mridc_tpu_torch.data import task_loaders
+    from mridc_tpu_torch.launch import _build_task_loader
+    from mridc_tpu_torch.train.config import apply_overrides
+    from mridc_tpu_torch.train.task_trainers import SegmentationTrainer
+
+    t_gl = time.perf_counter()
+    rng = np.random.default_rng(51)
+    vols = {"phantom/g/train": {"g_0.h5": g_volume(rng, G_STEPS, COILS, H, W)},
+            "phantom/g/val": {"g_val_0.h5": g_volume(rng, 1, COILS, H, W)},
+            "phantom/g/five": {"g5_0.h5": g_volume(rng, G_STEPS + 4, COILS, H, W)},
+            "phantom/g/five_val": {"g5_val_0.h5": g_volume(rng, 5, COILS, H, W)}}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_g_"))
+    record = {"marks": [], "counts": [], "outs": [], "trainer": None, "validations": [], "tests": []}
+    step, validate, test = SegmentationTrainer.training_batch, SegmentationTrainer.validate, SegmentationTrainer.test
+
+    def recording(self, batch):
+        # the card's work of the step before is done (a step that waits on the
+        # card would otherwise be timed by the host running ahead)
+        torch.cuda.synchronize()
+        record["trainer"] = self
+        record["marks"].append(time.perf_counter())
+        before = kernels.launch_counts()
+        out = step(self, batch)
+        after = kernels.launch_counts()
+        record["counts"].append({k: after[k] - before[k] for k in after if after[k] != before[k]})
+        record["outs"].append(out)
+        return out
+
+    def validating(self, *a, **kw):
+        out = validate(self, *a, **kw)
+        record["validations"].append(dict(out))
+        return out
+
+    def testing(self, *a, **kw):
+        out = test(self, *a, **kw)
+        record["tests"].append(dict(out[1]))
+        return out
+
+    written = {}
+
+    class _H5Capture:
+        def __init__(self, path, mode):
+            self.name = Path(path).name
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def create_dataset(self, key, data):
+            written[(self.name, key)] = np.asarray(data)
+
+    totals = {k: 0 for k in kernels.launch_counts()}
+    runs = (("launch_seg_unet", SEG_UNET_TRAIN_CFG, "base_segmentation_unet_train", "train", "val"),
+            ("test_seg_unet", SEG_UNET_RUN_CFG, "base_segmentation_unet_run", None, "val"),
+            ("launch_seg_lambda5", SEG_LAMBDA5_TRAIN_CFG, "base_segmentation_lambda_unet3d_train", "five", "five_val"))
+    archive = None
+    source = lambda root, transform=None, consecutive_slices=1, **_: SegPhantomSource(  # noqa: E731
+        vols[root], transform, consecutive_slices)
+    try:
+        with mock.patch.object(task_loaders, "SegmentationMRIDataset", source), \
+                mock.patch.object(SegmentationTrainer, "training_batch", recording), \
+                mock.patch.object(SegmentationTrainer, "validate", validating), \
+                mock.patch.object(SegmentationTrainer, "test", testing):
+            for run, cfg, yaml_name, train_root, val_root in runs:
+                cfg_path = tmp / f"{yaml_name}.json"
+                cfg_path.write_text(json_mod.dumps(cfg))
+                overrides = [f'exp_manager.exp_dir="{tmp / run}"', f'model.validation_ds.data_path="phantom/g/{val_root}"',
+                             f'model.test_ds.data_path="phantom/g/{val_root}"']
+                if train_root is None:
+                    overrides.append(f'checkpoint="{archive}"')
+                else:
+                    overrides += ["trainer.max_epochs=1", f"trainer.limit_train_batches={G_STEPS}",
+                                  "trainer.limit_val_batches=1", f'model.train_ds.data_path="phantom/g/{train_root}"']
+                emit({"phase": "G", "run": run, "config": f"projects/segmentation/conf/{yaml_name}.yaml",
+                      "overrides": overrides, "batch": 1, "card": card})
+                record.update(marks=[], counts=[], outs=[], trainer=None, validations=[], tests=[])
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                h5py = sys.modules.get("h5py")
+                sys.modules["h5py"] = types.SimpleNamespace(File=_H5Capture)  # the writer's only (reads are mocked)
+                try:
+                    cli.main(["run", "-c", str(cfg_path), *overrides])
+                finally:
+                    sys.modules.pop("h5py")
+                    if h5py is not None:
+                        sys.modules["h5py"] = h5py
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launched = {k: v for k, v in kernels.launch_counts().items() if v}
+                for k, v in launched.items():
+                    totals[k] += v
+                if launched:
+                    raise AssertionError(f"{run}: hand kernels launched on the segmentation path: {launched}")
+                exp_dir = tmp / run / cfg["exp_manager"]["name"]
+                (run_dir,) = exp_dir.iterdir()
+                files = sorted(p.name for p in run_dir.iterdir())
+                if train_root is None:
+                    classes = written.get(("g_val_0.h5", "segmentation"))
+                    metrics = record["tests"][-1] if record["tests"] else {}
+                    ok = (classes is not None and classes.shape == (1, H, W, 2) and bool((classes.sum(-1) == 1).all())
+                          and sorted(metrics) == ["DICE", "F1", "HD95", "IOU"]
+                          and all(np.isfinite(v) for v in metrics.values()))
+                    emit({"g": run, "seconds": seconds, "run_dir": files, "written": sorted(written),
+                          "shape": None if classes is None else list(classes.shape), "test_metrics": metrics,
+                          "ok": ok, "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+                          "card": card})
+                    if not ok:
+                        raise AssertionError(f"{run}: written classes {None if classes is None else classes.shape}, "
+                                             f"metrics {metrics}")
+                    continue
+                trainer = record["trainer"]
+                marks = record["marks"]
+                ms = (marks[-1] - marks[0]) / (len(marks) - 1) * 1e3
+                slices = int(cfg["model"].get("consecutive_slices", 1))  # a batch of 1 holds this many
+                rec = {"g": run, "batch": 1, "slices": slices, "steps": len(marks), "ms_per_step": ms,
+                       "slices_per_s": slices * 1e3 / ms,
+                       "steps_timed": len(marks) - 1, "seconds": seconds,
+                       "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       "losses": [float(o["loss"]) for o in record["outs"]],
+                       "grad_norms": [float(o["grad_norm"]) for o in record["outs"]],
+                       "validations": record["validations"], "run_dir": files,
+                       "note": "ms per step between the starts of consecutive steps, the card synchronised at each: "
+                               "the loader's host pipeline (the SENSE magnitude image of 15 coils a slice) and the "
+                               "step, at batch 1", "card": card}
+                emit(rec)
+                run_cfg = apply_overrides(cfg, overrides)
+                loader = _build_task_loader("segmentation", run_cfg["model"]["train_ds"], run_cfg["model"], False, dev)
+                t0 = time.perf_counter()
+                host = [b for _, b in zip(range(1), loader)]
+                host_ms = (time.perf_counter() - t0) / len(host) * 1e3
+                traced = trace_call(lambda: step(trainer, host[-1]), ms)
+                emit({"trace": run, "host_pipeline_ms_per_batch": host_ms, "image": list(host[-1]["image"].shape),
+                      "device_idle_share": None if traced.get("device_ms") is None else 1 - traced["device_ms"] / ms,
+                      **traced, "card": card})
+                del loader, host
+                if len(marks) != G_STEPS or any(record["counts"]):
+                    raise AssertionError(f"{run}: {len(marks)} steps; launches {record['counts']}")
+                if not np.isfinite(rec["losses"] + rec["grad_norms"]).all():
+                    raise AssertionError(f"{run}: losses {rec['losses']}, gradient norms {rec['grad_norms']}")
+                if len(rec["validations"]) != 2 or not all(np.isfinite(v) for val in rec["validations"]
+                                                           for v in val.values()):
+                    raise AssertionError(f"{run}: validations {rec['validations']} (the initial and the epoch's)")
+                if f"{cfg['exp_manager']['name']}.mridc" not in files:
+                    raise AssertionError(f"{run}: no archive in the run dir {files}")
+                if archive is None:
+                    archive = run_dir / f"{cfg['exp_manager']['name']}.mridc"
+                del trainer
+                record["trainer"] = None
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r in rows:
+        r["g_launch_launches"] = totals.get(r["name"], 0)
+    emit({"phase": "G launch", "seconds": time.perf_counter() - t_gl})
+
+
 def main() -> int:
     import torch
 
@@ -4274,6 +4832,10 @@ def run(t_start, masks, s_masks) -> int:
     # Q. qCIRIM and qVN serving and training, and from their config files
     q_phase(dev, card, rows)
     q_launch_phase(dev, card, rows, masks)
+
+    # G. the segmentation trunks serving and training, and from their config files
+    g_phase(dev, card, rows)
+    g_launch_phase(dev, card, rows)
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})

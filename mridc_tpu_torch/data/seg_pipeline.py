@@ -1,17 +1,138 @@
 """Task host pipelines (counterpart of ``mridc_tpu/data/seg_pipeline.py``):
-the quantitative batcher, :class:`QBatchLoader`, the same numpy code but for
-the fold of consecutive slices, which here yields one sample a slice. The
-segmentation and joint reconstruction-segmentation transforms and batchers
-come with M11 and M12.
+the segmentation transform and batcher, :class:`SegmentationDataTransforms`
+and :class:`SegBatchLoader`, and the quantitative batcher,
+:class:`QBatchLoader`, the same numpy code but for two repairs. The joint
+reconstruction-segmentation transform and batcher come with M12.
+
+The repairs: :class:`QBatchLoader` folds consecutive slices into one sample a
+slice; labels of consecutive slices stored one-hot as [S, classes, H, W]
+become [S, H, W, classes] (the JAX package's ``_to_onehot`` reads such a
+stack as integer labels), and :class:`SegBatchLoader` pads a sample's H and W
+(the JAX package's pads its first two axes, the slices and H of a
+consecutive-slice image).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
+from mridc_tpu_torch.data.loaders import _pad_to
 from mridc_tpu_torch.data.transforms import _np_ifft2
 
-__all__ = ["QBatchLoader"]
+__all__ = ["SegmentationDataTransforms", "SegBatchLoader", "QBatchLoader"]
+
+
+def _is_onehot(seg: np.ndarray) -> bool:
+    return bool(seg.min() >= 0 and seg.max() <= 1 and (np.mod(seg, 1) == 0).all())
+
+
+def _to_onehot(seg: np.ndarray, num_classes: Optional[int]) -> np.ndarray:
+    """Labels -> float32 one-hot with the class axis last: a one-hot stack
+    [classes, H, W] or, for consecutive slices, [S, classes, H, W] is moved;
+    integer labels are expanded; empty labels pass through (the batcher
+    refuses them)."""
+    seg = np.asarray(seg)
+    if seg.size == 0:
+        return seg.astype(np.float32)
+    if seg.ndim == 4 and _is_onehot(seg) and (num_classes is None or seg.shape[1] == num_classes):
+        return np.moveaxis(seg, 1, -1).astype(np.float32)
+    if seg.ndim >= 3 and _is_onehot(seg) and (num_classes is None or seg.shape[0] == num_classes):
+        return np.moveaxis(seg, 0, -1).astype(np.float32)
+    n = num_classes or int(seg.max()) + 1
+    return np.eye(n, dtype=np.float32)[seg.astype(np.int64)]
+
+
+class SegmentationDataTransforms:
+    """(kspace | image, segmentation) -> {image [(S,) H, W, C_in],
+    segmentation [(S,) H, W, classes]}: the k-space's inverse FFT combined
+    over the coils (SENSE with the maps, else RSS), its magnitude (1 channel)
+    or real view (2), normalised by its maximum."""
+
+    def __init__(self, complex_data: bool = True, magnitude_input: bool = True, input_channels: int = 1,
+                 output_classes: Optional[int] = None, normalize_inputs: bool = True, fft_centered: bool = False,
+                 fft_normalization: str = "backward", coil_combination_method: str = "RSS"):
+        self.complex_data = complex_data
+        self.magnitude_input = magnitude_input
+        self.input_channels = input_channels
+        self.output_classes = output_classes
+        self.normalize_inputs = normalize_inputs
+        self.fft_centered = fft_centered
+        self.fft_normalization = fft_normalization
+        self.coil_combination_method = coil_combination_method.upper()
+
+    def __call__(self, kspace, sensitivity_map, mask, imspace, segmentation, attrs, fname, slice_idx):
+        if self.complex_data and np.size(kspace):
+            img = _np_ifft2(np.asarray(kspace), self.fft_centered, self.fft_normalization)
+            coil_ax = 1 if img.ndim == 4 else 0  # [S, C, H, W] for consecutive slices
+            if self.coil_combination_method == "SENSE" and np.size(sensitivity_map):
+                image = (img * np.conj(sensitivity_map)).sum(coil_ax)
+            else:
+                image = np.sqrt((np.abs(img) ** 2).sum(coil_ax))
+        else:
+            image = np.asarray(imspace)
+        if self.magnitude_input or self.input_channels == 1:
+            x = np.abs(image).astype(np.float32)[..., None]
+        else:
+            x = np.stack([image.real, image.imag], -1).astype(np.float32)
+        if self.normalize_inputs:
+            x = x / max(np.abs(x).max(), 1e-12)
+        seg = _to_onehot(segmentation, self.output_classes)
+        return {"image": x, "segmentation": seg, "fname": fname, "slice_idx": slice_idx, "attrs": attrs}
+
+
+class SegBatchLoader:
+    """Batches :class:`SegmentationDataTransforms` samples: ``image`` and
+    ``segmentation`` stacked (each sample's H and W zero-padded to the
+    batch's largest), ``fname`` and ``slice_idx``; shuffled by a seeded
+    numpy generator, samples built on ``num_workers`` threads in order."""
+
+    def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False, seed: int = 0, drop_last: bool = False,
+                 num_workers: int = 0):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.rng = np.random.RandomState(seed)
+        self.drop_last = drop_last
+        self.num_workers = int(num_workers)
+
+    def __len__(self):
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else (n + self.batch_size - 1) // self.batch_size
+
+    def __iter__(self):
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            self.rng.shuffle(order)
+        if self.num_workers > 0:
+            from mridc_tpu_torch.data.prefetch import OrderedWorkerMap
+
+            samples = OrderedWorkerMap(lambda i: self.dataset[int(i)], order, self.num_workers)
+        else:
+            samples = (self.dataset[int(idx)] for idx in order)
+        batch = []
+        for sample in samples:
+            batch.append(sample)
+            if len(batch) == self.batch_size:
+                yield self._collate(batch)
+                batch = []
+        if batch and not self.drop_last:
+            yield self._collate(batch)
+
+    @staticmethod
+    def _collate(samples):
+        if any(np.asarray(s["segmentation"]).size == 0 for s in samples):
+            raise ValueError("segmentation labels missing for at least one sample — provide segmentations_path or "
+                             "files with a 'segmentation' dataset")
+        h = max(np.asarray(s["image"]).shape[-3] for s in samples)
+        w = max(np.asarray(s["image"]).shape[-2] for s in samples)
+        return {
+            "image": np.stack([_pad_to(np.asarray(s["image"]), (h, w, 0)) for s in samples], 0),
+            "segmentation": np.stack([_pad_to(np.asarray(s["segmentation"]), (h, w, 0)) for s in samples], 0),
+            "fname": [s["fname"] for s in samples],
+            "slice_idx": np.asarray([s["slice_idx"] for s in samples], np.int32),
+        }
 
 
 class QBatchLoader:

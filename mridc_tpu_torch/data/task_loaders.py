@@ -1,9 +1,12 @@
 """Task-specific HDF5 datasets (counterpart of ``mridc_tpu/data/task_loaders.py``):
-the quantitative one, :class:`qMRIDataset` (AHEAD format: multi-echo
-``kspace`` [S, E, C, H, W], ``sensitivity_map``, ``mask``, ``mask_brain`` /
-``mask_head``, ``{B0,S0,R2star,phi}_map_target`` and ``_map_init_*``). The
-segmentation and joint reconstruction-segmentation datasets come with M11
-and M12. h5py is imported where a file is first opened.
+the segmentation one, :class:`SegmentationMRIDataset` (``kspace`` or
+``ksp``, ``sensitivity_map``, ``mask``, or the ``reconstruction``/``target``
+image without complex data, and the ``segmentation`` labels from the file or
+from ``segmentations_root``), and the quantitative one, :class:`qMRIDataset`
+(AHEAD format: multi-echo ``kspace`` [S, E, C, H, W], ``sensitivity_map``,
+``mask``, ``mask_brain`` / ``mask_head``, ``{B0,S0,R2star,phi}_map_target``
+and ``_map_init_*``). The joint reconstruction-segmentation dataset comes
+with M12. h5py is imported where a file is first opened.
 """
 
 from __future__ import annotations
@@ -12,9 +15,54 @@ from pathlib import Path
 
 import numpy as np
 
-from mridc_tpu_torch.data.loaders import MRIDataset, _h5py
+from mridc_tpu_torch.data.loaders import MRIDataset, _h5py, is_none
 
-__all__ = ["qMRIDataset"]
+__all__ = ["SegmentationMRIDataset", "qMRIDataset"]
+
+
+class SegmentationMRIDataset(MRIDataset):
+    """Returns (kspace, sensitivity_map, mask, imspace, segmentation, attrs,
+    fname, slice_idx), or the transform's output of them."""
+
+    def __init__(self, *args, segmentations_root=None, complex_data: bool = True, **kwargs):
+        self.segmentations_root = segmentations_root
+        self.complex_data = complex_data
+        super().__init__(*args, **kwargs)
+
+    def _load_segmentation(self, hf, fname, dataslice):
+        if self.segmentations_root is not None and not is_none(self.segmentations_root):
+            with _h5py().File(Path(self.segmentations_root) / Path(fname).name, "r") as sf:
+                return np.asarray(self.get_consecutive_slices(sf, "segmentation", dataslice))
+        if "segmentation" in hf:
+            return np.asarray(self.get_consecutive_slices(hf, "segmentation", dataslice))
+        return np.array([])
+
+    def __getitem__(self, i: int):
+        fname, dataslice, metadata = self.examples[i]
+        with _h5py().File(fname, "r") as hf:
+            if self.complex_data:
+                key = "kspace" if "kspace" in hf else "ksp"
+                kspace = self.get_consecutive_slices(hf, key, dataslice).astype(np.complex64, copy=False)
+                sensitivity_map = (
+                    self.get_consecutive_slices(hf, "sensitivity_map", dataslice).astype(np.complex64, copy=False)
+                    if "sensitivity_map" in hf
+                    else np.array([])
+                )
+                mask = np.asarray(self.get_consecutive_slices(hf, "mask", dataslice)) if "mask" in hf else None
+                imspace = np.array([])
+            else:
+                key = "reconstruction" if "reconstruction" in hf else "target"
+                imspace = self.get_consecutive_slices(hf, key, dataslice)
+                kspace = np.array([])
+                sensitivity_map = np.array([])
+                mask = None
+            segmentation = self._load_segmentation(hf, fname, dataslice)
+            attrs = dict(hf.attrs)
+            attrs.update(metadata)
+        sample = (kspace, sensitivity_map, mask, imspace, segmentation, attrs, str(Path(fname).name), dataslice)
+        if self.transform is not None:
+            return self.transform(*sample)
+        return sample
 
 
 class qMRIDataset(MRIDataset):

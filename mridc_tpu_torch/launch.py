@@ -5,14 +5,17 @@ then fits, any other mode tests and writes the reconstructions.
 
 The run is on the card unless ``run_from_config`` is given ``device="cpu"``
 or the config says ``trainer.accelerator: cpu``; the configs' ``tpu`` means the
-card here. Reconstruction and quantitative models: the segmentation and
-multitask branches raise, naming their ROADMAP.md items (M11, M12). The
-quantitative task reads AHEAD-format volumes through ``qMRIDataset`` and
-``QBatchLoader`` (the model config's ``TEs``; ``fft_centered`` true and
-``fft_normalization`` "ortho" where the model config omits them, as the JAX
-package does) and trains with ``QuantitativeTrainer``. ``pretrained:
-true`` takes a ``.mridc`` archive path, of the reference torch format or
-``mridc_tpu``'s.
+card here. Reconstruction, segmentation and quantitative models: the
+multitask branch raises, naming its ROADMAP.md item (M12). The segmentation
+task reads volumes with their labels through ``SegmentationMRIDataset``,
+``SegmentationDataTransforms`` and ``SegBatchLoader``, trains with
+``SegmentationTrainer`` and its ``mode: test`` writes each volume's
+predicted classes (``segmentation``). The quantitative task reads
+AHEAD-format volumes through ``qMRIDataset`` and ``QBatchLoader`` (the
+model config's ``TEs``; ``fft_centered`` true and ``fft_normalization``
+"ortho" where the model config omits them, as the JAX package does) and
+trains with ``QuantitativeTrainer``. ``pretrained: true`` takes a ``.mridc``
+archive path, of the reference torch format or ``mridc_tpu``'s.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ SEGMENTATION_MODELS = {
     "SEGMENTATIONDYNUNET", "SEGMENTATIONUNETR",
 }
 MULTITASK_MODELS = {"MTLRS", "JRSCIRIM", "IDSLR", "IDSLRUNET", "SEGNET", "RECSEGNET", "RECSEGUNET", "SERANET"}
-_UNPORTED_TASKS = {"segmentation": "M11", "multitask": "M12"}
+_UNPORTED_TASKS = {"multitask": "M12"}
 
 
 def model_task(model_name: str) -> str:
@@ -59,6 +62,23 @@ def _build_task_loader(task, ds_cfg, model_cfg, shuffle, device):
     from mridc_tpu_torch.data.factory import async_loader, build_dataloader
 
     _check_task(task)
+    if task == "segmentation":
+        from mridc_tpu_torch.data.seg_pipeline import SegBatchLoader, SegmentationDataTransforms
+        from mridc_tpu_torch.data.task_loaders import SegmentationMRIDataset
+
+        tfm = SegmentationDataTransforms(
+            complex_data=ds_cfg.get("complex_data", True), magnitude_input=model_cfg.get("magnitude_input", True),
+            input_channels=model_cfg.get("segmentation_module_input_channels", 1),
+            output_classes=model_cfg.get("segmentation_module_output_channels"),
+            fft_centered=ds_cfg.get("fft_centered", model_cfg.get("fft_centered", False)),
+            fft_normalization=ds_cfg.get("fft_normalization", model_cfg.get("fft_normalization", "backward")),
+            coil_combination_method=ds_cfg.get("coil_combination_method", "RSS"))
+        ds = SegmentationMRIDataset(root=ds_cfg["data_path"], segmentations_root=ds_cfg.get("segmentations_path"),
+                                    complex_data=ds_cfg.get("complex_data", True),
+                                    sample_rate=ds_cfg.get("sample_rate"),
+                                    consecutive_slices=ds_cfg.get("consecutive_slices", 1), transform=tfm)
+        return async_loader(lambda **kw: SegBatchLoader(ds, batch_size=ds_cfg.get("batch_size", 1), shuffle=shuffle,
+                                                        **kw), ds_cfg, device=device)
     if task != "quantitative":
         return build_dataloader(ds_cfg, model_cfg, shuffle=shuffle, device=device)
     from mridc_tpu_torch.data.seg_pipeline import QBatchLoader
@@ -154,7 +174,8 @@ def run_from_config(cfg: dict, device=None):
     ``device="cpu"`` or ``trainer.accelerator: cpu``."""
     from mridc_tpu_torch.models import build_model
     from mridc_tpu_torch.train.exp_manager import ExpManager
-    from mridc_tpu_torch.train.task_trainers import QuantitativeTrainer
+    from mridc_tpu_torch.train.task_trainers import (QuantitativeTrainer, SegmentationTrainer,
+                                                     seg_loss_cfg_from_model_cfg)
     from mridc_tpu_torch.train.trainer import Trainer, _limit_batches
     from mridc_tpu_torch.utils.typecheck import resolve_device
 
@@ -198,7 +219,11 @@ def run_from_config(cfg: dict, device=None):
         trainer_cfg.setdefault("n2r_loss_weight", float(model_cfg["n2r_loss_regularization_factor"]))
     task_kwargs = {}
     trainer_cls = Trainer
-    if task == "quantitative":
+    if task == "segmentation":
+        trainer_cls = SegmentationTrainer
+        task_kwargs["seg_loss_cfg"] = seg_loss_cfg_from_model_cfg(model_cfg)
+        task_kwargs["segmentation_classes_thresholds"] = model_cfg.get("segmentation_classes_thresholds")
+    elif task == "quantitative":
         trainer_cls = QuantitativeTrainer
         task_kwargs["loss_regularization_factors"] = model_cfg.get("loss_regularization_factors")
     trainer = trainer_cls(
@@ -279,9 +304,10 @@ def run_from_config(cfg: dict, device=None):
 
     out_dir = exp.log_dir / "reconstructions"
     out_dir.mkdir(parents=True, exist_ok=True)
+    key = "segmentation" if task == "segmentation" else "reconstruction"  # the predicted classes
     for fname, vol in recons.items():
         with h5py.File(out_dir / fname, "w") as hf:
-            hf.create_dataset("reconstruction", data=np.asarray(vol))
+            hf.create_dataset(key, data=np.asarray(vol))
     return trainer, means
 
 

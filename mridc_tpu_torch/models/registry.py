@@ -1,8 +1,7 @@
 """Model registry (counterpart of ``mridc_tpu/models/registry.py``):
 name -> constructor, plus the names of the JAX registry that are not ported yet,
 each with the ROADMAP item that ports it: JointICNet (M8's second half, which
-brings the learned sensitivity maps it trains), the segmentation models (M11)
-and the multitask models (M12).
+brings the learned sensitivity maps it trains) and the multitask models (M12).
 """
 
 from __future__ import annotations
@@ -15,6 +14,9 @@ from mridc_tpu_torch.models.recon import (CIRIM, CS, PICS, ZF, CascadeNet, CRNNe
                                           MultiDomainNet, ProximalGradient, RecurrentVarNet, ResNet, UNet, VarNet,
                                           VSNet, XPDNet)
 from mridc_tpu_torch.models.quantitative import qCIRIM, qVarNet
+from mridc_tpu_torch.models.segmentation import (Segmentation3DUNet, SegmentationAttentionUNet, SegmentationDYNUNet,
+                                                 SegmentationLambdaUNet, SegmentationUNet, SegmentationUNetR,
+                                                 SegmentationVNet)
 from mridc_tpu_torch.utils.typecheck import resolve_device
 
 __all__ = ["MODEL_REGISTRY", "PENDING_MODELS", "build_model", "available_models"]
@@ -35,19 +37,17 @@ MODEL_REGISTRY: Dict[str, Callable] = {
     "CS": CS.from_config, "PICS": PICS.from_config,
     "QCIRIM": qCIRIM.from_config, "QRIM": qCIRIM.from_config,
     "QVN": qVarNet.from_config, "QVARNET": qVarNet.from_config,
+    "SEGMENTATIONUNET": SegmentationUNet.from_config, "SEGMENTATION2DUNET": SegmentationUNet.from_config,
+    "SEGMENTATION3DUNET": Segmentation3DUNet.from_config,
+    "SEGMENTATIONATTENTIONUNET": SegmentationAttentionUNet.from_config,
+    "SEGMENTATIONLAMBDAUNET": SegmentationLambdaUNet.from_config, "SEGMENTATIONVNET": SegmentationVNet.from_config,
+    "SEGMENTATIONDYNUNET": SegmentationDYNUNet.from_config, "SEGMENTATIONUNETR": SegmentationUNetR.from_config,
 }
 
 _M8 = "M8 (learned sensitivity maps, second half)"
-_M11, _M12 = "M11 (segmentation)", "M12 (multitask)"
+_M12 = "M12 (multitask)"
 PENDING_MODELS: Dict[str, str] = {
     "JOINTICNET": _M8,
-    **dict.fromkeys(
-        (
-            "SEGMENTATIONUNET", "SEGMENTATION2DUNET", "SEGMENTATION3DUNET", "SEGMENTATIONATTENTIONUNET",
-            "SEGMENTATIONLAMBDAUNET", "SEGMENTATIONVNET", "SEGMENTATIONDYNUNET", "SEGMENTATIONUNETR",
-        ),
-        _M11,
-    ),
     **dict.fromkeys(
         ("MTLRS", "JRSCIRIM", "IDSLR", "IDSLRUNET", "SEGNET", "RECSEGNET", "RECSEGUNET", "SERANET"), _M12
     ),

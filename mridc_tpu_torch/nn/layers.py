@@ -29,9 +29,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Conv", "ConvTranspose", "ConvNonlinear", "InstanceNorm", "BatchNorm", "as_torch_dtype", "activation",
-           "conv2d", "cudnn_float32", "prelu", "replicate_pad", "fan_in_truncated_normal_",
-           "fan_avg_truncated_normal_"]
+__all__ = ["Conv", "ConvTranspose", "Conv3d", "ConvTranspose3d", "Dense", "ConvNonlinear", "InstanceNorm",
+           "BatchNorm", "as_torch_dtype", "activation", "conv2d", "cudnn_float32", "prelu", "replicate_pad",
+           "fan_in_truncated_normal_", "fan_avg_truncated_normal_", "nearest_resize", "bilinear_resize"]
 
 # std of a unit normal cut at +-2, by which flax's truncated_normal divides
 TRUNC_STD = 0.87962566103423978
@@ -105,11 +105,13 @@ def _hook_cudnn_float32(node) -> None:
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
            stride: Sequence[int] = (1, 1), padding: Sequence[int] = (0, 0), dilation: Sequence[int] = (1, 1),
-           transposed: bool = False) -> torch.Tensor:
-    """A 2D convolution (``transposed``: its transpose, output padding 0), in
+           transposed: bool = False, output_padding: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """A 2D convolution, or a 3D one where ``stride`` has three entries
+    (``transposed``: its transpose, ``output_padding`` zeros by default), in
     full float32 for float32 operands whatever the global cuDNN flag says;
     other dtypes take PyTorch's convolution as it is."""
-    args = (list(stride), list(padding), list(dilation), transposed, [0, 0], 1)
+    nd = len(stride)
+    args = (list(stride), list(padding), list(dilation), transposed, list(output_padding or [0] * nd), 1)
     if x.dtype != torch.float32:
         return torch.ops.aten.convolution(x, weight, bias, *args)
     with cudnn_float32():
@@ -191,38 +193,121 @@ class Conv(nn.Conv2d):
 
 class ConvTranspose(nn.ConvTranspose2d):
     """flax ``nn.ConvTranspose`` with ``padding="SAME"`` and kernel size equal
-    to its stride (each input pixel paints one k x k output patch), no bias.
-    The weight is torch's (in, out, kH, kW); flax applies its (kH, kW, in,
-    out) kernel unflipped, so the weight is flax's kernel transposed and
-    flipped in both spatial axes (:func:`mridc_tpu_torch.utils.params.hwio_to_iohw_flipped`).
-    ``dtype`` is the compute dtype."""
+    to its stride (each input pixel paints one k x k output patch), no bias
+    unless ``use_bias``. The weight is torch's (in, out, kH, kW); flax applies
+    its (kH, kW, in, out) kernel unflipped, so the weight is flax's kernel
+    transposed and flipped in both spatial axes
+    (:func:`mridc_tpu_torch.utils.params.hwio_to_iohw_flipped`). ``dtype`` is
+    the compute dtype.
 
-    def __init__(self, in_features: int, features: int, kernel_size: int = 2, dtype=None):
-        super().__init__(in_features, features, kernel_size, stride=kernel_size, bias=False)
+    ``stride``, ``padding`` and ``output_padding`` give torch's
+    ``ConvTranspose2d(k, s, p, 2p + s - k)``, the form MONAI's blocks take:
+    flax's VALID transpose conv of stride s cropped to rows [p, p + s * in)
+    (``mridc_tpu/nn/seg_blocks.py:_TorchConvTranspose``)."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 2, dtype=None, stride: Optional[int] = None,
+                 padding: int = 0, output_padding: int = 0, use_bias: bool = False):
+        super().__init__(in_features, features, kernel_size, stride=stride or kernel_size, padding=padding,
+                         output_padding=output_padding, bias=use_bias)
         self.compute_dtype = as_torch_dtype(dtype)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        """flax's ``lecun_normal`` on the (kH, kW, in, out) kernel: fan-in kH*kW*in."""
+        """flax's ``lecun_normal`` on the (kH, kW, in, out) kernel: fan-in kH*kW*in; zero bias."""
+        fan_in_truncated_normal_(self.weight, 1.0, generator, fan_in=self.in_channels * self.weight[0, 0].numel())
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return conv2d(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding, (1, 1), transposed=True,
+                      output_padding=self.output_padding)
+
+
+class Conv3d(nn.Conv3d):
+    """The 3D :class:`Conv`: flax padding semantics (``"SAME"`` at stride 1,
+    ``"VALID"``), OIDHW weight (flax's DHWIO transposed), ``dtype`` the
+    compute dtype, flax's ``lecun_normal`` kernel and zero bias."""
+
+    def __init__(self, in_features: int, features: int, kernel_size=3, padding: str = "SAME", use_bias: bool = True,
+                 dtype=None):
+        ks = (kernel_size,) * 3 if isinstance(kernel_size, int) else tuple(kernel_size)
+        if padding.upper() not in ("SAME", "VALID"):
+            raise ValueError(f"Conv3d padding must be SAME or VALID, got {padding!r}")
+        super().__init__(in_features, features, ks, bias=use_bias)
+        total = [k - 1 if padding.upper() == "SAME" else 0 for k in ks]
+        self.pads = [(t // 2, t - t // 2) for t in total]
+        self.compute_dtype = as_torch_dtype(dtype)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        fan_in_truncated_normal_(self.weight, 1.0, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dt)
+        x = x.to(dt)
+        if any(lo != hi for lo, hi in self.pads):
+            (fd, bd), (th, bh), (lw, rw) = self.pads
+            x, pads = F.pad(x, (lw, rw, th, bh, fd, bd)), (0, 0, 0)
+        else:
+            pads = tuple(lo for lo, _ in self.pads)
+        return conv2d(x, self.weight.to(dt), bias, (1, 1, 1), pads, (1, 1, 1))
+
+
+class ConvTranspose3d(nn.ConvTranspose3d):
+    """flax ``nn.ConvTranspose`` in 3D with kernel size equal to its stride
+    (``(1, 2, 2)``: in-plane only), no bias: torch's (in, out, kD, kH, kW)
+    weight is flax's kernel transposed and flipped in its three spatial axes."""
+
+    def __init__(self, in_features: int, features: int, kernel_size=(1, 2, 2), dtype=None):
+        super().__init__(in_features, features, tuple(kernel_size), stride=tuple(kernel_size), bias=False)
+        self.compute_dtype = as_torch_dtype(dtype)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         fan_in_truncated_normal_(self.weight, 1.0, generator, fan_in=self.in_channels * self.weight[0, 0].numel())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
-        return conv2d(x.to(dt), self.weight.to(dt), None, self.stride, (0, 0), (1, 1), transposed=True)
+        return conv2d(x.to(dt), self.weight.to(dt), None, self.stride, (0, 0, 0), (1, 1, 1), transposed=True)
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense``: the weight is torch's [out, in] (flax's [in, out]
+    kernel transposed), ``lecun_normal`` (fan-in ``in``), zero bias; ``dtype``
+    the compute dtype (a float32 product stays float32: PyTorch's matmul TF32
+    flag is off by default)."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True, dtype=None):
+        super().__init__(in_features, features, bias=use_bias)
+        self.compute_dtype = as_torch_dtype(dtype)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        fan_in_truncated_normal_(self.weight, 1.0, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        return F.linear(x.to(dt), self.weight.to(dt), None if self.bias is None else self.bias.to(dt))
 
 
 class InstanceNorm(nn.Module):
     """Per-sample, per-channel normalisation over the spatial axes of an NCHW
-    tensor (``mridc_tpu/nn/layers.py:InstanceNorm``: torch's InstanceNorm2d
-    without affine, eps 1e-5, population variance). The statistics are taken
-    in float32 whatever the input's dtype; the output is in the input's dtype."""
+    or NCDHW tensor (``mridc_tpu/nn/layers.py:InstanceNorm``: torch's
+    InstanceNorm2d/3d without affine, eps 1e-5, population variance), or over
+    the axes ``dims`` given to the call. The statistics are taken in float32
+    whatever the input's dtype; the output is in the input's dtype."""
 
     def __init__(self, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dims: Optional[Sequence[int]] = None) -> torch.Tensor:
         xf = x.float()
-        var, mean = torch.var_mean(xf, dim=(2, 3), keepdim=True, correction=0)
+        dims = tuple(range(2, x.ndim)) if dims is None else tuple(dims)
+        var, mean = torch.var_mean(xf, dim=dims, keepdim=True, correction=0)
         return ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
 
 
@@ -287,7 +372,24 @@ class BatchNorm(nn.Module):
             out = F.batch_norm(xf, None, None, self.weight, self.bias, True, 0.0, self.eps)
         else:
             out = F.batch_norm(xf, self.mean.detach(), self.var.detach(), self.weight, self.bias, False, 0.0, self.eps)
+        if out.requires_grad and out.device.type == "cpu":
+            out.register_hook(_relaid_like(xf))
         return out.to(x.dtype)
+
+
+def _relaid_like(x: torch.Tensor):
+    """A gradient hook that re-lays a gradient with standard strides in
+    ``x``'s memory format. PyTorch's CPU ``batch_norm`` backward misreads a
+    channels_last gradient of batch 1 whose batch stride is not C*H*W (legal
+    for an axis of size 1; einsum's backward makes one) against an NCHW
+    input, and returns wrong gradients for the input, the weight and the
+    bias; the card's kernels read it right."""
+    fmt = torch.channels_last if x.ndim == 4 and not x.is_contiguous() and \
+        x.is_contiguous(memory_format=torch.channels_last) else torch.contiguous_format
+
+    def relay(g: torch.Tensor) -> torch.Tensor:
+        return torch.empty(g.shape, dtype=g.dtype, device=g.device, memory_format=fmt).copy_(g)
+    return relay
 
 
 def replicate_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -339,3 +441,17 @@ class ConvNonlinear(nn.Module):
         if self.pad:
             x = replicate_pad(x, self.pad)
         return activation(self.conv_layer(x), self.nonlinear)
+
+
+def nearest_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Nearest-neighbour resize of an NCHW tensor to [out_h, out_w]
+    (``mridc_tpu/nn/layers.py:nearest_resize``, which defines itself as torch's
+    ``F.interpolate(mode="nearest")``: source index floor(i * in / out))."""
+    return F.interpolate(x, size=(out_h, out_w), mode="nearest")
+
+
+def bilinear_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Bilinear resize of an NCHW tensor with half-pixel centres and no
+    antialiasing (``mridc_tpu/nn/layers.py:bilinear_resize``: torch's
+    ``F.interpolate(mode="bilinear", align_corners=False)``)."""
+    return F.interpolate(x, size=(out_h, out_w), mode="bilinear", align_corners=False, antialias=False)

@@ -1,6 +1,22 @@
 """Task trainers (counterpart of ``mridc_tpu/train/task_trainers.py``): the
-quantitative half. The segmentation and multitask trainers come with M11 and
-M12.
+segmentation and quantitative halves. The multitask trainer comes with M12.
+
+:func:`segmentation_loss_fn` is the reference's CE + Dice combination: the
+cross-entropy is evaluated on detached logits (it adds to the loss's value
+but never to a gradient: only Dice trains), logits with a leading stack axis
+(one more axis than the target) average each term over it. The config keys
+translate as ``seg_loss_cfg_from_model_cfg`` reads them.
+:class:`SegmentationTrainer` trains on ``{"image" [B, H, W, C_in],
+"segmentation" [B, H, W, classes]}`` batches; ``validate`` reports
+``val_loss`` and ``val_DICE`` (a mean over slices), reduced over processes;
+``test`` writes each volume's predicted classes and its Dice, IoU, F1 and
+HD95 against its labels (the JAX package's inherited ``test`` reads a
+``target`` that segmentation batches do not carry). Consecutive slices
+([B, S, H, W, C_in], the 5-slice lambda config) reach a 2D trunk folded to
+[B * S, ...] in the (g, t) row order the temporal lambda groups, and its
+logits are unfolded to [B, S, H, W, classes] before the loss and the
+metrics; the 3D U-Net takes them as volumes (the JAX package's lambda layer
+cannot unpack a 5D batch).
 
 :func:`quantitative_loss_fn` is the reference's per-map loss with
 accumulate-estimates semantics: per (cascade, time step, map) the target and
@@ -33,12 +49,193 @@ from typing import Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from mridc_tpu_torch.losses.segmentation import cross_entropy_loss, dice_loss
 from mridc_tpu_torch.losses.ssim import ssim_loss
+from mridc_tpu_torch.metrics.segmentation import SegmentationMetrics
 from mridc_tpu_torch.parallel.multihost import reduce_mean_stats
 from mridc_tpu_torch.train.trainer import Trainer, _host
 
-__all__ = ["QuantitativeTrainer", "quantitative_loss_fn", "quantitative_recon_loss_fn",
-           "parse_loss_regularization_factors"]
+__all__ = ["SegmentationTrainer", "QuantitativeTrainer", "segmentation_loss_fn", "seg_loss_cfg_from_model_cfg",
+           "quantitative_loss_fn", "quantitative_recon_loss_fn", "parse_loss_regularization_factors"]
+
+
+def segmentation_loss_fn(target: torch.Tensor, logits: torch.Tensor, use_ce: bool = True, use_dice: bool = True,
+                         ce_weight: float = 1.0, dice_weight: float = 1.0, dice_kwargs: Optional[Dict] = None,
+                         ce_kwargs: Optional[Dict] = None, detach_ce: bool = True) -> torch.Tensor:
+    """Weighted CE + Dice of ``logits`` against the one-hot ``target`` (module
+    docstring); Dice's defaults are the reference's (no background, sigmoid,
+    no batch reduction)."""
+    if use_ce and not use_dice and detach_ce:
+        raise ValueError("segmentation_loss_fn: cross-entropy-only with detach_ce=True has ZERO gradient everywhere "
+                         "(the reference's CE is computed detached and only Dice trains) — pass detach_ce=False or "
+                         "enable dice")
+    preds = logits if logits.ndim == target.ndim + 1 else logits[None]
+    loss = torch.zeros((), device=logits.device)
+    if use_ce:
+        labels = target.argmax(-1)
+        ce_in = preds.detach() if detach_ce else preds
+        ce = torch.stack([cross_entropy_loss(labels, ce_in[i], **(ce_kwargs or {})) for i in range(preds.shape[0])])
+        loss = loss + ce_weight * ce.mean()
+    if use_dice:
+        kw = dict(include_background=False, softmax=False, sigmoid=True, batch=False)
+        kw.update(dice_kwargs or {})
+        dl = torch.stack([dice_loss(target, preds[i], **kw)[1] for i in range(preds.shape[0])])
+        loss = loss + dice_weight * dl.mean()
+    return loss
+
+
+def seg_loss_cfg_from_model_cfg(model_cfg: Dict) -> Dict:
+    """The reference YAML's ``segmentation_loss_fn``, ``cross_entropy_loss_*``
+    and ``dice_loss_*`` keys as :func:`segmentation_loss_fn`'s arguments."""
+    fns = model_cfg.get("segmentation_loss_fn", ["cross_entropy", "dice"])
+    if isinstance(fns, str):
+        fns = [fns]
+    fns = list(fns or [])
+    ce_w = model_cfg.get("cross_entropy_loss_weight")
+    dice_kwargs = dict(
+        include_background=bool(model_cfg.get("dice_loss_include_background", False)),
+        to_onehot_y=bool(model_cfg.get("dice_loss_to_onehot_y", False)),
+        sigmoid=bool(model_cfg.get("dice_loss_sigmoid", True)),
+        softmax=bool(model_cfg.get("dice_loss_softmax", False)),
+        squared_pred=bool(model_cfg.get("dice_loss_squared_pred", False)),
+        jaccard=bool(model_cfg.get("dice_loss_jaccard", False)),
+        smooth_nr=float(model_cfg.get("dice_loss_smooth_nr", 1e-5)),
+        smooth_dr=float(model_cfg.get("dice_loss_smooth_dr", 1e-5)),
+        batch=bool(model_cfg.get("dice_loss_batch", False)),
+    )
+    if ce_w in (None, "none", "None"):
+        ce_w = None
+    elif not isinstance(ce_w, (list, tuple)):
+        ce_w = [float(ce_w)]  # the reference's torch.tensor() takes scalars
+    else:
+        ce_w = list(ce_w)
+    return dict(
+        use_ce="cross_entropy" in fns,
+        use_dice="dice" in fns,
+        ce_weight=float(model_cfg.get("cross_entropy_loss_weighting_factor", 1.0)),
+        dice_weight=float(model_cfg.get("dice_loss_weighting_factor", 1.0)),
+        dice_kwargs=dice_kwargs,
+        ce_kwargs=dict(label_smoothing=float(model_cfg.get("cross_entropy_loss_label_smoothing", 0.0)), weight=ce_w),
+    )
+
+
+def _tie_safe_onehot(logits: np.ndarray) -> np.ndarray:
+    """One-hot of the argmax: exactly one class per pixel, ties included."""
+    return np.eye(logits.shape[-1], dtype=np.float32)[logits.argmax(-1)]
+
+
+def _seg_pred_classes(logits: np.ndarray, thresholds=None) -> np.ndarray:
+    """Predicted classes: each class thresholded on its own where
+    ``segmentation_classes_thresholds`` is set (multi-hot), else the one-hot
+    argmax."""
+    if thresholds:
+        thr = np.asarray([0.5 if t in (None, "none", "None") else float(t) for t in thresholds], np.float32)
+        return (logits > thr).astype(np.float32)
+    return _tie_safe_onehot(logits)
+
+
+class SegmentationTrainer(Trainer):
+    """Segmentation training and evaluation (module docstring) with the loss
+    of ``seg_loss_cfg`` (:func:`segmentation_loss_fn`'s arguments)."""
+
+    def __init__(self, *args, seg_loss_cfg: Optional[Dict] = None, segmentation_classes_thresholds=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.seg_loss_cfg = dict(seg_loss_cfg or {})
+        self.segmentation_classes_thresholds = segmentation_classes_thresholds
+
+    def _image(self, batch: Dict):
+        """The model's input on the device and the [B, S] of a folded batch
+        (None when it is not folded)."""
+        image = self._tensor(batch["image"])
+        if image.ndim == 5 and not getattr(self.model, "volumetric", False):
+            return image.reshape((-1,) + tuple(image.shape[2:])), tuple(image.shape[:2])
+        return image, None
+
+    @staticmethod
+    def _unfold(logits: torch.Tensor, fold) -> torch.Tensor:
+        return logits if fold is None else logits.reshape(tuple(fold) + tuple(logits.shape[1:]))
+
+    def init_state(self, sample_batch: Optional[Dict] = None):
+        """The optimizer over the model's parameters; the trunk is built first
+        at ``sample_batch``'s image width (and UNETR's patch count)."""
+        model = self.model
+        if not getattr(model, "materialized", True):
+            if sample_batch is None:
+                raise ValueError(f"{type(model).__name__} takes its input width from the data: init_state needs a "
+                                 "batch")
+            model.materialize(tuple(self._image(sample_batch)[0].shape), self.device)
+        return super().init_state(sample_batch)
+
+    def training_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """One training step: ``{"loss", "grad_norm"}``."""
+        if self.state is None:
+            self.init_state(batch)
+        image, fold = self._image(batch)
+        logits = self._unfold(self.model(image, train=True), fold)
+        loss = segmentation_loss_fn(self._tensor(batch["segmentation"]), logits, **self.seg_loss_cfg)
+        return {"loss": loss.detach(), "grad_norm": self._apply_loss(loss)}
+
+    def predict_batch(self, batch: Dict, use_ema: bool = False) -> np.ndarray:
+        """The logits [B, (S,) H, W, classes] (inference, no gradients),
+        float32 on the host."""
+        image, fold = self._image(batch)
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            with torch.no_grad():
+                if use_ema and self.state is not None and self.state.ema_params is not None:
+                    out = torch.func.functional_call(self.model, self.state.ema_params, (image,))
+                else:
+                    out = self.model(image)
+        finally:
+            self.model.train(was_training)
+        return _host(self._unfold(out, fold).float())
+
+    def validate(self, val_loader: Iterable, use_ema: Optional[bool] = None,
+                 limit: Optional[int] = None) -> Dict[str, float]:
+        """``val_loss`` (the training loss of the inference logits, a mean over
+        batches) and ``val_DICE`` (a mean over slices), reduced over
+        processes."""
+        use_ema = self.use_ema if use_ema is None else use_ema
+        metrics = SegmentationMetrics()
+        dices, losses = [], []
+        for batch_idx, batch in enumerate(val_loader):
+            if limit is not None and batch_idx >= limit:
+                break
+            logits = self.predict_batch(batch, use_ema=use_ema)
+            target = _host(batch["segmentation"])
+            losses.append(float(segmentation_loss_fn(torch.from_numpy(target), torch.from_numpy(logits),
+                                                     **self.seg_loss_cfg)))
+            pred = _seg_pred_classes(logits, self.segmentation_classes_thresholds)
+            for i in range(target.shape[0]):
+                dices.append(metrics(np.moveaxis(target[i], -1, 0), np.moveaxis(pred[i], -1, 0))["DICE"])
+        reduced = reduce_mean_stats({"loss": float(np.sum(losses)), "DICE": float(np.sum(dices))},
+                                    {"loss": float(len(losses)), "DICE": float(len(dices))})
+        return {"val_loss": reduced["loss"], "val_DICE": reduced["DICE"]}
+
+    def test(self, test_loader: Iterable, use_ema: Optional[bool] = None):
+        """Per-volume predicted classes by file name (the slices, or the
+        windows of consecutive slices, in order: [S, (window,) H, W, classes]
+        float32), and each volume's DICE, IOU, F1 and HD95 against its labels,
+        means over volumes reduced over processes."""
+        use_ema = self.use_ema if use_ema is None else use_ema
+        preds: Dict[str, list] = {}
+        labels: Dict[str, list] = {}
+        for batch in test_loader:
+            pred = _seg_pred_classes(self.predict_batch(batch, use_ema=use_ema), self.segmentation_classes_thresholds)
+            target = _host(batch["segmentation"])
+            for i, fname in enumerate(batch["fname"]):
+                preds.setdefault(fname, []).append((int(batch["slice_idx"][i]), pred[i]))
+                labels.setdefault(fname, []).append((int(batch["slice_idx"][i]), target[i]))
+        metrics = SegmentationMetrics()
+        volumes, sums = {}, {"DICE": 0.0, "IOU": 0.0, "F1": 0.0, "HD95": 0.0}
+        for fname, slices in preds.items():
+            vol = np.stack([s for _, s in sorted(slices, key=lambda x: x[0])])
+            tgt = np.stack([s for _, s in sorted(labels[fname], key=lambda x: x[0])])
+            volumes[fname] = vol
+            for k, v in metrics(np.moveaxis(tgt, -1, 0), np.moveaxis(vol, -1, 0)).items():
+                sums[k] += v
+        return volumes, reduce_mean_stats(sums, {k: float(len(volumes)) for k in sums})
 
 _QMAP_NAMES = ("R2star", "S0", "B0", "phi")
 

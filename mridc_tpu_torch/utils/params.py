@@ -39,6 +39,14 @@ the output conv last; ``MultiDomainUnet2d_0`` numbers its blocks down,
 bottleneck, up, its transpose convs from the bottom up, and a multi-domain
 conv's image conv before its k-space conv.
 
+The segmentation models (:func:`zoo2_params_from_jax` too, the same table) map
+by the flax auto-names their modules carry (``flax_scope``,
+``nn/seg_blocks.py``): a 3D conv's DHWIO kernel to OIDHW, a 3D transpose
+conv's kernel flipped in its three spatial axes, a Dense kernel [in, out]
+transposed, a V-Net PReLU's ``alpha``, UNETR's ``position_embeddings`` and
+its LayerNorm's ``scale``/``bias`` as they are. The trunk's input width
+(and UNETR's patch count) is read off the tree's shapes.
+
 The flax scope names depend on ``remat_mode``: a rematerialised scan is named
 ``ScanCheckpoint_*``, a plain one ``Scan_*`` — ``step+cascade`` gives
 ``ScanCheckpoint_Cascade_0/RIMBlock_0/ScanCheckpoint_RIMStep_0``, ``none``
@@ -502,6 +510,29 @@ def _quantitative_pairs(model):
     return out
 
 
+def _scoped_pairs(module, f: str = "", p: str = ""):
+    """The pairs of a module tree whose flax scopes are named on the modules
+    (``flax_scope``, the segmentation trunks): a conv's, transpose conv's or
+    Dense's kernel and bias, a BatchNorm's entries, and the leaves a module
+    lists in ``flax_params``."""
+    from torch import nn
+
+    from mridc_tpu_torch.nn.layers import BatchNorm
+
+    if isinstance(module, BatchNorm):
+        return _bn_pairs(module, f, p)
+    for cls, kind in ((nn.Conv2d, "conv"), (nn.Conv3d, "conv3"), (nn.ConvTranspose2d, "convT"),
+                      (nn.ConvTranspose3d, "convT3"), (nn.Linear, "dense")):
+        if isinstance(module, cls):
+            return [_leaf(f + "kernel", p + "weight", kind=kind)] + (
+                [_leaf(f + "bias", p + "bias")] if module.bias is not None else [])
+    out = [_leaf(f + leaf, p + name) for leaf, name in getattr(module, "flax_params", {}).items()]
+    for name, child in module.named_children():
+        scope = getattr(child, "flax_scope", None)
+        out += _scoped_pairs(child, f"{f}{scope}/" if scope else f, f"{p}{name}.")
+    return out
+
+
 def _model_pairs(model):
     """The pairs of a whole CascadeNet, CRNNet, XPDNet, KIKINet, LPDNet, VSNet,
     DUNet, RecurrentVarNet, MultiDomainNet, qCIRIM or qVarNet, read off the
@@ -509,9 +540,12 @@ def _model_pairs(model):
     from mridc_tpu_torch.models.quantitative import qCIRIM, qVarNet
     from mridc_tpu_torch.models.recon import (CascadeNet, CRNNet, DUNet, KIKINet, LPDNet, MultiDomainNet,
                                               RecurrentVarNet, VSNet, XPDNet)
+    from mridc_tpu_torch.models.segmentation import SegmentationModel
 
     scopes, out = _Scopes(), []
-    if isinstance(model, (qCIRIM, qVarNet)):
+    if isinstance(model, SegmentationModel):
+        out += _scoped_pairs(model)
+    elif isinstance(model, (qCIRIM, qVarNet)):
         out += _quantitative_pairs(model)
     elif isinstance(model, CascadeNet):
         for i, block in enumerate(model.cascades):
@@ -562,6 +596,26 @@ def _port_model(cfg: Mapping, in_chans=None):
     return model
 
 
+def _seg_port_model(cfg: Mapping, params: Mapping):
+    """A segmentation port model of ``cfg`` on the CPU, its trunk built at the
+    input width (and UNETR's patch count) of the flax ``params``' shapes."""
+    from mridc_tpu_torch.models.registry import build_model
+
+    probe = build_model(dict(cfg), device="cpu")
+    probe.materialize((1, 16, 16, 1))
+    paths = {pk: fk for _, fk, pk, _ in _scoped_pairs(probe)}
+
+    def shape(key):
+        node = params
+        for scope in paths[f"trunk.{key}"].split("/"):
+            node = node[scope]
+        return np.shape(node)
+
+    model = build_model(dict(cfg), device="cpu")
+    model._build(int(shape(model.first_conv)[-2]), int(shape(model.patch_param)[1]) if model.patch_param else 0)
+    return model
+
+
 def _collections(tree: Mapping):
     """(params, batch_stats) of a flax variables tree, a ``{"params",
     "batch_stats"}`` archive tree or a bare param tree."""
@@ -570,11 +624,17 @@ def _collections(tree: Mapping):
     return tree, {}
 
 
+def _contig(a, axes) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(np.asarray(a), axes))
+
+
 _FROM = {None: lambda a: a, "conv": hwio_to_oihw, "convT": hwio_to_iohw_flipped,
-         "hh": lambda a: np.ascontiguousarray(np.transpose(np.asarray(a), (0, 3, 1, 2)))}
-_TO = {None: lambda a: a, "conv": lambda a: np.ascontiguousarray(np.transpose(a, (2, 3, 1, 0))),
-       "hh": lambda a: np.ascontiguousarray(np.transpose(a, (0, 2, 3, 1))),
-       "convT": lambda a: np.ascontiguousarray(np.transpose(a[..., ::-1, ::-1], (2, 3, 0, 1)))}
+         "hh": lambda a: _contig(a, (0, 3, 1, 2)), "conv3": lambda a: _contig(a, (4, 3, 0, 1, 2)),
+         "convT3": lambda a: np.ascontiguousarray(np.transpose(np.asarray(a), (3, 4, 0, 1, 2))[..., ::-1, ::-1, ::-1]),
+         "dense": lambda a: _contig(a, (1, 0))}
+_TO = {None: lambda a: a, "conv": lambda a: _contig(a, (2, 3, 1, 0)), "hh": lambda a: _contig(a, (0, 2, 3, 1)),
+       "convT": lambda a: _contig(a[..., ::-1, ::-1], (2, 3, 0, 1)), "conv3": lambda a: _contig(a, (2, 3, 4, 1, 0)),
+       "convT3": lambda a: _contig(a[..., ::-1, ::-1, ::-1], (2, 3, 4, 0, 1)), "dense": lambda a: _contig(a, (1, 0))}
 
 
 def _unstack_xpd_scan(params: Mapping, num_iter: int) -> Dict:
@@ -599,7 +659,8 @@ def _unstack_xpd_scan(params: Mapping, num_iter: int) -> Dict:
 
 def zoo2_params_from_jax(tree: Mapping, cfg: Mapping) -> Dict[str, torch.Tensor]:
     """Port ``state_dict`` of a CascadeNet, CRNNet, XPDNet, KIKINet, LPDNet,
-    VSNet, DUNet, RecurrentVarNet or MultiDomainNet (``cfg``'s
+    VSNet, DUNet, RecurrentVarNet, MultiDomainNet, qCIRIM, qVarNet or
+    segmentation model (``cfg``'s
     ``model_name``) from a flax variables tree:
     ``{"params": ..., "batch_stats": ...}`` or the bare params, with numpy
     leaves. Frozen BatchNorm entries (``mean``/``var`` in params) become
@@ -607,9 +668,12 @@ def zoo2_params_from_jax(tree: Mapping, cfg: Mapping) -> Dict[str, torch.Tensor]
     ``running_var``. XPDNet's ``Scan_XPDIter_0`` layout is taken as well as
     the unrolled one. Every leaf is used once."""
     params, stats = _collections(tree)
-    first = params.get("NormUnet_0", {}).get("Unet_0", {}).get("ConvBlock_0", {}).get("Conv_0", {}) \
-        if isinstance(params, Mapping) else {}
-    model = _port_model(cfg, np.shape(first["kernel"])[2] if "kernel" in first else None)
+    if str(cfg.get("model_name", "")).upper() in _SEG_NAMES:
+        model = _seg_port_model(cfg, params)
+    else:
+        first = params.get("NormUnet_0", {}).get("Unet_0", {}).get("ConvBlock_0", {}).get("Conv_0", {}) \
+            if isinstance(params, Mapping) else {}
+        model = _port_model(cfg, np.shape(first["kernel"])[2] if "kernel" in first else None)
     if isinstance(params, Mapping) and "Scan_XPDIter_0" in params:
         params = _unstack_xpd_scan(params, len(model.iterations))
     name = str(cfg.get("model_name"))
@@ -628,8 +692,12 @@ def zoo2_params_to_jax(state: Mapping[str, torch.Tensor], cfg: Mapping) -> Dict:
     refuses ``scan_iterations``)."""
     from mridc_tpu_torch.models.quantitative.qvn import FIRST_CONV
 
-    first = state.get(FIRST_CONV)
-    model = _port_model(cfg, None if first is None else first.shape[1])
+    if str(cfg.get("model_name", "")).upper() in _SEG_NAMES:
+        model = _port_model(cfg)
+        model.load_state_dict(state)  # the trunk built at the state's widths
+    else:
+        first = state.get(FIRST_CONV)
+        model = _port_model(cfg, None if first is None else first.shape[1])
     out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
     left = set(state)
     for coll, f, p, kind in _model_pairs(model):
@@ -644,6 +712,10 @@ def zoo2_params_to_jax(state: Mapping[str, torch.Tensor], cfg: Mapping) -> Dict:
     if left:
         raise KeyError(f"{cfg.get('model_name')} state dict: keys not used: {sorted(left)}")
     return out if out["batch_stats"] else {"params": out["params"]}
+
+
+_SEG_NAMES = {"SEGMENTATIONUNET", "SEGMENTATION2DUNET", "SEGMENTATION3DUNET", "SEGMENTATIONATTENTIONUNET",
+              "SEGMENTATIONLAMBDAUNET", "SEGMENTATIONVNET", "SEGMENTATIONDYNUNET", "SEGMENTATIONUNETR"}
 
 
 def _named(model_name: str):

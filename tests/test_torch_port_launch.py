@@ -123,7 +123,7 @@ def test_auto_dc_mode_and_task_match_jax(path):
     assert launch.model_task(model.get("model_name", "")) == jlaunch.model_task(model.get("model_name", ""))
 
 
-@pytest.mark.parametrize("name,item", [("SEGMENTATIONUNET", "M11"), ("MTLRS", "M12"), ("SEGMENTATIONVNET", "M11")])
+@pytest.mark.parametrize("name,item", [("SEGNET", "M12"), ("MTLRS", "M12"), ("SERANET", "M12")])
 def test_unported_tasks_raise_naming_their_item(name, item):
     cfg = {"model": {"model_name": name}, "trainer": {"accelerator": "cpu"}}
     with pytest.raises(NotImplementedError, match=item):
