@@ -771,6 +771,76 @@ G_STEPS = 3
 # the poisson2d mask the YAML's masker draws for its file name, premade; qVN
 # takes Q_QVN_STEPS steps
 Q_SLICES, Q_QVN_STEPS = 4, 2
+# M: the multitask models as projects/multitask/conf's YAMLs set them (the
+# model keys; tests/test_torch_port_multitask_launch.py holds them against
+# the YAMLs), on phantom slices at 15 coils, 320x320, 2 classes
+M_LOSS_KEYS = {"segmentation_loss_fn": ["cross_entropy", "dice"], "total_segmentation_loss_weight": 1.0}
+_M_RIM = {"joint_reconstruction_segmentation_module_cascades": 5, "reconstruction_module_num_cascades": 1,
+          "reconstruction_module_time_steps": 8, "reconstruction_module_recurrent_layer": "IndRNN",
+          "reconstruction_module_conv_filters": [64, 64, 2], "reconstruction_module_recurrent_filters": [64, 64, 0],
+          "reconstruction_module_no_dc": True, "reconstruction_module_keep_prediction": True,
+          "segmentation_module": "attentionunet", "segmentation_module_channels": 32,
+          "segmentation_module_pooling_layers": 2, "segmentation_module_output_channels": 2}
+_M_UNETS = {"segmentation_module_output_channels": 2, "segmentation_module_channels": 32,
+            "segmentation_module_pooling_layers": 2}
+M_CFGS = {
+    "mtlrs": {"model_name": "MTLRS", "task_adaption_type": "multi_task_learning", **_M_RIM, **M_LOSS_KEYS},
+    "jrs": {"model_name": "MTLRS", "coil_combination_method": "RSS", "task_adaption_type": "none", **_M_RIM,
+            **M_LOSS_KEYS},
+    "idslr": {"model_name": "IDSLR", "num_iters": 5, **_M_UNETS, **M_LOSS_KEYS},
+    "idslr_unet": {"model_name": "IDSLRUNET", "num_iters": 5, **_M_UNETS, **M_LOSS_KEYS},
+    "recseg_unet": {"model_name": "RecSegUNet", "reconstruction_module_channels": 64,
+                    "reconstruction_module_pooling_layers": 2, **_M_UNETS, **M_LOSS_KEYS},
+    "segnet": {"model_name": "SegNet", "num_iters": 2, **_M_UNETS, **M_LOSS_KEYS},
+    "seranet": {"model_name": "SERANet", "num_iterations": 3, "reconstruction_module_channels": 32,
+                "reconstruction_module_pooling_layers": 2, "recurrent_hidden_channels": 32, **_M_UNETS,
+                **M_LOSS_KEYS},
+}
+# serving at B=8: (config, overrides, 1D column mask); MTLRS also in bf16 on
+# an equispaced 1D mask in dc_mode psf1d, so that K1 runs
+M_BATCH = 8
+M_SERVE = {
+    "mtlrs_f32_full": ("mtlrs", {}, False),
+    "mtlrs_bf16_psf1d": ("mtlrs", {"compute_dtype": "bfloat16", "dc_mode": "psf1d"}, True),
+    **{name: (name, {}, False) for name in ("jrs", "idslr", "idslr_unet", "recseg_unet", "segnet", "seranet")},
+}
+# launches per forward (uncentered backward FFTs). MTLRS (5 blocks x 8 steps,
+# 2 cells) as CIRIM's: the SENSE init of block 0 (a reduce: no load for an
+# uncentered FFT and no mask), then per step the full DC (expand, residual,
+# reduce) or K1 with a masked z0 per block (load and reduce), and K3 twice.
+# RecSegUNet's zero-filled image and SERANet's initial estimate are the SENSE
+# init (a reduce); IDSLR, IDSLRUNet and SegNet launch none
+_M_FULL = {"k2_expand": 40, "k2_residual": 40, "k2_reduce": 41, "k3_indrnn_f32": 80}
+M_PER_FORWARD = {
+    "mtlrs_f32_full": _M_FULL,
+    "mtlrs_bf16_psf1d": {"k1_psf1d_dc_bf16": 40, "k3_indrnn_bf16": 80, "k2_load": 5, "k2_reduce": 6},
+    "jrs": _M_FULL, "idslr": {}, "idslr_unet": {}, "segnet": {},
+    "recseg_unet": {"k2_reduce": 1}, "seranet": {"k2_reduce": 1},
+}
+# launches per training step (the RIM step's conv/RNN stack rematerialised,
+# so K3's forward twice a cell): the forward's, the full DC's backward
+# (expand, mask, reduce_acc) at every step whose estimate takes a gradient
+# (all but block 0's first: the SENSE init reads y; a block's first estimate
+# is the previous block's, with its gradient), K3's backward once a cell
+M_PER_STEP = {
+    "train_mtlrs": {"k2_expand": 79, "k2_residual": 40, "k2_reduce": 41, "k2_mask": 39, "k2_reduce_acc": 39,
+                    "k3_indrnn_f32": 160, "k3_indrnn_bwd_f32": 80},
+    "train_idslr": {}, "train_segnet": {}, "train_recseg_unet": {"k2_reduce": 1}, "train_seranet": {"k2_reduce": 1},
+}
+# training runs: (config, batch, launch table); SegNet trains on its stack
+M_TRAIN = {
+    **{f"{name}_b1": (name, 1, "train_mtlrs" if name in ("mtlrs", "jrs") else f"train_{name}")
+       for name in ("mtlrs", "jrs", "idslr", "recseg_unet", "segnet", "seranet")},
+    "idslr_unet_b1": ("idslr_unet", 1, "train_idslr"),
+    "mtlrs_b4": ("mtlrs", 4, "train_mtlrs"),
+}
+M_TRACED = ("mtlrs_f32_full", "mtlrs_bf16_psf1d", "recseg_unet", "seranet")  # a forward of each; MTLRS's B=1 step
+M_CHECK_HW = 128  # the card-against-CPU checks: one slice at 128x128
+M_TRAIN_CFG = _q_cfg("mtlrs", M_CFGS["mtlrs"], "train")
+M_RUN_CFG = _q_cfg("mtlrs", M_CFGS["mtlrs"], "test")
+SERANET_TRAIN_CFG = _q_cfg("seranet", M_CFGS["seranet"], "train")
+SERANET_RUN_CFG = _q_cfg("seranet", M_CFGS["seranet"], "test")
+M_STEPS = 3  # the config-file runs: M_STEPS steps at batch 1, 1 validation batch
 
 def fed_per_step(phase8_run: str) -> dict:
     """Launches per training step fed by the loader: those of phase 8's run
@@ -2415,7 +2485,10 @@ def first_step_check(loss_name, grads_name, fresh, batch, loss_of=_recon_step_lo
         with ctx():
             loss = loss_of(model, batch, yb)
             loss.backward()
-        first[which] = (loss.detach(), {k: p.grad.detach().clone() for k, p in model.named_parameters()})
+        # a parameter the loss does not reach (SERANet's last reconstruction DC
+        # feeds only the detached segmentation input) has a zero gradient
+        first[which] = (loss.detach(), {k: torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+                                        for k, p in model.named_parameters()})
         del model, loss
     check(loss_name, first["kernel"][0], first["plain"][0], *F32)
     gc = first["plain"][1]
@@ -3318,6 +3391,36 @@ class QPhantomSource:
         return kspace[s], sens, qmaps, None, heads[s], np.empty([]), None, {}, fname, s
 
 
+@contextlib.contextmanager
+def h5_writes_captured(written):
+    """While active, ``import h5py`` gives a stand-in whose ``File(path,
+    mode)`` records each ``create_dataset(key, data)`` in ``written`` under
+    (file name, key): the writer of ``mode: test`` (the card's machine has no
+    h5py; the config-file runs' reads are mocked)."""
+
+    class _File:
+        def __init__(self, path, mode):
+            self.name = Path(path).name
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def create_dataset(self, key, data):
+            written[(self.name, key)] = np.asarray(data)
+
+    saved = sys.modules.get("h5py")
+    sys.modules["h5py"] = types.SimpleNamespace(File=_File)
+    try:
+        yield
+    finally:
+        sys.modules.pop("h5py")
+        if saved is not None:
+            sys.modules["h5py"] = saved
+
+
 def q_volumes(prefix, n, slices, coils, h, w, seed):
     rng = np.random.default_rng(seed)
     sens = q_sens(coils, h, w)
@@ -3395,19 +3498,6 @@ def q_launch_phase(dev, card, rows, q_masks) -> None:
 
     written = {}
 
-    class _H5Capture:
-        def __init__(self, path, mode):
-            self.name = Path(path).name
-
-        def __enter__(self):
-            return self
-
-        def __exit__(self, *exc):
-            return False
-
-        def create_dataset(self, key, data):
-            written[(self.name, key)] = np.asarray(data)
-
     q_counts = {k: 0 for k in kernels.launch_counts()}
     runs = (("launch_qcirim", QCIRIM_TRAIN_CFG, "base_qcirim_train", Q_SLICES, "train_qcirim"),
             ("test_qcirim", QCIRIM_RUN_CFG, "base_qcirim_run", None, None),
@@ -3437,14 +3527,8 @@ def q_launch_phase(dev, card, rows, q_masks) -> None:
                 torch.cuda.reset_peak_memory_stats()
                 kernels.reset_launch_counts()
                 t0 = time.perf_counter()
-                h5py = sys.modules.get("h5py")
-                sys.modules["h5py"] = types.SimpleNamespace(File=_H5Capture)  # the writer's only (reads are mocked)
-                try:
+                with h5_writes_captured(written):
                     cli.main(["run", "-c", str(cfg_path), *overrides])
-                finally:
-                    sys.modules.pop("h5py")
-                    if h5py is not None:
-                        sys.modules["h5py"] = h5py
                 torch.cuda.synchronize()
                 seconds = time.perf_counter() - t0
                 for k, v in kernels.launch_counts().items():
@@ -3508,18 +3592,10 @@ def q_launch_phase(dev, card, rows, q_masks) -> None:
     emit({"phase": "Q launch", "seconds": time.perf_counter() - t_ql})
 
 def g_volume(rng, slices, coils, h, w):
-    """:func:`phantom_volume`'s slices as the segmentation YAMLs read them:
-    uncentered, backward-normalised k-space [S, C, H, W], the maps [C, H, W],
-    and 2-class labels [S, 2, H, W] one-hot (the RSS image above half its
-    maximum), as a labelled h5 volume holds them."""
-    from scipy import fft as sp_fft
-
-    kspace, sens, rss = phantom_volume(rng, slices, coils, h, w)
-    imgs = sp_fft.fftshift(sp_fft.ifft2(sp_fft.ifftshift(kspace, axes=(-2, -1)), norm="ortho", workers=-1),
-                           axes=(-2, -1))
-    kspace = sp_fft.fft2(imgs, workers=-1).astype(np.complex64)
-    labels = (rss > 0.5 * rss.max()).astype(np.int64)
-    return kspace, sens, np.moveaxis(np.eye(2, dtype=np.float32)[labels], -1, 1)
+    """:func:`m_volume`'s k-space [S, C, H, W], maps [C, H, W] and labels [S,
+    2, H, W], as a labelled h5 volume of the segmentation YAMLs holds them."""
+    kspace, sens, _, labels = m_volume(rng, slices, coils, h, w)
+    return kspace, sens, labels
 
 
 def g_transform():
@@ -3881,19 +3957,6 @@ def g_launch_phase(dev, card, rows) -> None:
 
     written = {}
 
-    class _H5Capture:
-        def __init__(self, path, mode):
-            self.name = Path(path).name
-
-        def __enter__(self):
-            return self
-
-        def __exit__(self, *exc):
-            return False
-
-        def create_dataset(self, key, data):
-            written[(self.name, key)] = np.asarray(data)
-
     totals = {k: 0 for k in kernels.launch_counts()}
     runs = (("launch_seg_unet", SEG_UNET_TRAIN_CFG, "base_segmentation_unet_train", "train", "val"),
             ("test_seg_unet", SEG_UNET_RUN_CFG, "base_segmentation_unet_run", None, "val"),
@@ -3923,14 +3986,8 @@ def g_launch_phase(dev, card, rows) -> None:
                 torch.cuda.reset_peak_memory_stats()
                 kernels.reset_launch_counts()
                 t0 = time.perf_counter()
-                h5py = sys.modules.get("h5py")
-                sys.modules["h5py"] = types.SimpleNamespace(File=_H5Capture)  # the writer's only (reads are mocked)
-                try:
+                with h5_writes_captured(written):
                     cli.main(["run", "-c", str(cfg_path), *overrides])
-                finally:
-                    sys.modules.pop("h5py")
-                    if h5py is not None:
-                        sys.modules["h5py"] = h5py
                 torch.cuda.synchronize()
                 seconds = time.perf_counter() - t0
                 launched = {k: v for k, v in kernels.launch_counts().items() if v}
@@ -4001,6 +4058,450 @@ def g_launch_phase(dev, card, rows) -> None:
     emit({"phase": "G launch", "seconds": time.perf_counter() - t_gl})
 
 
+def m_volume(rng, slices, coils, h, w):
+    """:func:`phantom_volume`'s slices as the segmentation and multitask
+    YAMLs read them: uncentered, backward-normalised k-space [S, C, H, W],
+    the maps [C, H, W], the RSS target [S, H, W] and 2-class labels [S, 2, H,
+    W] one-hot (the target above half its maximum)."""
+    from scipy import fft as sp_fft
+
+    kspace, sens, rss = phantom_volume(rng, slices, coils, h, w)
+    imgs = sp_fft.fftshift(sp_fft.ifft2(sp_fft.ifftshift(kspace, axes=(-2, -1)), norm="ortho", workers=-1),
+                           axes=(-2, -1))
+    kspace = sp_fft.fft2(imgs, workers=-1).astype(np.complex64)
+    labels = (rss > 0.5 * rss.max()).astype(np.int64)
+    return kspace, sens, rss, np.moveaxis(np.eye(2, dtype=np.float32)[labels], -1, 1)
+
+
+def m_mask(rng, h, w, psf1d):
+    """An uncentered sampling mask [H, W]: a fifth of k-space and its 24x24
+    centre, or (``psf1d``) every 4th column and the centre's 8% of columns,
+    every row alike."""
+    if psf1d:
+        cols = np.zeros(w, np.float32)
+        cols[::4] = 1
+        cols[w // 2 - int(0.04 * w): w // 2 + int(0.04 * w)] = 1
+        return np.fft.ifftshift(np.broadcast_to(cols, (h, w))).astype(np.float32)
+    mask = np.zeros((h, w), np.float32)
+    mask[rng.random((h, w)) < 0.2] = 1
+    mask[h // 2 - 12: h // 2 + 12, w // 2 - 12: w // 2 + 12] = 1
+    return np.fft.ifftshift(mask)
+
+
+def m_batch(b, h, w, dev, seed=0, psf1d=False):
+    """A multitask batch of ``b`` phantom slices (15 coils) on ``dev``: the
+    masked k-space, the maps, the mask [B, 1, H, W], the RSS target and the
+    one-hot labels [B, H, W, 2]."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    kspace, sens, rss, labels = m_volume(rng, b, COILS, h, w)
+    mask = torch.from_numpy(np.stack([m_mask(rng, h, w, psf1d) for _ in range(b)])[:, None]).to(dev)
+    rv = lambda z: torch.view_as_real(torch.from_numpy(np.array(z, np.complex64, order="C"))).to(dev)  # noqa: E731
+    return {"masked_kspace": rv(kspace) * mask[..., None], "sensitivity_maps": rv(np.broadcast_to(sens, kspace.shape)),
+            "mask": mask, "target": torch.from_numpy(rss).to(dev),
+            "segmentation": torch.from_numpy(np.ascontiguousarray(np.moveaxis(labels, 1, -1))).to(dev)}
+
+
+def m_inputs(batch):
+    return tuple(batch[k] for k in ("masked_kspace", "sensitivity_maps", "mask"))
+
+
+def m_fresh(cfg, where):
+    """The model of ``cfg`` on ``where`` with ``ZOO_SEED``'s weights, its
+    coil-width modules built at ``COILS``."""
+    import torch
+
+    from mridc_tpu_torch.models import build_model
+
+    model = build_model(cfg, device=where, generator=torch.Generator().manual_seed(ZOO_SEED))
+    if not getattr(model, "materialized", True):
+        model.materialize(COILS)
+    return model
+
+
+def m_loss_cfg():
+    from mridc_tpu_torch.train.task_trainers import seg_loss_cfg_from_model_cfg
+
+    return seg_loss_cfg_from_model_cfg(M_LOSS_KEYS)
+
+
+def m_step_loss(model, batch, y):
+    """The multitask training loss of ``model`` on ``batch`` with k-space
+    ``y``: the l1 reconstruction loss plus the YAMLs' detached CE and Dice
+    (weights 1; SegNet's over its stack)."""
+    from mridc_tpu_torch.train.losses import process_reconstruction_loss
+    from mridc_tpu_torch.train.task_trainers import segmentation_loss_fn
+
+    out, seg = model(y, batch["sensitivity_maps"], batch["mask"], train=True)
+    return process_reconstruction_loss(out, batch["target"], "l1") + segmentation_loss_fn(
+        batch["segmentation"], seg, **m_loss_cfg())
+
+
+def m_serve(run, model, batch, per_forward, card, bf16, **extra):
+    """Serving: ``WARMUP`` and ``ITERS`` timed forwards, the launch counters
+    zeroed before and read after (against ``per_forward``), the prediction
+    [B, H, W, 2] and the segmentation [B, H, W, 2] finite, and both held
+    against the same forward on K2's and K3's plain twins on the card (F32;
+    bf16: phase Q's bf16 limits). Returns (ms per forward, the launches)."""
+    import torch
+
+    from mridc_tpu_torch import kernels
+
+    inputs = m_inputs(batch)
+    b, _, h, w, _ = inputs[0].shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        for _ in range(WARMUP):
+            model(*inputs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            out, seg = model(*inputs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    delta = {k: v for k, v in kernels.launch_counts().items() if v}
+    want = {k: v * (WARMUP + ITERS) for k, v in per_forward.items()}
+    ms = dt / ITERS * 1e3
+    emit({"run": run, **extra, "batch": b, "forwards_timed": ITERS, "seconds": dt, "slices_per_s": ITERS * b / dt,
+          "ms_per_forward": ms, "launches_per_forward": {k: v / (WARMUP + ITERS) for k, v in delta.items()},
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30, "card": card})
+    if delta != want:
+        raise AssertionError(f"{run}: launches {delta} != expected {want}")
+    pred = out.prediction
+    for name, x in (("prediction", pred), ("segmentation", seg)):
+        if not bool(torch.isfinite(x).all()) or tuple(x.shape) != (b, h, w, 2):
+            raise AssertionError(f"{run}: {name} not finite or of shape {tuple(x.shape)}")
+    with torch.inference_mode(), plain_twins():
+        plain_out, plain_seg = model(*inputs)
+    note = "the same forward with K2's and K3's plain twins on the card"
+    for name, got, want_t in (("prediction", pred, plain_out.prediction), ("segmentation", seg, plain_seg)):
+        if not bf16:
+            check(f"m[{run}].{name}", got, want_t, *F32, note=note)
+            continue
+        rel = float((got.float() - want_t.float()).norm() / want_t.float().norm())
+        check(f"m[{run}].{name}", got, want_t, *BF16_MODEL, note=f"{note}; rel l2 {rel:.3g} (limit {BF16_REL_L2})")
+        if rel > BF16_REL_L2:
+            raise AssertionError(f"{run}: {name} at relative l2 {rel} against the plain twins")
+    return ms, delta
+
+
+def m_trace(fn, ms_per_call):
+    """:func:`trace_call` of ``fn`` under :func:`seg_ranges`, with M's split of
+    the device time: K1, K2, K3 (forward and backward), convs (cuDNN,
+    cuBLAS), norms (the InstanceNorms' and BatchNorms' passes), cuFFT and the
+    rest."""
+    with seg_ranges():  # every range it opens is named, so that none counts as a kernel
+        traced = trace_call(fn, ms_per_call, ranges=("convs", "dense", "norms", "products"))
+    by = traced["by_layer_ms"]
+    split = {"K1": by.get("K1 psf1d_dc", 0.0) + by.get("K1 psf1d_dc backward", 0.0),
+             "K2": by.get("K2 stages", 0.0) + by.get("K2 backward stages", 0.0),
+             "K3": by.get("K3 indrnn", 0.0) + by.get("K3 indrnn backward", 0.0),
+             "convs": by.get("conv and GEMM (cuDNN, cuBLAS)", 0.0), "norms": traced["ranges_ms"]["norms"],
+             "cuFFT": by.get("cuFFT", 0.0)}
+    split["rest"] = traced["device_ms"] - sum(split.values())
+    return {**traced, "m_split_ms": split}
+
+
+def m_card_vs_cpu(run, cfg, dev) -> None:
+    """The card's forward against the port's CPU forward of the same weights
+    on one phantom slice at ``M_CHECK_HW``: the prediction and the
+    segmentation each at F32 where the CPU's own forward moves by less than
+    F32's limit under a 1e-7 relative change of the k-space, else at 3x that
+    spread (the attention U-Nets' InstanceNorms amplify roundoff at random
+    weights)."""
+    import torch
+
+    batch = m_batch(1, M_CHECK_HW, M_CHECK_HW, "cpu", seed=7)
+    inputs = m_inputs(batch)
+    y_p = inputs[0] * (1 + 1e-7 * torch.randn(inputs[0].shape, generator=torch.Generator().manual_seed(5)))
+    cpu = m_fresh(cfg, "cpu")
+    with torch.inference_mode():
+        want, moved = cpu(*inputs), cpu(y_p, *inputs[1:])
+        card_model = m_fresh(cfg, dev)
+        card_model.load_state_dict(cpu.state_dict())
+        got = card_model(*(x.to(dev) for x in inputs))
+    del cpu, card_model
+    for name, g, w_, m_ in (("prediction", got[0].prediction.cpu(), want[0].prediction, moved[0].prediction),
+                            ("segmentation", got[1].cpu(), want[1], moved[1])):
+        scale, spread = float(w_.abs().max()), float((m_ - w_).abs().max())
+        note = (f"the card's forward against the port's CPU forward, 1 slice at {M_CHECK_HW}x{M_CHECK_HW}; the CPU's "
+                f"own spread under a 1e-7 change of the k-space {spread:.3g} of {scale:.3g}")
+        if spread <= F32[1] * scale:
+            check(f"m_cpu[{run}].{name}", g, w_, *F32, note=note)
+            continue
+        err = float((g - w_).abs().max())
+        ok = bool(torch.isfinite(g).all()) and err <= 3 * spread
+        emit({"check": f"m_cpu[{run}].{name}", "max_abs_err": err, "max_abs_ref": scale, "limit": 3 * spread,
+              "note": note + "; ill-posed: held at 3x the spread", "ok": ok})
+        if not ok:
+            raise AssertionError(f"{run}: {name} card against CPU {err} (3x the CPU's spread: {3 * spread})")
+
+
+def m_phase(dev, card, rows) -> None:
+    """Phase M: the multitask models as projects/multitask/conf's YAMLs set
+    them (``M_CFGS``) on phantom slices (``m_batch``: 15 coils, 320x320,
+    2-class labels), random weights from ``ZOO_SEED``. Serving (``M_SERVE``:
+    every model at B=8 in float32, MTLRS also in bfloat16 psf1d on a 1D
+    mask; :func:`m_serve`, launches against ``M_PER_FORWARD``), traces split
+    by layer (:func:`m_trace`), each float32 model against the port's CPU
+    forward (:func:`m_card_vs_cpu`). Training through ``MultitaskTrainer``
+    under the YAMLs' Adam and InverseSquareRootAnnealing (``M_TRAIN``: every
+    model at batch 1, MTLRS also at 4; SegNet on its stack): the first
+    step's loss and gradients at batch 1 against K2's and K3's plain twins
+    (:func:`first_step_check`), 2 warm-up and 3 timed steps
+    (:func:`timed_steps`, ``M_PER_STEP``), MTLRS's B=1 step traced."""
+    import torch
+
+    from mridc_tpu_torch import kernels
+    from mridc_tpu_torch.train.task_trainers import MultitaskTrainer
+
+    t_m = time.perf_counter()
+    batches = {(b, p): m_batch(b, H, W, dev, psf1d=p) for b, p in
+               {(M_BATCH, p) for *_, p in M_SERVE.values()} | {(b, False) for _, b, _ in M_TRAIN.values()}}
+    counts = {k: 0 for k in kernels.launch_counts()}
+    for run, (name, overrides, psf1d) in M_SERVE.items():
+        cfg = {**M_CFGS[name], **overrides}
+        model = m_fresh(cfg, dev)
+        batch = batches[(M_BATCH, psf1d)]
+        ms, delta = m_serve(f"m_{run}", model, batch, M_PER_FORWARD[run], card, "compute_dtype" in overrides,
+                            config=f"projects/multitask/conf/base_{name}_train.yaml", overrides=overrides)
+        for k, v in delta.items():
+            counts[k] += v
+        if run in M_TRACED:
+            with torch.inference_mode():
+                emit({"trace": f"m_{run}", "batch": M_BATCH, **m_trace(lambda: model(*m_inputs(batch)), ms),
+                      "card": card})
+        del model
+        torch.cuda.empty_cache()
+        if "compute_dtype" not in overrides:
+            m_card_vs_cpu(run, cfg, dev)
+
+    optim = M_TRAIN_CFG["model"]["optim"]
+    train_counts = {k: 0 for k in kernels.launch_counts()}
+    for run, (name, b, table) in M_TRAIN.items():
+        batch = batches[(b, False)]
+        if b == 1:
+            first_step_check(f"m_train_loss[{run}]", f"m_train_grads[{run}]", lambda: m_fresh(M_CFGS[name], dev),
+                             batch, loss_of=m_step_loss, twins=plain_twins)
+        trainer = MultitaskTrainer(m_fresh(M_CFGS[name], dev), optim_cfg=optim, trainer_cfg=TRAIN_CFG,
+                                   loss_type="l1", seg_loss_cfg=m_loss_cfg(), device=dev)
+        trainer.init_state(batch)
+        rec, delta = timed_steps(f"m_train_{run}", trainer, batch, M_PER_STEP[table], card)
+        for k, v in delta.items():
+            train_counts[k] += v
+        if run == "mtlrs_b1":
+            emit({"trace": f"m_train_{run}", **m_trace(lambda: trainer.training_batch(batch), rec["ms_per_step"]),
+                  "card": card})
+        del trainer
+        torch.cuda.empty_cache()
+    del batches
+    torch.cuda.empty_cache()
+    for r in rows:
+        r["m_launches"] = counts.get(r["name"], 0)
+        r["m_train_launches"] = train_counts.get(r["name"], 0)
+    missing = [k for k in set().union(*M_PER_FORWARD.values()) if counts[k] == 0]
+    missing += [k for k in set().union(*M_PER_STEP.values()) if train_counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on M's paths: {missing}")
+    emit({"phase": "M", "seconds": time.perf_counter() - t_m})
+
+
+def m_fed_per_step(table: str) -> dict:
+    """Launches per training step fed by the loader: ``M_PER_STEP``'s but the
+    SENSE init's reduce (the batches carry the transform's initial
+    prediction, which takes its place)."""
+    per = {k: v - (k == "k2_reduce") for k, v in M_PER_STEP[table].items()}
+    return {k: v for k, v in per.items() if v}
+
+
+class RSPhantomSource:
+    """An indexable source of joint reconstruction-segmentation slices over
+    in-memory phantom volumes ({file name: (k-space, maps, target, labels,
+    mask)}) in place of ``RSMRIDataset``: ``__getitem__`` calls the transform
+    with what that dataset reads from an h5 volume (the volume's premade
+    ``mask`` dataset included)."""
+
+    def __init__(self, volumes, transform):
+        self.volumes, self.transform = volumes, transform
+        self.examples = [(fname, s) for fname in sorted(volumes) for s in range(volumes[fname][0].shape[0])]
+
+    def __len__(self):
+        return len(self.examples)
+
+    def __getitem__(self, i):
+        fname, s = self.examples[i]
+        kspace, sens, target, labels, mask = self.volumes[fname]
+        attrs = {"max": float(target.max()), "norm": float(np.linalg.norm(target))}
+        return self.transform(kspace[s], sens, mask, target[s], labels[s], attrs, fname, s)
+
+
+def m_launch_phase(dev, card, rows, masks) -> None:
+    """Phase M, from the config files: ``python -m mridc_tpu_torch run -c``
+    (``cli.main``) of base_mtlrs_train.yaml and base_seranet_train.yaml
+    (``M_STEPS`` steps at their batch 1, 1 validation batch), each followed
+    by its run YAML (``mode: test``, the repaired test mode) on the archive
+    the training run wrote, on the card. The h5 read is replaced by phantom
+    volumes (``RSPhantomSource``: 15 coils, 320x320, labels; each volume with
+    the poisson2d mask the YAML's masker draws for its file name, premade)
+    and the writer of ``mode: test`` by a capture (the card's machine has no
+    h5py). ms per step (between the starts of consecutive steps, the card
+    synchronised at each), slices/s, launches per step (``m_fed_per_step``:
+    the batches carry the transform's initial prediction), the host
+    pipeline's ms per batch and one traced step's device idle share; the
+    test runs' reconstruction [S, H, W] and classes [S, H, W, 2] and their
+    SSIM, PSNR, NMSE, MSE, DICE, IOU, F1 and HD95 finite."""
+    import json as json_mod
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    import torch
+
+    from mridc_tpu_torch import cli, kernels
+    from mridc_tpu_torch.data import task_loaders
+    from mridc_tpu_torch.launch import _build_task_loader
+    from mridc_tpu_torch.train.config import apply_overrides
+    from mridc_tpu_torch.train.task_trainers import MultitaskTrainer
+
+    t_ml = time.perf_counter()
+    rng = np.random.default_rng(61)
+    vols = {}
+    for root, fname, slices in (("phantom/m/train", "m_0.h5", M_STEPS), ("phantom/m/val", "m_val_0.h5", 1)):
+        mask, seconds = masks[("m", H, W, fname)].result()
+        emit({"m_mask": fname, "poisson2d_seconds": seconds, "card": card})
+        vols[root] = {fname: (*m_volume(rng, slices, COILS, H, W), mask)}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_m_"))
+    record = {"marks": [], "counts": [], "outs": [], "trainer": None, "validations": [], "tests": []}
+    step, validate, test = MultitaskTrainer.training_batch, MultitaskTrainer.validate, MultitaskTrainer.test
+
+    def recording(self, batch):
+        torch.cuda.synchronize()
+        record["trainer"] = self
+        record["marks"].append(time.perf_counter())
+        before = kernels.launch_counts()
+        out = step(self, batch)
+        after = kernels.launch_counts()
+        record["counts"].append({k: after[k] - before[k] for k in after if after[k] != before[k]})
+        record["outs"].append(out)
+        return out
+
+    def validating(self, *a, **kw):
+        out = validate(self, *a, **kw)
+        record["validations"].append(dict(out))
+        return out
+
+    def testing(self, *a, **kw):
+        out = test(self, *a, **kw)
+        record["tests"].append(dict(out[1]))
+        return out
+
+    written = {}
+
+    totals = {k: 0 for k in kernels.launch_counts()}
+    runs = (("launch_mtlrs", M_TRAIN_CFG, "base_mtlrs_train", "train_mtlrs"),
+            ("test_mtlrs", M_RUN_CFG, "base_mtlrs_run", None),
+            ("launch_seranet", SERANET_TRAIN_CFG, "base_seranet_train", "train_seranet"),
+            ("test_seranet", SERANET_RUN_CFG, "base_seranet_run", None))
+    archive = None
+    source = lambda root, transform=None, **_: RSPhantomSource(vols[root], transform)  # noqa: E731
+    try:
+        with mock.patch.object(task_loaders, "RSMRIDataset", source), \
+                mock.patch.object(MultitaskTrainer, "training_batch", recording), \
+                mock.patch.object(MultitaskTrainer, "validate", validating), \
+                mock.patch.object(MultitaskTrainer, "test", testing):
+            for run, cfg, yaml_name, table in runs:
+                cfg_path = tmp / f"{yaml_name}.json"
+                cfg_path.write_text(json_mod.dumps(cfg))
+                overrides = [f'exp_manager.exp_dir="{tmp / run}"', 'model.validation_ds.data_path="phantom/m/val"',
+                             'model.test_ds.data_path="phantom/m/val"']
+                if table is None:
+                    overrides.append(f'checkpoint="{archive}"')
+                else:
+                    overrides += ["trainer.max_epochs=1", f"trainer.limit_train_batches={M_STEPS}",
+                                  "trainer.limit_val_batches=1", 'model.train_ds.data_path="phantom/m/train"']
+                emit({"phase": "M", "run": run, "config": f"projects/multitask/conf/{yaml_name}.yaml",
+                      "overrides": overrides, "batch": 1, "card": card})
+                record.update(marks=[], counts=[], outs=[], trainer=None, validations=[], tests=[])
+                written.clear()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                with h5_writes_captured(written):
+                    cli.main(["run", "-c", str(cfg_path), *overrides])
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                for k, v in kernels.launch_counts().items():
+                    totals[k] += v
+                exp_dir = tmp / run / cfg["exp_manager"]["name"]
+                (run_dir,) = exp_dir.iterdir()
+                files = sorted(p.name for p in run_dir.iterdir())
+                if table is None:
+                    recon = written.get(("m_val_0.h5", "reconstruction"))
+                    classes = written.get(("m_val_0.h5", "segmentation"))
+                    metrics = record["tests"][-1] if record["tests"] else {}
+                    ok = (recon is not None and recon.shape == (1, H, W) and bool(np.isfinite(recon).all())
+                          and classes is not None and classes.shape == (1, H, W, 2)
+                          and bool((classes.sum(-1) == 1).all())
+                          and sorted(metrics) == ["DICE", "F1", "HD95", "IOU", "MSE", "NMSE", "PSNR", "SSIM"]
+                          and all(np.isfinite(v) for v in metrics.values()))
+                    emit({"m": run, "seconds": seconds, "run_dir": files, "written": sorted(written),
+                          "test_metrics": metrics, "ok": ok,
+                          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30, "card": card})
+                    if not ok:
+                        raise AssertionError(f"{run}: written {sorted(written)}, metrics {metrics}")
+                    continue
+                trainer = record["trainer"]
+                marks = record["marks"]
+                ms = (marks[-1] - marks[0]) / (len(marks) - 1) * 1e3
+                want = m_fed_per_step(table)
+                rec = {"m": run, "batch": 1, "steps": len(marks), "ms_per_step": ms, "slices_per_s": 1e3 / ms,
+                       "steps_timed": len(marks) - 1, "seconds": seconds,
+                       "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       "launches_per_step": record["counts"][-1], "expected_launches_per_step": want,
+                       "losses": [float(o["loss"]) for o in record["outs"]],
+                       "recon_losses": [float(o["recon_loss"]) for o in record["outs"]],
+                       "seg_losses": [float(o["seg_loss"]) for o in record["outs"]],
+                       "grad_norms": [float(o["grad_norm"]) for o in record["outs"]],
+                       "validations": record["validations"], "run_dir": files,
+                       "note": "ms per step between the starts of consecutive steps, the card synchronised at each: "
+                               "the loader's host pipeline (15 coils a slice) and the step, at batch 1",
+                       "card": card}
+                emit(rec)
+                run_cfg = apply_overrides(cfg, overrides)
+                loader = _build_task_loader("multitask", run_cfg["model"]["train_ds"], run_cfg["model"], False, dev)
+                t0 = time.perf_counter()
+                host = [b for _, b in zip(range(1), loader)]
+                host_ms = (time.perf_counter() - t0) / len(host) * 1e3
+                traced = trace_call(lambda: step(trainer, host[-1]), ms)
+                emit({"trace": run, "host_pipeline_ms_per_batch": host_ms,
+                      "device_idle_share": None if traced.get("device_ms") is None else 1 - traced["device_ms"] / ms,
+                      **traced, "card": card})
+                del loader, host
+                bad = [c for c in record["counts"] if c != want]
+                if len(marks) != M_STEPS or bad:
+                    raise AssertionError(f"{run}: {len(marks)} steps; launches per step {bad[:1]}, expected {want}")
+                if not np.isfinite(rec["losses"] + rec["grad_norms"]).all():
+                    raise AssertionError(f"{run}: losses {rec['losses']}, gradient norms {rec['grad_norms']}")
+                if len(rec["validations"]) != 2 or not all(np.isfinite(v) for val in rec["validations"]
+                                                           for v in val.values()):
+                    raise AssertionError(f"{run}: validations {rec['validations']} (the initial and the epoch's)")
+                if f"{cfg['exp_manager']['name']}.mridc" not in files:
+                    raise AssertionError(f"{run}: no archive in the run dir {files}")
+                archive = run_dir / f"{cfg['exp_manager']['name']}.mridc"
+                del trainer
+                record["trainer"] = None
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r in rows:
+        r["m_launch_launches"] = totals.get(r["name"], 0)
+    emit({"phase": "M launch", "seconds": time.perf_counter() - t_ml})
+
+
 def main() -> int:
     import torch
 
@@ -4028,6 +4529,8 @@ def main() -> int:
             out = {key: mask_pool.submit(poisson2d_mask, _S_DS, *key[1:]) for key in
                    [("s", H, W, f"s_{i}.h5") for i in range(S_TRAIN_VOLUMES)] + [("s", H, W, "s_val_0.h5")]}
             out.update({fname: mask_pool.submit(q_mask, H, W, fname) for fname in ("q_0.h5", "q_val_0.h5")})
+            out.update({("m", H, W, fname): mask_pool.submit(poisson2d_mask, M_TRAIN_CFG["model"]["train_ds"], H, W,
+                                                             fname) for fname in ("m_0.h5", "m_val_0.h5")})
             return out
 
         return run(t_start, masks, s_masks)
@@ -4836,6 +5339,10 @@ def run(t_start, masks, s_masks) -> int:
     # G. the segmentation trunks serving and training, and from their config files
     g_phase(dev, card, rows)
     g_launch_phase(dev, card, rows)
+
+    # M. the multitask models serving and training, and from their config files
+    m_phase(dev, card, rows)
+    m_launch_phase(dev, card, rows, masks)
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})

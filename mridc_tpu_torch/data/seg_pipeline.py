@@ -1,8 +1,11 @@
 """Task host pipelines (counterpart of ``mridc_tpu/data/seg_pipeline.py``):
 the segmentation transform and batcher, :class:`SegmentationDataTransforms`
-and :class:`SegBatchLoader`, and the quantitative batcher,
-:class:`QBatchLoader`, the same numpy code but for two repairs. The joint
-reconstruction-segmentation transform and batcher come with M12.
+and :class:`SegBatchLoader`, the joint reconstruction-segmentation ones,
+:class:`RSMRIDataTransforms` (the reconstruction transform's 10-tuple plus
+one-hot labels) and :class:`RSBatchLoader` (the reconstruction batch plus
+the labels, padded to the target's H and W; missing labels raise), and the
+quantitative batcher, :class:`QBatchLoader`, the same numpy code but for two
+repairs.
 
 The repairs: :class:`QBatchLoader` folds consecutive slices into one sample a
 slice; labels of consecutive slices stored one-hot as [S, classes, H, W]
@@ -18,10 +21,13 @@ from typing import Optional
 
 import numpy as np
 
-from mridc_tpu_torch.data.loaders import _pad_to
-from mridc_tpu_torch.data.transforms import _np_ifft2
+from mridc_tpu_torch.data.loaders import BatchLoader, _pad_to
+from mridc_tpu_torch.data.transforms import MRIDataTransforms, _np_ifft2
 
-__all__ = ["SegmentationDataTransforms", "SegBatchLoader", "QBatchLoader"]
+__all__ = ["SegmentationDataTransforms", "RSMRIDataTransforms", "SegBatchLoader", "RSBatchLoader", "QBatchLoader"]
+
+_MISSING_LABELS = ("segmentation labels missing for at least one sample — provide segmentations_path or files "
+                   "with a 'segmentation' dataset")
 
 
 def _is_onehot(seg: np.ndarray) -> bool:
@@ -82,6 +88,19 @@ class SegmentationDataTransforms:
         return {"image": x, "segmentation": seg, "fname": fname, "slice_idx": slice_idx, "attrs": attrs}
 
 
+class RSMRIDataTransforms(MRIDataTransforms):
+    """The reconstruction transform's 10-tuple plus the one-hot labels
+    [(S,) H, W, classes]."""
+
+    def __init__(self, output_classes: Optional[int] = None, **kwargs):
+        super().__init__(**kwargs)
+        self.output_classes = output_classes
+
+    def __call__(self, kspace, sensitivity_map, mask, target, segmentation, attrs, fname, slice_idx):
+        out = super().__call__(kspace, sensitivity_map, mask, None, target, attrs, fname, slice_idx)
+        return out + (_to_onehot(segmentation, self.output_classes),)
+
+
 class SegBatchLoader:
     """Batches :class:`SegmentationDataTransforms` samples: ``image`` and
     ``segmentation`` stacked (each sample's H and W zero-padded to the
@@ -123,8 +142,7 @@ class SegBatchLoader:
     @staticmethod
     def _collate(samples):
         if any(np.asarray(s["segmentation"]).size == 0 for s in samples):
-            raise ValueError("segmentation labels missing for at least one sample — provide segmentations_path or "
-                             "files with a 'segmentation' dataset")
+            raise ValueError(_MISSING_LABELS)
         h = max(np.asarray(s["image"]).shape[-3] for s in samples)
         w = max(np.asarray(s["image"]).shape[-2] for s in samples)
         return {
@@ -133,6 +151,21 @@ class SegBatchLoader:
             "fname": [s["fname"] for s in samples],
             "slice_idx": np.asarray([s["slice_idx"] for s in samples], np.int32),
         }
+
+
+class RSBatchLoader(BatchLoader):
+    """The reconstruction :class:`~mridc_tpu_torch.data.loaders.BatchLoader`
+    over :class:`RSMRIDataTransforms` samples, with ``segmentation`` [B, (S,)
+    H, W, classes] stacked, each padded to the batch target's H and W."""
+
+    def _collate(self, samples, indices=None):
+        segs = [np.asarray(s[-1]) for s in samples]
+        if any(g.size == 0 for g in segs):
+            raise ValueError(_MISSING_LABELS)
+        base = super()._collate([s[:-1] for s in samples], indices)
+        h, w = base["target"].shape[-3:-1]
+        base["segmentation"] = np.stack([_pad_to(g, (h, w, 0)) for g in segs], 0)
+        return base
 
 
 class QBatchLoader:

@@ -5,8 +5,12 @@ image without complex data, and the ``segmentation`` labels from the file or
 from ``segmentations_root``), and the quantitative one, :class:`qMRIDataset`
 (AHEAD format: multi-echo ``kspace`` [S, E, C, H, W], ``sensitivity_map``,
 ``mask``, ``mask_brain`` / ``mask_head``, ``{B0,S0,R2star,phi}_map_target``
-and ``_map_init_*``). The joint reconstruction-segmentation dataset comes
-with M12. h5py is imported where a file is first opened.
+and ``_map_init_*``), and the joint reconstruction-segmentation one,
+:class:`RSMRIDataset` (``kspace`` or ``ksp``, ``sensitivity_map``, ``mask``,
+the first of ``reconstruction_rss``, ``reconstruction_sense``,
+``reconstruction`` and ``target`` as the target, and the ``segmentation``
+labels from the file or from ``segmentations_root``). h5py is imported where
+a file is first opened.
 """
 
 from __future__ import annotations
@@ -17,7 +21,20 @@ import numpy as np
 
 from mridc_tpu_torch.data.loaders import MRIDataset, _h5py, is_none
 
-__all__ = ["SegmentationMRIDataset", "qMRIDataset"]
+__all__ = ["SegmentationMRIDataset", "RSMRIDataset", "qMRIDataset"]
+
+
+def _load_segmentation(dataset, hf, fname, dataslice):
+    """The ``segmentation`` labels of a slice (window): from the file of the
+    same name under ``dataset.segmentations_root``, else from the volume
+    ``hf``, else empty."""
+    root = dataset.segmentations_root
+    if root is not None and not is_none(root):
+        with _h5py().File(Path(root) / Path(fname).name, "r") as sf:
+            return np.asarray(dataset.get_consecutive_slices(sf, "segmentation", dataslice))
+    if "segmentation" in hf:
+        return np.asarray(dataset.get_consecutive_slices(hf, "segmentation", dataslice))
+    return np.array([])
 
 
 class SegmentationMRIDataset(MRIDataset):
@@ -28,14 +45,6 @@ class SegmentationMRIDataset(MRIDataset):
         self.segmentations_root = segmentations_root
         self.complex_data = complex_data
         super().__init__(*args, **kwargs)
-
-    def _load_segmentation(self, hf, fname, dataslice):
-        if self.segmentations_root is not None and not is_none(self.segmentations_root):
-            with _h5py().File(Path(self.segmentations_root) / Path(fname).name, "r") as sf:
-                return np.asarray(self.get_consecutive_slices(sf, "segmentation", dataslice))
-        if "segmentation" in hf:
-            return np.asarray(self.get_consecutive_slices(hf, "segmentation", dataslice))
-        return np.array([])
 
     def __getitem__(self, i: int):
         fname, dataslice, metadata = self.examples[i]
@@ -56,10 +65,40 @@ class SegmentationMRIDataset(MRIDataset):
                 kspace = np.array([])
                 sensitivity_map = np.array([])
                 mask = None
-            segmentation = self._load_segmentation(hf, fname, dataslice)
+            segmentation = _load_segmentation(self, hf, fname, dataslice)
             attrs = dict(hf.attrs)
             attrs.update(metadata)
         sample = (kspace, sensitivity_map, mask, imspace, segmentation, attrs, str(Path(fname).name), dataslice)
+        if self.transform is not None:
+            return self.transform(*sample)
+        return sample
+
+
+class RSMRIDataset(MRIDataset):
+    """Returns (kspace, sensitivity_map, mask, target, segmentation, attrs,
+    fname, slice_idx), or the transform's output of them."""
+
+    def __init__(self, *args, segmentations_root=None, **kwargs):
+        self.segmentations_root = segmentations_root
+        super().__init__(*args, **kwargs)
+
+    def __getitem__(self, i: int):
+        fname, dataslice, metadata = self.examples[i]
+        get = self.get_consecutive_slices
+        with _h5py().File(fname, "r") as hf:
+            kspace = get(hf, "kspace" if "kspace" in hf else "ksp", dataslice).astype(np.complex64, copy=False)
+            sensitivity_map = (get(hf, "sensitivity_map", dataslice).astype(np.complex64, copy=False)
+                               if "sensitivity_map" in hf else np.array([]))
+            mask = np.asarray(get(hf, "mask", dataslice)) if "mask" in hf else None
+            target = np.array([])
+            for k in ("reconstruction_rss", "reconstruction_sense", "reconstruction", "target"):
+                if k in hf:
+                    target = get(hf, k, dataslice)
+                    break
+            segmentation = _load_segmentation(self, hf, fname, dataslice)
+            attrs = dict(hf.attrs)
+            attrs.update(metadata)
+        sample = (kspace, sensitivity_map, mask, target, segmentation, attrs, str(Path(fname).name), dataslice)
         if self.transform is not None:
             return self.transform(*sample)
         return sample

@@ -5,12 +5,17 @@ then fits, any other mode tests and writes the reconstructions.
 
 The run is on the card unless ``run_from_config`` is given ``device="cpu"``
 or the config says ``trainer.accelerator: cpu``; the configs' ``tpu`` means the
-card here. Reconstruction, segmentation and quantitative models: the
-multitask branch raises, naming its ROADMAP.md item (M12). The segmentation
-task reads volumes with their labels through ``SegmentationMRIDataset``,
-``SegmentationDataTransforms`` and ``SegBatchLoader``, trains with
-``SegmentationTrainer`` and its ``mode: test`` writes each volume's
-predicted classes (``segmentation``). The quantitative task reads
+card here. Reconstruction, segmentation, multitask and quantitative
+models. The segmentation task reads volumes with their labels through
+``SegmentationMRIDataset``, ``SegmentationDataTransforms`` and
+``SegBatchLoader``, trains with ``SegmentationTrainer`` and its ``mode:
+test`` writes each volume's predicted classes (``segmentation``). The
+multitask task reads them through ``RSMRIDataset``, ``RSMRIDataTransforms``
+(every transform knob of the dataset config, as the reconstruction loader
+takes them) and ``RSBatchLoader``, trains with ``MultitaskTrainer`` (the
+``total_{segmentation,reconstruction}_loss_weight`` keys) and its ``mode:
+test`` writes each volume's ``reconstruction`` and ``segmentation``. The
+quantitative task reads
 AHEAD-format volumes through ``qMRIDataset`` and ``QBatchLoader`` (the
 model config's ``TEs``; ``fft_centered`` true and ``fft_normalization``
 "ortho" where the model config omits them, as the JAX package does) and
@@ -38,7 +43,6 @@ SEGMENTATION_MODELS = {
     "SEGMENTATIONDYNUNET", "SEGMENTATIONUNETR",
 }
 MULTITASK_MODELS = {"MTLRS", "JRSCIRIM", "IDSLR", "IDSLRUNET", "SEGNET", "RECSEGNET", "RECSEGUNET", "SERANET"}
-_UNPORTED_TASKS = {"multitask": "M12"}
 
 
 def model_task(model_name: str) -> str:
@@ -52,16 +56,9 @@ def model_task(model_name: str) -> str:
     return "reconstruction"
 
 
-def _check_task(task: str) -> None:
-    if task in _UNPORTED_TASKS:
-        raise NotImplementedError(f"the {task} task is not ported to mridc_tpu_torch yet: ROADMAP.md "
-                                  f"{_UNPORTED_TASKS[task]}")
-
-
 def _build_task_loader(task, ds_cfg, model_cfg, shuffle, device):
     from mridc_tpu_torch.data.factory import async_loader, build_dataloader
 
-    _check_task(task)
     if task == "segmentation":
         from mridc_tpu_torch.data.seg_pipeline import SegBatchLoader, SegmentationDataTransforms
         from mridc_tpu_torch.data.task_loaders import SegmentationMRIDataset
@@ -79,6 +76,18 @@ def _build_task_loader(task, ds_cfg, model_cfg, shuffle, device):
                                     consecutive_slices=ds_cfg.get("consecutive_slices", 1), transform=tfm)
         return async_loader(lambda **kw: SegBatchLoader(ds, batch_size=ds_cfg.get("batch_size", 1), shuffle=shuffle,
                                                         **kw), ds_cfg, device=device)
+    if task == "multitask":
+        from mridc_tpu_torch.data.factory import transform_kwargs
+        from mridc_tpu_torch.data.seg_pipeline import RSBatchLoader, RSMRIDataTransforms
+        from mridc_tpu_torch.data.task_loaders import RSMRIDataset
+
+        tfm = RSMRIDataTransforms(output_classes=model_cfg.get("segmentation_module_output_channels"),
+                                  **transform_kwargs(ds_cfg, model_cfg))
+        ds = RSMRIDataset(root=ds_cfg["data_path"], segmentations_root=ds_cfg.get("segmentations_path"),
+                          sample_rate=ds_cfg.get("sample_rate"),
+                          consecutive_slices=ds_cfg.get("consecutive_slices", 1), transform=tfm)
+        return async_loader(lambda **kw: RSBatchLoader(ds, batch_size=ds_cfg.get("batch_size", 1), shuffle=shuffle,
+                                                       **kw), ds_cfg, device=device)
     if task != "quantitative":
         return build_dataloader(ds_cfg, model_cfg, shuffle=shuffle, device=device)
     from mridc_tpu_torch.data.seg_pipeline import QBatchLoader
@@ -174,7 +183,7 @@ def run_from_config(cfg: dict, device=None):
     ``device="cpu"`` or ``trainer.accelerator: cpu``."""
     from mridc_tpu_torch.models import build_model
     from mridc_tpu_torch.train.exp_manager import ExpManager
-    from mridc_tpu_torch.train.task_trainers import (QuantitativeTrainer, SegmentationTrainer,
+    from mridc_tpu_torch.train.task_trainers import (MultitaskTrainer, QuantitativeTrainer, SegmentationTrainer,
                                                      seg_loss_cfg_from_model_cfg)
     from mridc_tpu_torch.train.trainer import Trainer, _limit_batches
     from mridc_tpu_torch.utils.typecheck import resolve_device
@@ -188,7 +197,6 @@ def run_from_config(cfg: dict, device=None):
     dev = resolve_device(device)
 
     task = model_task(model_cfg.get("model_name", ""))
-    _check_task(task)
     maybe_init_distributed(trainer_cfg, dev)
     model_cfg = _auto_dc_mode(model_cfg)
     model = build_model(model_cfg, device=dev)
@@ -221,6 +229,12 @@ def run_from_config(cfg: dict, device=None):
     trainer_cls = Trainer
     if task == "segmentation":
         trainer_cls = SegmentationTrainer
+        task_kwargs["seg_loss_cfg"] = seg_loss_cfg_from_model_cfg(model_cfg)
+        task_kwargs["segmentation_classes_thresholds"] = model_cfg.get("segmentation_classes_thresholds")
+    elif task == "multitask":
+        trainer_cls = MultitaskTrainer
+        task_kwargs["segmentation_loss_weight"] = float(model_cfg.get("total_segmentation_loss_weight", 1.0))
+        task_kwargs["reconstruction_loss_weight"] = float(model_cfg.get("total_reconstruction_loss_weight", 1.0))
         task_kwargs["seg_loss_cfg"] = seg_loss_cfg_from_model_cfg(model_cfg)
         task_kwargs["segmentation_classes_thresholds"] = model_cfg.get("segmentation_classes_thresholds")
     elif task == "quantitative":
@@ -307,7 +321,8 @@ def run_from_config(cfg: dict, device=None):
     key = "segmentation" if task == "segmentation" else "reconstruction"  # the predicted classes
     for fname, vol in recons.items():
         with h5py.File(out_dir / fname, "w") as hf:
-            hf.create_dataset(key, data=np.asarray(vol))
+            for name, data in (vol.items() if isinstance(vol, dict) else ((key, vol),)):
+                hf.create_dataset(name, data=np.asarray(data))
     return trainer, means
 
 

@@ -1,7 +1,7 @@
 """Model registry (counterpart of ``mridc_tpu/models/registry.py``):
-name -> constructor, plus the names of the JAX registry that are not ported yet,
-each with the ROADMAP item that ports it: JointICNet (M8's second half, which
-brings the learned sensitivity maps it trains) and the multitask models (M12).
+name -> constructor, plus the name of the JAX registry that is not ported yet,
+with the ROADMAP item that ports it: JointICNet (M8's second half, which
+brings the learned sensitivity maps it trains).
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import torch
 from mridc_tpu_torch.models.recon import (CIRIM, CS, PICS, ZF, CascadeNet, CRNNet, DUNet, KIKINet, LPDNet,
                                           MultiDomainNet, ProximalGradient, RecurrentVarNet, ResNet, UNet, VarNet,
                                           VSNet, XPDNet)
+from mridc_tpu_torch.models.multitask import IDSLR, MTLRS, SERANet, IDSLRUNet, RecSegUNet, SegNet
 from mridc_tpu_torch.models.quantitative import qCIRIM, qVarNet
 from mridc_tpu_torch.models.segmentation import (Segmentation3DUNet, SegmentationAttentionUNet, SegmentationDYNUNet,
                                                  SegmentationLambdaUNet, SegmentationUNet, SegmentationUNetR,
@@ -42,16 +43,12 @@ MODEL_REGISTRY: Dict[str, Callable] = {
     "SEGMENTATIONATTENTIONUNET": SegmentationAttentionUNet.from_config,
     "SEGMENTATIONLAMBDAUNET": SegmentationLambdaUNet.from_config, "SEGMENTATIONVNET": SegmentationVNet.from_config,
     "SEGMENTATIONDYNUNET": SegmentationDYNUNet.from_config, "SEGMENTATIONUNETR": SegmentationUNetR.from_config,
+    "MTLRS": MTLRS.from_config, "JRSCIRIM": MTLRS.from_config, "IDSLR": IDSLR.from_config,
+    "IDSLRUNET": IDSLRUNet.from_config, "SEGNET": SegNet.from_config, "RECSEGNET": RecSegUNet.from_config,
+    "RECSEGUNET": RecSegUNet.from_config, "SERANET": SERANet.from_config,
 }
 
-_M8 = "M8 (learned sensitivity maps, second half)"
-_M12 = "M12 (multitask)"
-PENDING_MODELS: Dict[str, str] = {
-    "JOINTICNET": _M8,
-    **dict.fromkeys(
-        ("MTLRS", "JRSCIRIM", "IDSLR", "IDSLRUNET", "SEGNET", "RECSEGNET", "RECSEGUNET", "SERANET"), _M12
-    ),
-}
+PENDING_MODELS: Dict[str, str] = {"JOINTICNET": "M8 (learned sensitivity maps, second half)"}
 
 
 # Perf knobs with model-specific support, as in the JAX package: a knob key in

@@ -163,6 +163,10 @@ class AttentionGate(nn.Module):
         self.W_g = names(Conv(g_chans, out_chans, 1))
         self.psi = names(Conv(out_chans, 1, 1))
 
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        for conv in (self.W_x, self.W_g, self.psi):
+            conv.reset_parameters(generator)
+
     def forward(self, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         wx = self.W_x(x)
         wg = bilinear_resize(self.W_g(g), wx.shape[2], wx.shape[3])

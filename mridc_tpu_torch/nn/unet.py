@@ -164,6 +164,10 @@ class NormUnet(nn.Module):
         w_mult = ((w - 1) | self.padding_size) + 1
         return (w_mult - w) // 2, (w_mult - w + 1) // 2, (h_mult - h) // 2, (h_mult - h + 1) // 2
 
+    def _trunk(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        """The network between the padding and the crop (NCHW)."""
+        return self.unet(x, train)
+
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
         mean = std = None
@@ -172,7 +176,7 @@ class NormUnet(nn.Module):
         h, w = x.shape[2], x.shape[3]
         left, right, top, bottom = self._pads(h, w)
         x = F.pad(x, (left, right, top, bottom)).contiguous(memory_format=torch.channels_last)
-        x = self.unet(x, train)[:, :, top : top + h, left : left + w]
+        x = self._trunk(x, train)[:, :, top : top + h, left : left + w]
         if self.normalize:
             x = self._unnorm(x, mean, std)
         return x.permute(0, 2, 3, 1).contiguous()

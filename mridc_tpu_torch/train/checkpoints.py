@@ -17,7 +17,7 @@ statistics (``train_batch_stats``) is archived in that format, as
 ``{"params", "batch_stats"}`` the way the JAX package saves it, so that each
 package restores the other's archive with its statistics; so is every model
 whose reference torch weights ``mridc_tpu`` does not read (RecurrentVarNet,
-MultiDomainNet, the quantitative and the segmentation models).
+MultiDomainNet, the quantitative, segmentation and multitask models).
 
 Step checkpoints stand in for orbax: ``torch.save`` of the trainer's state
 (``{model, optimizer, scheduler, step, epoch, ema}``) under
@@ -56,8 +56,8 @@ def save_archive(path, cfg: Dict, state_dict: Dict[str, torch.Tensor]) -> Path:
     the JAX package's flax msgpack where ``mridc_tpu`` reads no torch weights
     of the model: ``{"params", "batch_stats"}`` where the state holds live
     BatchNorm statistics (``running_mean``), the bare param tree for
-    RecurrentVarNet, MultiDomainNet, qCIRIM, qVarNet and the segmentation
-    models."""
+    RecurrentVarNet, MultiDomainNet, qCIRIM, qVarNet and the segmentation and
+    multitask models."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     flax_params = str(cfg.get("model_name", "")).upper() in _FLAX_ARCHIVED
@@ -143,7 +143,8 @@ def encode_flax_msgpack(tree: Any) -> bytes:
 
 _FLAX_ARCHIVED = {"RVN", "RECURRENTVARNET", "MULTIDOMAINNET", "MULTIDOMAIN", "QCIRIM", "QRIM", "QVN", "QVARNET",
                   "SEGMENTATIONUNET", "SEGMENTATION2DUNET", "SEGMENTATION3DUNET", "SEGMENTATIONATTENTIONUNET",
-                  "SEGMENTATIONLAMBDAUNET", "SEGMENTATIONVNET", "SEGMENTATIONDYNUNET", "SEGMENTATIONUNETR"}
+                  "SEGMENTATIONLAMBDAUNET", "SEGMENTATIONVNET", "SEGMENTATIONDYNUNET", "SEGMENTATIONUNETR",
+                  "MTLRS", "JRSCIRIM", "IDSLR", "IDSLRUNET", "SEGNET", "RECSEGNET", "RECSEGUNET", "SERANET"}
 _ZOO2 = {"CASCADENET", "CCNN", "CRNNET", "CRNN", "XPDNET", "KIKINET", "LPDNET", "LPD", "VSNET", "DUNET", *_FLAX_ARCHIVED}
 
 

@@ -1,5 +1,5 @@
 """Task trainers (counterpart of ``mridc_tpu/train/task_trainers.py``): the
-segmentation and quantitative halves. The multitask trainer comes with M12.
+segmentation, multitask and quantitative trainers.
 
 :func:`segmentation_loss_fn` is the reference's CE + Dice combination: the
 cross-entropy is evaluated on detached logits (it adds to the loss's value
@@ -17,6 +17,22 @@ HD95 against its labels (the JAX package's inherited ``test`` reads a
 logits are unfolded to [B, S, H, W, classes] before the loss and the
 metrics; the 3D U-Net takes them as volumes (the JAX package's lambda layer
 cannot unpack a 5D batch).
+
+:class:`MultitaskTrainer` trains a joint reconstruction-segmentation model
+on the reconstruction batches of ``RSBatchLoader`` with their
+``segmentation`` [B, H, W, classes]: the loss is ``w_rec *
+process_reconstruction_loss + w_seg * segmentation_loss_fn`` (a SegNet's
+train-mode stack of segmentations averages each term over it), and a step
+reports ``recon_loss``, ``seg_loss`` and ``grad_norm``; ``predict_batch``
+returns (prediction, segmentation logits); ``validate`` reports
+``val_loss`` (the l1 of the max-normalised magnitudes), ``val_SSIM`` and
+``val_DICE``; ``test`` writes each volume's reconstruction and predicted
+classes with SSIM, PSNR, NMSE and MSE and DICE, IOU, F1 and HD95 (the JAX
+package's inherited ``test`` indexes the (prediction, segmentation) pair as
+if it were the batch of predictions, and its SSIM raises ``ValueError`` on
+the shapes that gives).
+The models whose widths follow the coil count are built at the first
+batch's (``init_state``).
 
 :func:`quantitative_loss_fn` is the reference's per-map loss with
 accumulate-estimates semantics: per (cascade, time step, map) the target and
@@ -51,11 +67,14 @@ import torch
 
 from mridc_tpu_torch.losses.segmentation import cross_entropy_loss, dice_loss
 from mridc_tpu_torch.losses.ssim import ssim_loss
+from mridc_tpu_torch.metrics.reconstruction import METRIC_FUNCS, ReconstructionMetrics, ssim
 from mridc_tpu_torch.metrics.segmentation import SegmentationMetrics
 from mridc_tpu_torch.parallel.multihost import reduce_mean_stats
-from mridc_tpu_torch.train.trainer import Trainer, _host
+from mridc_tpu_torch.train.losses import process_reconstruction_loss
+from mridc_tpu_torch.train.trainer import Trainer, _host, _host_mag
 
-__all__ = ["SegmentationTrainer", "QuantitativeTrainer", "segmentation_loss_fn", "seg_loss_cfg_from_model_cfg",
+__all__ = ["SegmentationTrainer", "MultitaskTrainer", "QuantitativeTrainer", "segmentation_loss_fn",
+           "seg_loss_cfg_from_model_cfg",
            "quantitative_loss_fn", "quantitative_recon_loss_fn", "parse_loss_regularization_factors"]
 
 
@@ -236,6 +255,119 @@ class SegmentationTrainer(Trainer):
             for k, v in metrics(np.moveaxis(tgt, -1, 0), np.moveaxis(vol, -1, 0)).items():
                 sums[k] += v
         return volumes, reduce_mean_stats(sums, {k: float(len(volumes)) for k in sums})
+
+
+class MultitaskTrainer(Trainer):
+    """Joint reconstruction and segmentation training and evaluation (module
+    docstring): ``segmentation_loss_weight`` and
+    ``reconstruction_loss_weight`` (the YAMLs' ``total_*_loss_weight``),
+    ``seg_loss_cfg`` (:func:`segmentation_loss_fn`'s arguments)."""
+
+    def __init__(self, *args, segmentation_loss_weight: float = 1.0, reconstruction_loss_weight: float = 1.0,
+                 seg_loss_cfg: Optional[Dict] = None, segmentation_classes_thresholds=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.segmentation_loss_weight = float(segmentation_loss_weight)
+        self.reconstruction_loss_weight = float(reconstruction_loss_weight)
+        self.seg_loss_cfg = dict(seg_loss_cfg or {})
+        self.segmentation_classes_thresholds = segmentation_classes_thresholds
+
+    def init_state(self, sample_batch: Optional[Dict] = None):
+        """The optimizer over the model's parameters; a model whose widths
+        follow the coil count is built first at ``sample_batch``'s."""
+        model = self.model
+        if not getattr(model, "materialized", True):
+            if sample_batch is None:
+                raise ValueError(f"{type(model).__name__} takes its widths from the data: init_state needs a batch")
+            model.materialize(int(np.shape(sample_batch["masked_kspace"])[-4]), self.device)
+        return super().init_state(sample_batch)
+
+    def training_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """One training step: ``{"loss", "recon_loss", "seg_loss",
+        "grad_norm"}``."""
+        if self.state is None:
+            self.init_state(batch)
+        out, seg_logits = self.model(*self._model_inputs(batch), train=True)
+        recon = process_reconstruction_loss(out, self._tensor(batch["target"]), self.loss_type,
+                                            self.loss_regularization_factor)
+        seg = segmentation_loss_fn(self._tensor(batch["segmentation"]), seg_logits, **self.seg_loss_cfg)
+        loss = self.reconstruction_loss_weight * recon + self.segmentation_loss_weight * seg
+        return {"loss": loss.detach(), "recon_loss": recon.detach(), "seg_loss": seg.detach(),
+                "grad_norm": self._apply_loss(loss)}
+
+    def predict_batch(self, batch: Dict, use_ema: bool = False):
+        """(prediction [B, H, W, 2], segmentation logits [B, H, W, classes])
+        of the inference forward, float32 on the host."""
+        inputs = self._model_inputs(batch)
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            with torch.no_grad():
+                if use_ema and self.state is not None and self.state.ema_params is not None:
+                    out, seg = torch.func.functional_call(self.model, self.state.ema_params, inputs)
+                else:
+                    out, seg = self.model(*inputs)
+        finally:
+            self.model.train(was_training)
+        return _host(out.prediction.float()), _host(seg.float())
+
+    def validate(self, val_loader: Iterable, use_ema: Optional[bool] = None,
+                 limit: Optional[int] = None) -> Dict[str, float]:
+        """``val_loss`` (a mean over batches), ``val_SSIM`` and ``val_DICE``
+        (means over slices), reduced over processes."""
+        use_ema = self.use_ema if use_ema is None else use_ema
+        seg_metrics = SegmentationMetrics()
+        losses, ssims, dices = [], [], []
+        for batch_idx, batch in enumerate(val_loader):
+            if limit is not None and batch_idx >= limit:
+                break
+            pred, seg_logits = self.predict_batch(batch, use_ema=use_ema)
+            t, p = _host_mag(batch["target"]), _host_mag(pred)
+            t = t / (t.max() or 1.0)
+            p = p / (p.max() or 1.0)
+            losses.append(float(np.abs(t - p).mean()))
+            self._maybe_log_val_images(batch_idx, t, p)
+            seg_target = _host(batch["segmentation"])
+            seg_pred = _seg_pred_classes(seg_logits, self.segmentation_classes_thresholds)
+            for i in range(t.shape[0]):
+                ssims.append(ssim(t[i: i + 1], p[i: i + 1]))
+                dices.append(seg_metrics(np.moveaxis(seg_target[i], -1, 0), np.moveaxis(seg_pred[i], -1, 0))["DICE"])
+        reduced = reduce_mean_stats(
+            {"loss": float(np.sum(losses)), "SSIM": float(np.sum(ssims)), "DICE": float(np.sum(dices))},
+            {"loss": float(len(losses)), "SSIM": float(len(ssims)), "DICE": float(len(dices))})
+        return {"val_loss": reduced["loss"], "val_SSIM": reduced["SSIM"], "val_DICE": reduced["DICE"]}
+
+    def test(self, test_loader: Iterable, use_ema: Optional[bool] = None):
+        """Per volume by file name (slices in order): ``{"reconstruction": [S,
+        H, W] magnitudes normalised to their maximum, "segmentation": [S, H,
+        W, classes] predicted classes}``; and the means over volumes, reduced
+        over processes, of the reconstruction's SSIM, PSNR, NMSE and MSE
+        against the target (each normalised to its maximum) and of the
+        classes' DICE, IOU, F1 and HD95 against the labels."""
+        use_ema = self.use_ema if use_ema is None else use_ema
+        slices: Dict[str, list] = {}
+        for batch in test_loader:
+            pred, seg_logits = self.predict_batch(batch, use_ema=use_ema)
+            classes = _seg_pred_classes(seg_logits, self.segmentation_classes_thresholds)
+            target, labels = _host(batch["target"]), _host(batch["segmentation"])
+            for i, fname in enumerate(batch["fname"]):
+                slices.setdefault(fname, []).append((int(batch["slice_idx"][i]), _host_mag(pred[i]), classes[i],
+                                                     _host_mag(target[i]), labels[i]))
+        recon_metrics, seg_metrics = ReconstructionMetrics(METRIC_FUNCS), SegmentationMetrics()
+        volumes, seg_sums = {}, {"DICE": 0.0, "IOU": 0.0, "F1": 0.0, "HD95": 0.0}
+        for fname, rows in slices.items():
+            rows = sorted(rows, key=lambda r: r[0])
+            vol, cls, tgt, lab = (np.stack([r[j] for r in rows]) for j in range(1, 5))
+            vol = vol / (vol.max() or 1.0)
+            recon_metrics.push(tgt / (tgt.max() or 1.0), vol)
+            for k, v in seg_metrics(np.moveaxis(lab, -1, 0), np.moveaxis(cls, -1, 0)).items():
+                seg_sums[k] += v
+            volumes[fname] = {"reconstruction": vol, "segmentation": cls}
+        sums = {k: st.mean() * st.n for k, st in recon_metrics.metrics_scores.items()}
+        counts = {k: float(st.n) for k, st in recon_metrics.metrics_scores.items()}
+        sums.update(seg_sums)
+        counts.update({k: float(len(volumes)) for k in seg_sums})
+        return volumes, reduce_mean_stats(sums, counts)
+
 
 _QMAP_NAMES = ("R2star", "S0", "B0", "phi")
 

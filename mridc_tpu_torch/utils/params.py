@@ -47,6 +47,15 @@ transposed, a V-Net PReLU's ``alpha``, UNETR's ``position_embeddings`` and
 its LayerNorm's ``scale``/``bias`` as they are. The trunk's input width
 (and UNETR's patch count) is read off the tree's shapes.
 
+The multitask models (the same table) map by their modules' flax names
+too: MTLRS's ``RIMBlock_{k}`` step scans as qCIRIM's recurrent blocks and its
+heads ``{class}_{i}`` (the explicit name of the JAX package's ``nn.remat``,
+which the head has whichever way it was built), the DC weights
+(``KSpaceDC_0/dc_weight``, ``SERANetDC_{i}/dc_weight``), the exposed-feature
+U-Nets' ``UnetEncoder_{i}``/``UnetDecoder_{j}`` and the ConvLSTMs'
+``ConvLSTM_0/ConvLSTMCell_0/Conv_0``. The widths that follow the coil count
+are read off the tree's shapes.
+
 The flax scope names depend on ``remat_mode``: a rematerialised scan is named
 ``ScanCheckpoint_*``, a plain one ``Scan_*`` — ``step+cascade`` gives
 ``ScanCheckpoint_Cascade_0/RIMBlock_0/ScanCheckpoint_RIMStep_0``, ``none``
@@ -67,7 +76,9 @@ __all__ = ["cirim_params_from_jax", "rim_block_params_from_jax", "normunet_param
            "unet_params_from_jax", "resnet_params_from_jax", "zoo2_params_from_jax", "zoo2_params_to_jax",
            "cascadenet_params_from_jax", "crnn_params_from_jax", "xpdnet_params_from_jax", "kikinet_params_from_jax",
            "lpdnet_params_from_jax", "vsnet_params_from_jax", "dunet_params_from_jax", "rvn_params_from_jax",
-           "multidomainnet_params_from_jax", "qcirim_params_from_jax", "qvn_params_from_jax", "hwio_to_oihw",
+           "multidomainnet_params_from_jax", "qcirim_params_from_jax", "qvn_params_from_jax", "mtlrs_params_from_jax",
+           "idslr_params_from_jax", "idslrunet_params_from_jax", "segnet_params_from_jax",
+           "recsegunet_params_from_jax", "seranet_params_from_jax", "hwio_to_oihw",
            "hwio_to_iohw_flipped"]
 
 _CELL_SCOPE = re.compile(r"^(IndRNNCell|ConvGRUCell|ConvMGUCell)_(\d+)$")
@@ -535,16 +546,23 @@ def _scoped_pairs(module, f: str = "", p: str = ""):
 
 def _model_pairs(model):
     """The pairs of a whole CascadeNet, CRNNet, XPDNet, KIKINet, LPDNet, VSNet,
-    DUNet, RecurrentVarNet, MultiDomainNet, qCIRIM or qVarNet, read off the
-    port model."""
+    DUNet, RecurrentVarNet, MultiDomainNet, qCIRIM, qVarNet, segmentation or
+    multitask model, read off the port model: MTLRS's ``RIMBlock_{k}`` step
+    scans as qCIRIM's, the rest by the modules' flax scopes."""
     from mridc_tpu_torch.models.quantitative import qCIRIM, qVarNet
     from mridc_tpu_torch.models.recon import (CascadeNet, CRNNet, DUNet, KIKINet, LPDNet, MultiDomainNet,
                                               RecurrentVarNet, VSNet, XPDNet)
     from mridc_tpu_torch.models.segmentation import SegmentationModel
 
+    from mridc_tpu_torch.models.multitask import MTLRS, IDSLR, RecSegUNet, SegNet, SERANet
+
     scopes, out = _Scopes(), []
-    if isinstance(model, SegmentationModel):
+    if isinstance(model, (SegmentationModel, IDSLR, SegNet, RecSegUNet, SERANet)):
         out += _scoped_pairs(model)
+    elif isinstance(model, MTLRS):
+        for k, block in enumerate(model.rim_blocks):
+            out += _rim_stack_pairs(block, f"RIMBlock_{k}/ScanCheckpoint_RIMStep_0/", f"rim_blocks.{k}.")
+        out += _scoped_pairs(model.seg_heads, "", "seg_heads.")
     elif isinstance(model, (qCIRIM, qVarNet)):
         out += _quantitative_pairs(model)
     elif isinstance(model, CascadeNet):
@@ -670,6 +688,13 @@ def zoo2_params_from_jax(tree: Mapping, cfg: Mapping) -> Dict[str, torch.Tensor]
     params, stats = _collections(tree)
     if str(cfg.get("model_name", "")).upper() in _SEG_NAMES:
         model = _seg_port_model(cfg, params)
+    elif str(cfg.get("model_name", "")).upper() in MULTITASK_NAMES:
+        model = _port_model(cfg)
+        if not getattr(model, "materialized", True):  # built at the input width of the tree's shapes
+            node = params
+            for scope in model.width_leaf.split("/"):
+                node = node[scope]
+            model._materialize_width(int(np.shape(node)[-2]))
     else:
         first = params.get("NormUnet_0", {}).get("Unet_0", {}).get("ConvBlock_0", {}).get("Conv_0", {}) \
             if isinstance(params, Mapping) else {}
@@ -692,9 +717,9 @@ def zoo2_params_to_jax(state: Mapping[str, torch.Tensor], cfg: Mapping) -> Dict:
     refuses ``scan_iterations``)."""
     from mridc_tpu_torch.models.quantitative.qvn import FIRST_CONV
 
-    if str(cfg.get("model_name", "")).upper() in _SEG_NAMES:
+    if str(cfg.get("model_name", "")).upper() in _SEG_NAMES | MULTITASK_NAMES:
         model = _port_model(cfg)
-        model.load_state_dict(state)  # the trunk built at the state's widths
+        model.load_state_dict(state)  # the modules built at the state's widths
     else:
         first = state.get(FIRST_CONV)
         model = _port_model(cfg, None if first is None else first.shape[1])
@@ -714,6 +739,7 @@ def zoo2_params_to_jax(state: Mapping[str, torch.Tensor], cfg: Mapping) -> Dict:
     return out if out["batch_stats"] else {"params": out["params"]}
 
 
+MULTITASK_NAMES = {"MTLRS", "JRSCIRIM", "IDSLR", "IDSLRUNET", "SEGNET", "RECSEGNET", "RECSEGUNET", "SERANET"}
 _SEG_NAMES = {"SEGMENTATIONUNET", "SEGMENTATION2DUNET", "SEGMENTATION3DUNET", "SEGMENTATIONATTENTIONUNET",
               "SEGMENTATIONLAMBDAUNET", "SEGMENTATIONVNET", "SEGMENTATIONDYNUNET", "SEGMENTATIONUNETR"}
 
@@ -738,3 +764,9 @@ rvn_params_from_jax = _named("RVN")
 multidomainnet_params_from_jax = _named("MultiDomainNet")
 qcirim_params_from_jax = _named("qCIRIM")
 qvn_params_from_jax = _named("qVN")
+mtlrs_params_from_jax = _named("MTLRS")
+idslr_params_from_jax = _named("IDSLR")
+idslrunet_params_from_jax = _named("IDSLRUNet")
+segnet_params_from_jax = _named("SegNet")
+recsegunet_params_from_jax = _named("RecSegUNet")
+seranet_params_from_jax = _named("SERANet")

@@ -87,14 +87,14 @@ def test_archive_without_weights_says_so(tmp_path):
 
 
 def test_flax_archive_of_an_unported_model_names_its_item(tmp_path):
-    path = tmp_path / "mtlrs.mridc"
+    path = tmp_path / "jointicnet.mridc"
     with tarfile.open(path, "w:gz") as tar:
-        for name, data in (("model_config.yaml", b'{"model_name": "MTLRS"}'),
+        for name, data in (("model_config.yaml", b'{"model_name": "JointICNet"}'),
                            ("model_weights.msgpack", b"\x80")):
             info = tarfile.TarInfo(name)
             info.size = len(data)
             tar.addfile(info, io.BytesIO(data))
-    with pytest.raises(NotImplementedError, match="M12"):
+    with pytest.raises(NotImplementedError, match="M8"):
         checkpoints.load_archive(path)
 
 

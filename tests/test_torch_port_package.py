@@ -84,13 +84,14 @@ def test_build_model_without_device_needs_cuda(monkeypatch):
 
 
 def test_every_jax_model_name_builds_or_names_its_roadmap_item():
-    assert available_models() == ["CASCADENET", "CCNN", "CIRIM", "CRNN", "CRNNET", "CS", "DUNET", "E2EVN", "KIKINET",
-                                  "LPD", "LPDNET", "MULTIDOMAIN", "MULTIDOMAINNET", "PG", "PICS", "PROXIMALGRADIENT",
-                                  "QCIRIM", "QRIM", "QVARNET", "QVN", "RECURRENTVARNET", "RESNET", "RIM", "RVN",
+    assert available_models() == ["CASCADENET", "CCNN", "CIRIM", "CRNN", "CRNNET", "CS", "DUNET", "E2EVN", "IDSLR",
+                                  "IDSLRUNET", "JRSCIRIM", "KIKINET", "LPD", "LPDNET", "MTLRS", "MULTIDOMAIN",
+                                  "MULTIDOMAINNET", "PG", "PICS", "PROXIMALGRADIENT", "QCIRIM", "QRIM", "QVARNET",
+                                  "QVN", "RECSEGNET", "RECSEGUNET", "RECURRENTVARNET", "RESNET", "RIM", "RVN",
                                   "SEGMENTATION2DUNET", "SEGMENTATION3DUNET", "SEGMENTATIONATTENTIONUNET",
                                   "SEGMENTATIONDYNUNET", "SEGMENTATIONLAMBDAUNET", "SEGMENTATIONUNET",
-                                  "SEGMENTATIONUNETR", "SEGMENTATIONVNET", "UNET", "VARNET", "VN", "VSNET", "XPDNET",
-                                  "ZF"]
+                                  "SEGMENTATIONUNETR", "SEGMENTATIONVNET", "SEGNET", "SERANET", "UNET", "VARNET", "VN",
+                                  "VSNET", "XPDNET", "ZF"]
     for name in jax_models():
         if name in available_models():
             continue
