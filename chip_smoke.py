@@ -108,7 +108,7 @@ Phases (any failure raises; no phase catches its own):
   L. the launch path: ``launch.run_from_config`` of
      projects/reconstruction/conf/base_cirim_train.yaml as written
      (``LAUNCH_CFG``) with its overrides printed (one epoch of ``L_STEPS``
-     = 24 steps, the phantom roots, ``trainer.profile_dir``), mode
+     = 16 steps, the phantom roots, ``trainer.profile_dir``), mode
      ``train``, fed by D2's phantom
      volumes in place of the h5 read (``launch_phase``), at the config's
      batch size 1: L1 ``launch_f32_full`` (poisson2d, full DC) and L2
@@ -186,7 +186,29 @@ Phases (any failure raises; no phase catches its own):
      of base_segmentation_unet_run.yaml (``mode: test``: per-volume classes
      and DICE, IOU, F1, HD95) on its archive, and of
      base_segmentation_lambda_unet3d_train.yaml (5 slices folded into the
-     batch) on ``SegPhantomSource`` volumes (``g_launch_phase``).
+     batch) on ``SegPhantomSource`` volumes (``g_launch_phase``);
+  M. the six multitask models as projects/multitask/conf's YAMLs set them
+     (``M_CFGS``): serving, training and their config files (``m_phase``,
+     ``m_launch_phase``);
+  J. learned sensitivity maps: J1 K2's maps-gradient stage (``k2_sens_grad``,
+     two-term and one-term forms) and K1's maps-gradient kernel (both
+     dtypes) against their plain versions at B=8, with ms, plain ms, bound
+     and library ms (``j_kernels``); J2 the flagship CIRIM with a sens net
+     (``j_cirim_cfg``: phase 5's weights, sens_chans 8, sens_pools 4) and J3
+     JointICNet at base_jointicnet_train.yaml's widths: serving at B=8 in f32
+     full, f32 psf1d and bf16 psf1d (JointICNet f32) against K1's, K2's and
+     K3's plain twins (``j_twins``), launches per forward against
+     ``J_PER_FORWARD``; training (``J_TRAIN``: the CIRIM at B=8 in three
+     routes, JointICNet at 1) with the first float32 step's loss and
+     gradients against the twins at batch 1, the sens net's gradient finite
+     and nonzero and its weights moved by the timed steps, launches per step
+     against ``J_PER_STEP``, one traced step each
+     with the maps' gradient as its own layer (``j_phase``); J4
+     ``cli.main(["run", "-c", ...])`` of base_jointicnet_train.yaml, of
+     base_jointicnet_run.yaml (``mode: test``) on its archive, and of
+     base_cirim_train.yaml with ``model.use_sens_net=true``, read centered
+     (``J_CENTERED``), on phantom volumes with D2's premade masks
+     (``j_launch_phase``, ``J_LAUNCH_PER_STEP``).
 
 The poisson2d masks of D1 and D2 (pure-Python dart throwing: minutes a mask
 at 320x320) are drawn at the start, in worker processes that run beside
@@ -367,7 +389,8 @@ L_RUNS = {
                           for a, v in (("type", '"equispaced1d"'), ("accelerations", "[4]"),
                                        ("center_fractions", "[0.08]"))], "phantom/1d", "train_f32_psf1d"),
 }
-L_STEPS = 24  # training steps of a launch run (trainer.limit_train_batches): half of D2's 48 slices
+L_STEPS = 16  # training steps of a launch run (trainer.limit_train_batches): a third of D2's 48,
+# so that the script keeps within its time
 L_VAL_LIMIT = 2  # validation batches of the resumed runs
 
 
@@ -769,8 +792,9 @@ G_STEPS = 3
 # the config-file runs' phantom volumes: 1 training volume of Q_SLICES slices
 # (Q_SLICES steps at batch 1) and 1 validation volume of 1 slice, each with
 # the poisson2d mask the YAML's masker draws for its file name, premade; qVN
-# takes Q_QVN_STEPS steps
-Q_SLICES, Q_QVN_STEPS = 4, 2
+# takes Q_QVN_STEPS steps. Two slices each, so that the script keeps within
+# its time: a qCIRIM slice's host pipeline (the map fit) is its dearest part
+Q_SLICES, Q_QVN_STEPS = 2, 2
 # M: the multitask models as projects/multitask/conf's YAMLs set them (the
 # model keys; tests/test_torch_port_multitask_launch.py holds them against
 # the YAMLs), on phantom slices at 15 coils, 320x320, 2 classes
@@ -841,6 +865,105 @@ M_RUN_CFG = _q_cfg("mtlrs", M_CFGS["mtlrs"], "test")
 SERANET_TRAIN_CFG = _q_cfg("seranet", M_CFGS["seranet"], "train")
 SERANET_RUN_CFG = _q_cfg("seranet", M_CFGS["seranet"], "test")
 M_STEPS = 3  # the config-file runs: M_STEPS steps at batch 1, 1 validation batch
+
+# J: learned sensitivity maps (M8's second half). J1: the maps-gradient
+# kernels (K2's sens_grad stage, K1's psf1d_sens) against their plain
+# versions at the main path's operands; J2: the flagship CIRIM (phase 5's
+# weights) with a sens net at the reference's default widths (J_SENS; the
+# estimator's weights from ZOO_SEED), serving at B=8 in three DC routes and
+# training at B=8 in two; J3: JointICNet as
+# projects/reconstruction/conf/base_jointicnet_train.yaml sets it
+# (J_ICNET_CFG), serving at B=8 and training at the YAML's batch 1; J4: that
+# YAML and base_jointicnet_run.yaml as written (literals:
+# tests/test_torch_port_jointicnet.py holds them equal to the YAMLs), and
+# base_cirim_train.yaml (LAUNCH_CFG) with model.use_sens_net=true
+J_SENS = {"use_sens_net": True, "sens_chans": 8, "sens_pools": 4}
+_J_COMMON = ("coil_combination_method", "use_sens_net", "sens_chans", "sens_pools", "sens_mask_type", "fft_centered",
+             "fft_normalization", "spatial_dims", "coil_dim", "complex_data", "log_images", "train_loss_fn",
+             "val_loss_fn")
+J_ICNET_CFG = {**{k: LAUNCH_CFG["model"][k] for k in _J_COMMON}, "model_name": "JointICNet", "num_iter": 2,
+               "kspace_unet_num_filters": 16, "kspace_unet_num_pool_layers": 2, "imspace_unet_num_filters": 16,
+               "imspace_unet_num_pool_layers": 2, "sens_unet_num_filters": 16, "sens_unet_num_pool_layers": 2}
+J_OPTIM = TRAIN_OPTIM
+J_TRAIN_CFG = {**LAUNCH_CFG,
+               "model": {**J_ICNET_CFG, "optim": J_OPTIM, **{k: LAUNCH_CFG["model"][k] for k in _DS_KEYS}},
+               "exp_manager": {**LAUNCH_CFG["exp_manager"], "name": "jointicnet"}}
+J_RUN_CFG = {**J_TRAIN_CFG, "mode": "test"}
+# serving at B=8 and training: (model, overrides)
+J_SERVE = {
+    "j_cirim_f32_full": ("cirim", {"dc_mode": "full"}),
+    "j_cirim_f32_psf1d": ("cirim", {}),
+    "j_cirim_bf16_psf1d": ("cirim", {"compute_dtype": "bfloat16"}),
+    "j_jointicnet": ("jointicnet", {}),
+}
+# (the CIRIM's training loss reads every cascade's intermediates, as phase 8's;
+# bf16 psf1d runs K1's bf16 maps-gradient kernel)
+J_TRAIN = {
+    "train_j_cirim_f32_full": ("cirim", {"dc_mode": "full", "stack_intermediates": True}),
+    "train_j_cirim_f32_psf1d": ("cirim", {"stack_intermediates": True}),
+    "train_j_cirim_bf16_psf1d": ("cirim", {"compute_dtype": "bfloat16", "stack_intermediates": True}),
+    "train_j_jointicnet": ("jointicnet", {}),
+}
+J_TRACED = tuple(J_TRAIN)  # a step of each traced
+# launches per forward: a sens net launches nothing, so the wrapped flagship's
+# are phase 5's. JointICNet (uncentered backward FFT, 2 iterations): the
+# SENSE init (a reduce), then per iteration update C's sens_expand (an
+# expand) and update X's data term: the full DC on the mask's indicator
+# (expand, residual, reduce) and sens_reduce of y under ind - 1 (load, reduce)
+J_PER_FORWARD = {
+    "j_cirim_f32_full": PER_FORWARD["f32_full"], "j_cirim_f32_psf1d": PER_FORWARD["f32_psf1d"],
+    "j_cirim_bf16_psf1d": PER_FORWARD["bf16_psf1d"],
+    "j_jointicnet": {"k2_reduce": 5, "k2_expand": 4, "k2_residual": 2, "k2_load": 2},
+}
+# launches per training step. The maps take a gradient at every DC call, so
+# every call has a backward (phase 8's skip the first step of each cascade),
+# and the maps-gradient chains replace the fixed-maps ones:
+#   - full DC: the forward's residual image recomputed (expand, residual),
+#     d_eta's chain (expand, mask) and one sens_grad, NT = 40 of them, beside
+#     phase 8's forward and recompute (2NT = 80 DC calls);
+#   - psf1d: K1's maps-gradient kernel (d_eta in the same pass) once per DC
+#     call, 40, in place of K1's backward; z0 = sens_reduce(m y) per cascade
+#     and the SENSE init take the maps' gradient (load, sens_grad): 5 + 1;
+#   - the SENSE init (centered, no mask) a load and a sens_grad.
+# JointICNet: the forward's; the SENSE init's and update C's sens_expand
+# sens_grad alone (uncentered, no mask), the full DC's maps chain, and the
+# masked sens_reduce's load and sens_grad, per iteration
+J_PER_STEP = {
+    "train_j_cirim_f32_full": {"k2_expand": 160, "k2_residual": 120, "k2_mask": 40, "k2_reduce": 81,
+                               "k2_sens_grad": 41, "k2_load": 2, "k3_indrnn_f32": 230, "k3_indrnn_bwd_f32": 80},
+    "train_j_cirim_f32_psf1d": {"k1_psf1d_dc_f32": 80, "k1_psf1d_sens_f32": 40, "k3_indrnn_f32": 230,
+                                "k3_indrnn_bwd_f32": 80, "k2_load": 17, "k2_reduce": 11, "k2_sens_grad": 6},
+    "train_j_cirim_bf16_psf1d": {"k1_psf1d_dc_bf16": 80, "k1_psf1d_sens_bf16": 40, "k3_indrnn_bf16": 230,
+                                 "k3_indrnn_bwd_bf16": 80, "k2_load": 17, "k2_reduce": 11, "k2_sens_grad": 6},
+    "train_j_jointicnet": {"k2_reduce": 5, "k2_expand": 8, "k2_residual": 4, "k2_load": 4, "k2_mask": 2,
+                           "k2_sens_grad": 7},
+}
+# J4 reads the phantom volumes centered: the YAMLs read uncentered k-space
+# under an fftshifted mask, where the sens net takes its ACS band from the
+# centre of the mask's first row, which a shifted mask leaves unsampled; both
+# packages then keep one empty k-space row, estimate all-zero maps and get
+# NaN gradients from the RSS normalisation's sqrt at 0 (ROADMAP section 3).
+# The phantom k-space is centered; under these overrides the transform reads
+# it so, under the premade poisson2d masks unshifted
+J_CENTERED = (["model.fft_centered=true"] + [f"model.{k}.fft_centered=true" for k in _DS_KEYS]
+              + [f"model.{k}.mask_args.shift_mask=false" for k in _DS_KEYS])
+# J4's runs: (config, YAML, overrides, launch table or None for mode test).
+# Launches per step fed by the loader (centered FFT): JointICNet reads no
+# initial prediction, so its SENSE init runs, and a centered one loads, as
+# do update C's sens_expand and both their backwards; CIRIM starts from the
+# batches' initial prediction (no SENSE init) on the full DC (poisson2d)
+J_LAUNCH = {
+    "launch_j_jointicnet": (J_TRAIN_CFG, "base_jointicnet_train", [], "launch_j_jointicnet"),
+    "test_j_jointicnet": (J_RUN_CFG, "base_jointicnet_run", ["pretrained=true"], None),
+    "launch_j_cirim_sens": (LAUNCH_CFG, "base_cirim_train", ["model.use_sens_net=true"], "launch_j_cirim_sens"),
+}
+J_LAUNCH_PER_STEP = {
+    "launch_j_jointicnet": {"k2_reduce": 5, "k2_expand": 8, "k2_residual": 4, "k2_load": 10, "k2_mask": 2,
+                            "k2_sens_grad": 7},
+    "launch_j_cirim_sens": {"k2_expand": 160, "k2_residual": 120, "k2_mask": 40, "k2_reduce": 80,
+                            "k2_sens_grad": 40, "k3_indrnn_f32": 230, "k3_indrnn_bwd_f32": 80},
+}
+J_STEPS = 3  # the config-file runs: J_STEPS steps at batch 1, 1 validation batch
 
 def fed_per_step(phase8_run: str) -> dict:
     """Launches per training step fed by the loader: those of phase 8's run
@@ -1180,6 +1303,10 @@ def kernel_category(name: str) -> str:
     """Which layer a CUDA kernel of a forward or training step belongs to, by
     its name."""
     n = name.lower()
+    if "sens_grad_kernel" in n:
+        return "K2 maps gradient"
+    if "sens_kernel<" in n:
+        return "K1 maps gradient"
     if "psf1d_dc" in n:
         return "K1 psf1d_dc backward" if "<true" in n else "K1 psf1d_dc"
     if "indrnn_bwd" in n or "reduce_partials" in n:
@@ -2158,7 +2285,7 @@ def plain_k2():
     nothing, so they count nothing."""
     from mridc_tpu_torch.kernels import k2_full_dc as k2
 
-    names = ("expand", "residual", "load", "reduce", "apply_mask", "reduce_acc")
+    names = ("expand", "residual", "load", "reduce", "apply_mask", "reduce_acc", "sens_grad")
     saved = {n: getattr(k2, n) for n in names}
     for n in names:
         setattr(k2, n, getattr(k2, f"{n}_plain"))
@@ -2421,12 +2548,13 @@ def op_device_ms(prof, top=14) -> dict:
     return dict(sorted(out.items(), key=lambda kv: -kv[1])[:top])
 
 
-def serve_and_check(run, check_name, model, inputs, per_forward, card, **extra):
+def serve_and_check(run, check_name, model, inputs, per_forward, card, twins=None, bf16=False, **extra):
     """Serving: ``WARMUP`` and ``ITERS`` timed forwards of ``model`` on
     ``inputs`` (y, sens, mask), the launch counters zeroed before and read
     after (launches per forward against ``per_forward``), the prediction
-    finite and [B, H, W, 2], and held against the same forward with K2's plain
-    twins on the card (F32). Returns (ms per forward, the launches)."""
+    finite and [B, H, W, 2], and held against the same forward with the plain
+    ``twins`` on the card (K2's by default): F32, or (``bf16``) BF16_MODEL
+    and relative l2 BF16_REL_L2. Returns (ms per forward, the launches)."""
     import torch
 
     from mridc_tpu_torch import kernels
@@ -2453,9 +2581,16 @@ def serve_and_check(run, check_name, model, inputs, per_forward, card, **extra):
         raise AssertionError(f"{run}: launches {delta} != expected {want}")
     if not bool(torch.isfinite(pred).all()) or tuple(pred.shape) != (b, h, w, 2):
         raise AssertionError(f"{run}: prediction not finite or of shape {tuple(pred.shape)}")
-    with torch.inference_mode(), plain_k2():
+    with torch.inference_mode(), (twins or plain_k2)():
         plain = model(*inputs).prediction
-    check(check_name, pred, plain, *F32, note="the same forward with K2's plain twins on the card")
+    note = "the same forward with the plain twins on the card"
+    if not bf16:
+        check(check_name, pred, plain, *F32, note=note)
+        return ms, delta
+    rel = float((pred.float() - plain.float()).norm() / plain.float().norm())
+    check(check_name, pred, plain, *BF16_MODEL, note=f"{note}; rel l2 {rel:.3g} (limit {BF16_REL_L2})")
+    if rel > BF16_REL_L2:
+        raise AssertionError(f"{run}: prediction at relative l2 {rel} against the plain twins")
     return ms, delta
 
 
@@ -2467,13 +2602,14 @@ def _recon_step_loss(model, batch, y):
 
 
 def first_step_check(loss_name, grads_name, fresh, batch, loss_of=_recon_step_loss, y_key="masked_kspace",
-                     twins=plain_k2) -> None:
+                     twins=plain_k2) -> dict:
     """The first training step's loss (F32) and parameter gradients of a
     fresh model (``fresh()``) on ``batch`` (``loss_of(model, batch, y)`` with
     the k-space ``batch[y_key]``: the reconstruction loss by default) against
     the same on the plain ``twins`` on the card (K2's by default): relative
     l2 1e-3 whole and 2e-2 a parameter where the gradient is well posed, else
-    3x the plain twins' own spread under a 1e-7 relative change of y."""
+    3x the plain twins' own spread under a 1e-7 relative change of y.
+    Returns the kernel run's gradients by parameter name."""
     import torch
 
     y = batch[y_key]
@@ -2522,6 +2658,7 @@ def first_step_check(loss_name, grads_name, fresh, batch, loss_of=_recon_step_lo
     if not ok:
         raise AssertionError(f"{grads_name}: whole {whole} (perturbed {whole_p}), worst "
                              f"{worst[0]} at relative l2 {rel[worst[0]]}")
+    return first["kernel"][1]
 
 
 def timed_steps(run, trainer, batch, per_step, card):
@@ -4502,6 +4639,347 @@ def m_launch_phase(dev, card, rows, masks) -> None:
     emit({"phase": "M launch", "seconds": time.perf_counter() - t_ml})
 
 
+J_KERNELS = ("k2_sens_grad", "k1_psf1d_sens_f32", "k1_psf1d_sens_bf16")  # the maps-gradient kernels' rows
+
+
+def j_cirim_cfg(**overrides):
+    """Phase J2's model: the flagship CIRIM in float32 with a sens net."""
+    return flagship_cfg(**{"stack_intermediates": False, "compute_dtype": None, **J_SENS, **overrides})
+
+
+@contextlib.contextmanager
+def plain_k1():
+    """While active, K1's forward, backward and maps-gradient kernels are
+    their plain versions whatever device the tensors lie on (the oracle of
+    phase J beside ``plain_k2`` and ``plain_k3``); they launch nothing."""
+    from mridc_tpu_torch.kernels import k1_psf1d_dc as k1
+
+    saved = k1._forward_kernel, k1.psf1d_dc_bwd, k1.psf1d_dc_sens_bwd
+    k1._forward_kernel = lambda eta, sens, mats, z0, sigma, dev: k1.psf1d_dc_plain(eta, sens, mats, z0, sigma)
+    k1.psf1d_dc_bwd, k1.psf1d_dc_sens_bwd = k1.psf1d_dc_bwd_plain, k1.psf1d_dc_sens_bwd_plain
+    try:
+        yield
+    finally:
+        k1._forward_kernel, k1.psf1d_dc_bwd, k1.psf1d_dc_sens_bwd = saved
+
+
+@contextlib.contextmanager
+def j_twins():
+    """K1's, K2's and K3's plain twins together."""
+    with plain_k1(), plain_k2(), plain_k3():
+        yield
+
+
+def j_kernels(dev, card, rows, y, sens, mask) -> None:
+    """J1: the maps-gradient kernels against their plain versions on the
+    main path's operands (B=8, 15 coils, 320x320, centered ortho FFT), each
+    with its time, its plain version's, its bound and (K2's one-term form)
+    a complex ``torch.mul`` of the same bytes; a row each in the kernels
+    line. K2: the two-term form of the full DC's backward (the forward's
+    residual image and d_eta's coil images from the stages on the card,
+    upstream g [B, H, W, 4], eta the SENSE image, sigma 0.7) with its coil
+    sum, and the one-term form of sens_reduce's backward. K1: both dtypes on
+    the psf1d operator of the mask (bf16 against the plain version computed
+    in float32 on the same bf16 operands and rounded once)."""
+    import torch
+
+    from mridc_tpu_torch import kernels
+    from mridc_tpu_torch.kernels import k1_psf1d_dc as k1
+    from mridc_tpu_torch.kernels import k2_full_dc as k2
+    from mridc_tpu_torch.nn.dc import psf1d_gauss_mats
+
+    gen = torch.Generator().manual_seed(11)
+    b, c, hw = y.shape[0], y.shape[1], H * W
+    g = torch.randn((b, H, W, 4), generator=gen).to(dev)
+    sigma = 0.7
+    with torch.inference_mode():
+        eta = kernels.sens_reduce(y, sens, None, True, "ortho")
+        k = torch.fft.fft2(k2.expand(eta, sens, True), norm="ortho")
+        r = torch.fft.ifft2(k2.residual(k, y, mask, True), norm="ortho")
+        k = torch.fft.fft2(k2.expand(g[..., 2:], sens, True), norm="ortho")
+        q = torch.fft.ifft2(k2.apply_mask(k, mask, True), norm="ortho")
+        del k
+        forms = {
+            "two_term": (lambda f: f(q, eta, True, 1 / sigma**2, a2=r, b2=g[..., 2:], sens=sens, acc=g),
+                         # a, a2, sens in and ds out per coil pixel; eta, g in and the sum out per pixel
+                         32 * b * c * hw + (8 + 16 + 8) * b * hw, 22 * b * c * hw, None),
+            "one_term": (lambda f: f(q, g[..., :2], True), 16 * b * c * hw + 8 * b * hw, 6 * b * c * hw,
+                         lambda: torch.mul(q, torch.view_as_complex(g[..., :2].contiguous()).conj().unsqueeze(1))),
+        }
+        rec = {}
+        for form, (call, nbytes, flops, library) in forms.items():
+            got, want = call(k2.sens_grad), call(k2.sens_grad_plain)
+            err = check(f"k2_sens_grad[{form}]", got[0], want[0], *F32)
+            if got[1] is not None:
+                err = max(err, check(f"k2_sens_grad[{form}].sum", got[1], want[1], *F32))
+            bound_ms, by = bound(nbytes, {"float32": flops})
+            rec[form] = {"max_abs_err": err, "ms": time_ms(lambda: call(k2.sens_grad)),
+                         "plain_ms": time_ms(lambda: call(k2.sens_grad_plain)), "bound_ms": bound_ms, "bound_by": by,
+                         "library_ms": None if library is None else time_ms(library), "bytes": nbytes}
+            emit({"kernel": "k2_sens_grad", "form": form, "batch": b, **rec[form], "card": card})
+        rows.append({"name": "k2_sens_grad", "route": "cuda", "source": "mridc_tpu_torch/csrc/full_dc.cu",
+                     "replaces": "none: XLA's autodiff of mridc_tpu/nn/dc.py:81 (log_likelihood_gradient) in sens",
+                     "launches": 0, **{k: rec["two_term"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                                       "bound_by", "library_ms")},
+                     "one_term": rec["one_term"]})
+        del q, r
+
+        mats = psf1d_gauss_mats(mask[:, 0, 0, :], True, "ortho")
+        for dt, dname, es, tol in ((torch.float32, "float32", 4, F32), (torch.bfloat16, "bfloat16", 2, K1_BF16)):
+            args = [a.to(dt) for a in (g, eta, sens, mats)] + [sigma]
+            sym = k1.SENS_SYMBOLS[dt]
+            got = k1.psf1d_dc_sens_bwd(*args)
+            err = max(check(f"{sym}[{part}]", got[i], rounded_once(lambda *a: k1.psf1d_dc_sens_bwd_plain(*a)[i], *args),
+                            *tol) for i, part in enumerate(("d_eta", "d_sens")))
+            # bytes: g, eta, sens and the three operator planes in; ds and d_eta out. flops: two
+            # complex [W, W] products per coil row in the Gauss form (the least on the tensor cores
+            # at the dtype's accuracy), and per coil pixel the expands and the epilogue on the CUDA cores
+            nbytes = es * (b * hw * 4 + b * hw * 2 + 2 * b * c * hw * 2 + b * 3 * W * W + b * hw * 2)
+            flops = {PRODUCTS[dname]: 12 * b * c * H * W * W, "float32": 30 * b * c * hw}
+            bound_ms, by = bound(nbytes, flops)
+            ms = time_ms(lambda: k1.psf1d_dc_sens_bwd(*args), iters=10)
+            plain_ms = time_ms(lambda: k1.psf1d_dc_sens_bwd_plain(*args), iters=10)
+            rows.append({"name": sym, "route": "cuda", "source": "mridc_tpu_torch/csrc/psf1d_sens.cu",
+                         "replaces": "none: XLA's autodiff of mridc_tpu/nn/dc.py:162 "
+                                     "(log_likelihood_gradient_psf1d) in sens",
+                         "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": by, "library_ms": None})
+            emit({"kernel": sym, "batch": b, "dtype": dname, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                  "bound_by": by, "bytes": nbytes, "flops": flops, "card": card})
+
+
+def j_phase(dev, card, rows) -> None:
+    """Phase J: learned sensitivity maps. J1 :func:`j_kernels`. J2 the
+    flagship CIRIM with a sens net (``j_cirim_cfg``; phase 5's CIRIM
+    weights, the estimator's from ``ZOO_SEED``) and J3 JointICNet at its
+    YAML's widths (``J_ICNET_CFG``), on ``bench_data``: serving at B=8
+    (``J_SERVE``; :func:`serve_and_check` against K1's, K2's and K3's plain
+    twins, launches per forward against ``J_PER_FORWARD``), training through
+    ``Trainer`` under the YAMLs' Adam and InverseSquareRootAnnealing
+    (``J_TRAIN``: the CIRIM at B=8, JointICNet at 1): the first step's loss
+    and gradients against the plain twins at batch 1 (:func:`first_step_check`;
+    float32 runs) with the sens net's gradient finite and nonzero, 2 warm-up
+    and 3 timed steps (:func:`timed_steps`, ``J_PER_STEP``) after which the
+    sens net's weights have moved and are finite, one traced step each split
+    by layer (the maps' gradient its own layer). The maps-gradient kernels'
+    rows take the launches of J's training runs."""
+    import torch
+
+    from mridc_tpu_torch import kernels
+    from mridc_tpu_torch.models import build_model
+    from mridc_tpu_torch.train.trainer import Trainer
+    from mridc_tpu_torch.utils.params import cirim_params_from_jax
+
+    t_j = time.perf_counter()
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    y, sens, mask = (t(a) for a in bench_data(BATCH, COILS, H, W))
+    j_kernels(dev, card, rows, y, sens, mask)
+    emit({"phase": "J1", "seconds": time.perf_counter() - t_j})
+
+    state = cirim_params_from_jax(jax_layout_tree(flagship_cfg(), seed=0, gain=MAIN_GAIN))
+
+    def fresh(kind, overrides):
+        cfg = j_cirim_cfg(**overrides) if kind == "cirim" else {**J_ICNET_CFG, **overrides}
+        model = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(ZOO_SEED))
+        if kind == "cirim":
+            missing, unexpected = model.load_state_dict(state, strict=False)
+            if unexpected or not missing or not all(k.startswith("sens_net.") for k in missing):
+                raise AssertionError(f"J2: flagship weights into the wrapped CIRIM: {missing[:3]} {unexpected[:3]}")
+        return model
+
+    counts = {k: 0 for k in kernels.launch_counts()}
+    for run, (kind, overrides) in J_SERVE.items():
+        model = fresh(kind, overrides)
+        _, delta = serve_and_check(run, f"j[{run}]", model, (y, sens, mask), J_PER_FORWARD[run], card,
+                                   twins=j_twins, bf16="compute_dtype" in overrides,
+                                   config="projects/reconstruction/conf/base_jointicnet_train.yaml"
+                                   if kind == "jointicnet" else "bench.py:flagship_cfg with use_sens_net")
+        for k, v in delta.items():
+            counts[k] += v
+        del model
+        torch.cuda.empty_cache()
+    emit({"phase": "J2-J3 serving", "seconds": time.perf_counter() - t_j})
+
+    train_counts = {k: 0 for k in kernels.launch_counts()}
+    target = t(train_target(BATCH, H, W))
+    for run, (kind, overrides) in J_TRAIN.items():
+        b = BATCH if kind == "cirim" else 1  # the CIRIM at the main path's batch, JointICNet at its YAML's
+        batch = {"masked_kspace": y[:b], "sensitivity_maps": sens[:b], "mask": mask[:b], "target": target[:b]}
+        if "compute_dtype" not in overrides:  # bf16 rounds at other places than its twins (J1 holds its kernel)
+            # the first step against the twins at batch 1, where a step costs an eighth
+            one = {k: v[:1] for k, v in batch.items()}
+            grads = first_step_check(f"j_train_loss[{run}]", f"j_train_grads[{run}]",
+                                     lambda: fresh(kind, overrides), one, twins=j_twins)
+            maps = [g_ for k, g_ in grads.items() if k.startswith("sens_net.")]
+            norm = float(torch.cat([g_.flatten() for g_ in maps]).norm())
+            emit({"check": f"j_maps_gradient[{run}]", "sens_net_parameters": len(maps), "grad_norm": norm,
+                  "ok": bool(np.isfinite(norm)) and norm > 0})
+            if not (np.isfinite(norm) and norm > 0):
+                raise AssertionError(f"{run}: the sens net's gradient is not finite and nonzero ({norm})")
+        trainer = Trainer(fresh(kind, overrides), optim_cfg=J_OPTIM, trainer_cfg=TRAIN_CFG, device=dev)
+        sens_before = {k: p.detach().clone() for k, p in trainer.model.named_parameters() if k.startswith("sens_net.")}
+        rec, delta = timed_steps(run, trainer, batch, J_PER_STEP[run], card)
+        # the maps' gradient reached the sens net at every step: its weights moved and stayed finite
+        after = dict(trainer.model.named_parameters())
+        moved = max(float((after[k].detach() - v).abs().max()) for k, v in sens_before.items())
+        finite = all(bool(torch.isfinite(after[k]).all()) for k in sens_before)
+        emit({"check": f"j_sens_net_moved[{run}]", "max_param_change": moved, "finite": finite,
+              "ok": finite and moved > 0})
+        if not (finite and moved > 0):
+            raise AssertionError(f"{run}: the sens net's weights moved by {moved} (finite: {finite})")
+        for k, v in delta.items():
+            train_counts[k] += v
+        if run in J_TRACED:
+            traced = trace_call(lambda: trainer.training_batch(batch), rec["ms_per_step"])
+            by = traced["by_layer_ms"]
+            maps = by.get("K1 maps gradient", 0.0) + by.get("K2 maps gradient", 0.0)
+            emit({"trace": run, **traced, "maps_gradient_ms": maps,
+                  "maps_gradient_share": maps / traced["device_ms"] if traced["device_ms"] else None, "card": card})
+        del trainer
+        torch.cuda.empty_cache()
+    for r in rows:
+        r["j_launches"] = counts.get(r["name"], 0)
+        r["j_train_launches"] = train_counts.get(r["name"], 0)
+        if r["name"] in J_KERNELS:
+            r["launches"] = train_counts.get(r["name"], 0)
+    missing = [k for k in set().union(*J_PER_FORWARD.values()) if counts[k] == 0]
+    missing += [k for k in set().union(*J_PER_STEP.values()) if train_counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on J's paths: {missing}")
+    emit({"phase": "J", "seconds": time.perf_counter() - t_j})
+
+
+def j_launch_phase(dev, card, rows, masks) -> None:
+    """J4, from the config files: ``python -m mridc_tpu_torch run -c``
+    (``cli.main``) of base_jointicnet_train.yaml (``J_STEPS`` steps at its
+    batch 1, 1 validation batch), then base_jointicnet_run.yaml (``mode:
+    test``) on the archive it wrote, and base_cirim_train.yaml with
+    ``model.use_sens_net=true``, each read centered (``J_CENTERED``), on the
+    card. The h5 read is replaced by phantom volumes (``PhantomSource``: 15
+    coils, 320x320) with D2's premade poisson2d masks (the YAMLs' mask_args
+    are the CIRIM YAML's), and the writer of ``mode: test`` by a capture.
+    ms per step, launches per step against ``J_LAUNCH_PER_STEP``, losses,
+    gradient norms and validations finite, the archive; the test run's
+    reconstruction [1, H, W] finite and nonzero, and its metrics."""
+    import json as json_mod
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    import torch
+
+    from mridc_tpu_torch import cli, kernels
+    from mridc_tpu_torch.data import factory
+    from mridc_tpu_torch.train.trainer import Trainer
+
+    t_jl = time.perf_counter()
+    vols = {
+        "phantom/j/train": d_volumes("d2", 1, J_STEPS, COILS, H, W, seed=71,
+                                     masks=[masks[("d2", H, W, "d2_0.h5")].result()[0]]),
+        "phantom/j/val": d_volumes("d2_val", 1, 1, COILS, H, W, seed=72,
+                                   masks=[masks[("d2", H, W, "d2_val_0.h5")].result()[0]]),
+    }
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_j_"))
+    record = {"marks": [], "counts": [], "outs": [], "validations": [], "tests": []}
+    step, validate, test = Trainer.training_batch, Trainer.validate, Trainer.test
+
+    def recording(self, batch):
+        torch.cuda.synchronize()
+        record["marks"].append(time.perf_counter())
+        before = kernels.launch_counts()
+        out = step(self, batch)
+        after = kernels.launch_counts()
+        record["counts"].append({k: after[k] - before[k] for k in after if after[k] != before[k]})
+        record["outs"].append(out)
+        return out
+
+    def validating(self, *a, **kw):
+        out = validate(self, *a, **kw)
+        record["validations"].append(dict(out))
+        return out
+
+    def testing(self, *a, **kw):
+        out = test(self, *a, **kw)
+        record["tests"].append(out)
+        return out
+
+    def source(root, transform, **_):
+        return PhantomSource(vols[root], transform)
+
+    written, totals, archive = {}, {k: 0 for k in kernels.launch_counts()}, None
+    try:
+        with mock.patch.object(factory, "ReconstructionMRIDataset", source), \
+                mock.patch.object(Trainer, "training_batch", recording), \
+                mock.patch.object(Trainer, "validate", validating), mock.patch.object(Trainer, "test", testing):
+            for run, (cfg, yaml_name, extra, table) in J_LAUNCH.items():
+                cfg_path = tmp / f"{yaml_name}.json"
+                cfg_path.write_text(json_mod.dumps(cfg))
+                overrides = [f'exp_manager.exp_dir="{tmp / run}"', 'model.validation_ds.data_path="phantom/j/val"',
+                             'model.test_ds.data_path="phantom/j/val"', *J_CENTERED, *extra]
+                if table is None:
+                    overrides.append(f'checkpoint="{archive}"')
+                else:
+                    overrides += ["trainer.max_epochs=1", f"trainer.limit_train_batches={J_STEPS}",
+                                  "trainer.limit_val_batches=1", 'model.train_ds.data_path="phantom/j/train"']
+                emit({"phase": "J4", "run": run, "config": f"projects/reconstruction/conf/{yaml_name}.yaml",
+                      "overrides": overrides, "batch": 1, "card": card})
+                record.update(marks=[], counts=[], outs=[], validations=[], tests=[])
+                written.clear()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                with h5_writes_captured(written):
+                    cli.main(["run", "-c", str(cfg_path), *overrides])
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                for k, v in kernels.launch_counts().items():
+                    totals[k] += v
+                (run_dir,) = (tmp / run / cfg["exp_manager"]["name"]).iterdir()
+                files = sorted(p.name for p in run_dir.iterdir())
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                if table is None:
+                    recon = written.get(("d2_val_0.h5", "reconstruction"))
+                    ok = (recon is not None and recon.shape == (1, H, W) and bool(np.isfinite(recon).all())
+                          and float(np.abs(recon).max()) > 0)
+                    emit({"j": run, "seconds": seconds, "run_dir": files, "written": sorted(written),
+                          "max_abs": None if recon is None else float(np.abs(recon).max()), "ok": ok,
+                          "max_memory_allocated_gib": peak, "card": card})
+                    if not ok:
+                        raise AssertionError(f"{run}: written {sorted(written)}")
+                    continue
+                marks, want = record["marks"], J_LAUNCH_PER_STEP[table]
+                ms = (marks[-1] - marks[0]) / (len(marks) - 1) * 1e3
+                rec = {"j": run, "batch": 1, "steps": len(marks), "ms_per_step": ms, "slices_per_s": 1e3 / ms,
+                       "steps_timed": len(marks) - 1, "seconds": seconds, "max_memory_allocated_gib": peak,
+                       "launches_per_step": record["counts"][-1], "expected_launches_per_step": want,
+                       "losses": [float(o["loss"]) for o in record["outs"]],
+                       "grad_norms": [float(o["grad_norm"]) for o in record["outs"]],
+                       "validations": record["validations"], "run_dir": files,
+                       "note": "ms per step between the starts of consecutive steps, the card synchronised at each: "
+                               "the loader's host pipeline (15 coils a slice) and the step, at batch 1",
+                       "card": card}
+                emit(rec)
+                bad = [c for c in record["counts"] if c != want]
+                if len(marks) != J_STEPS or bad:
+                    raise AssertionError(f"{run}: {len(marks)} steps; launches per step {bad[:1]}, expected {want}")
+                if not np.isfinite(rec["losses"] + rec["grad_norms"]).all():
+                    raise AssertionError(f"{run}: losses {rec['losses']}, gradient norms {rec['grad_norms']}")
+                if len(rec["validations"]) != 2 or not all(np.isfinite(v) for val in rec["validations"]
+                                                           for v in val.values()):
+                    raise AssertionError(f"{run}: validations {rec['validations']} (the initial and the epoch's)")
+                name = cfg["exp_manager"]["name"]
+                if f"{name}.mridc" not in files:
+                    raise AssertionError(f"{run}: no archive in the run dir {files}")
+                archive = run_dir / f"{name}.mridc"
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r in rows:
+        r["j_launch_launches"] = totals.get(r["name"], 0)
+    emit({"phase": "J4", "seconds": time.perf_counter() - t_jl})
+
+
 def main() -> int:
     import torch
 
@@ -5343,6 +5821,12 @@ def run(t_start, masks, s_masks) -> int:
     # M. the multitask models serving and training, and from their config files
     m_phase(dev, card, rows)
     m_launch_phase(dev, card, rows, masks)
+
+    # J. learned sensitivity maps: the maps-gradient kernels, the flagship
+    # CIRIM with a sens net and JointICNet serving and training, and from
+    # their config files
+    j_phase(dev, card, rows)
+    j_launch_phase(dev, card, rows, masks)
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})

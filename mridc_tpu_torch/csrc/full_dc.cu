@@ -53,6 +53,22 @@
 // the k-space stays one under a zero of the mask, as in the JAX package.
 // Residual and both reduces are one thread per element. Float32 only: the JAX
 // package runs the full DC in float32 whatever dc_dtype says.
+//
+// The maps' gradient (learned sensitivity maps; it replaces no TPU kernel: the
+// JAX package leaves it to XLA's autodiff of nn/dc.py). For an upstream of
+// the chain, each coil's gradient is one or two products of a coil image that
+// the chain already formed with the conjugate of an image-sized tensor:
+//   (sens_grad)   ds_c[i] = scale * (A_c[fs(i)] * conj(b[i]) + A'_c[fs(i)] * conj(b'[i]))
+//                 and, with the maps given, sum[i] = acc[i] + scale * sum_c conj(s_c[i]) * A_c[fs(i)]
+// (A, A': inverse-FFT outputs read at the fftshifted index, as reduce reads
+// them; b, b', acc: pixels eta_stride float2s apart, so g's channels are read
+// in place). full_dc: A = F^-1 M F(s g[..., 2:]) (the d_eta chain's), b = eta,
+// A' = the forward's residual image (recomputed), b' = g[..., 2:], acc = g,
+// scale 1 / sigma^2: d_eta and the maps' gradient in one pass. sens_expand:
+// A = F^H(M g), b = x, the sum is d_x. sens_reduce: A = F^-1(M k), b = g, no
+// sum. normal_op: as full_dc with y = 0 and no acc. One thread a pixel walks
+// the coils; memory-bound like the stages above: per coil and pixel A, A', s
+// in and ds out (32 bytes).
 #include "common.cuh"
 
 using namespace mridc;
@@ -236,6 +252,48 @@ __global__ void reduce_acc_kernel(const float2* __restrict__ P, const float2* __
   out[o] = make_float2(gv.x + gs.x, gv.y + gs.y);
 }
 
+// grid: (ceil(H*W / THREADS), B); a2/b2, sens/sum and acc optional (null)
+__global__ void sens_grad_kernel(const float2* __restrict__ A, const float2* __restrict__ bv, int bs,
+                                 const float2* __restrict__ A2, const float2* __restrict__ b2v, int b2s,
+                                 const float2* __restrict__ sens, const float2* __restrict__ acc, int acc_s,
+                                 float2* __restrict__ ds, float2* __restrict__ sum, int C, int H, int W, int sh_h,
+                                 int sh_w, float scale) {
+  const int p = blockIdx.x * THREADS + threadIdx.x;
+  if (p >= H * W) return;
+  const int b = blockIdx.y;
+  const int i = p / W, j = p - i * W;
+  const size_t HW = (size_t)H * W, o = (size_t)b * HW + p;
+  const size_t src = (size_t)wrap(i, H - sh_h, H) * W + wrap(j, W - sh_w, W);
+  const float2 e = bv[o * bs];
+  const float2 e2 = A2 != nullptr ? b2v[o * b2s] : make_float2(0.f, 0.f);
+  float gr = 0.f, gi = 0.f;
+  for (int c = 0; c < C; ++c) {
+    const size_t base = ((size_t)b * C + c) * HW;
+    const float2 a = A[base + src];
+    // a * conj(e) [+ a2 * conj(e2)]
+    float dr = a.x * e.x + a.y * e.y, di = a.y * e.x - a.x * e.y;
+    if (A2 != nullptr) {
+      const float2 a2 = A2[base + src];
+      dr += a2.x * e2.x + a2.y * e2.y;
+      di += a2.y * e2.x - a2.x * e2.y;
+    }
+    ds[base + p] = make_float2(dr * scale, di * scale);
+    if (sens != nullptr) {
+      const float2 s = sens[base + p];
+      gr += a.x * s.x + a.y * s.y;
+      gi += a.y * s.x - a.x * s.y;
+    }
+  }
+  if (sum == nullptr) return;
+  float2 out = make_float2(gr * scale, gi * scale);
+  if (acc != nullptr) {
+    const float2 av = acc[o * acc_s];
+    out.x += av.x;
+    out.y += av.y;
+  }
+  sum[o] = out;
+}
+
 bool bad(int B, int C, int H, int W) {
   return B <= 0 || C <= 0 || H <= 0 || W <= 0 || (long long)B * C > 65535 || (long long)H * W > (1LL << 30);
 }
@@ -311,5 +369,22 @@ extern "C" int k2_reduce_acc(const void* P, const void* sens, const void* g, voi
   reduce_acc_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>((const float2*)P, (const float2*)sens,
                                                                 (const float4*)g, (float2*)out, C, H, W, sh_h,
                                                                 sh_w, inv_sigma2);
+  return (int)cudaGetLastError();
+}
+
+// A [B, C, H, W] complex (FFT order), b (pixels b_stride float2s apart), A2/b2
+// optional, sens [B, C, H, W, 2] and sum [B, H, W, 2] optional together, acc
+// optional (acc_stride float2s a pixel) -> ds [B, C, H, W, 2] (and sum)
+extern "C" int k2_sens_grad(const void* A, const void* b, int b_stride, const void* A2, const void* b2, int b2_stride,
+                            const void* sens, const void* acc, int acc_stride, void* ds, void* sum, int B, int C,
+                            int H, int W, int sh_h, int sh_w, float scale, void* stream) {
+  if (bad(B, C, H, W) || A == nullptr || b == nullptr || ds == nullptr || b_stride < 1 ||
+      (A2 != nullptr && (b2 == nullptr || b2_stride < 1)) || ((sens == nullptr) != (sum == nullptr)) ||
+      (acc != nullptr && (sum == nullptr || acc_stride < 1)) || sh_h < 0 || sh_h >= H || sh_w < 0 || sh_w >= W)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(blocks_for((long long)H * W, THREADS), B);
+  sens_grad_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float2*)A, (const float2*)b, b_stride, (const float2*)A2, (const float2*)b2, b2_stride,
+      (const float2*)sens, (const float2*)acc, acc_stride, (float2*)ds, (float2*)sum, C, H, W, sh_h, sh_w, scale);
   return (int)cudaGetLastError();
 }

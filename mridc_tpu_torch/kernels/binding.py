@@ -58,6 +58,14 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
         "k2_mask": (_P, _P, _I, _I, _I, _I, _I, _I),
         # P, sens, g, out, B, C, H, W, shift_h, shift_w, inv_sigma2
         "k2_reduce_acc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F),
+        # A, b, b_stride, A2 (or null), b2 (or null), b2_stride, sens (or null), acc (or null), acc_stride, ds,
+        # sum (or null), B, C, H, W, shift_h, shift_w, scale
+        "k2_sens_grad": (_P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F),
+    },
+    "psf1d_sens": {
+        # g, eta, sens, mats, ds, d_eta, B, C, H, W, inv_sigma2
+        "k1_psf1d_sens_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F),
+        "k1_psf1d_sens_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F),
     },
     "indrnn": {
         # x, h, w, bias (or null), u, out, P, CI, F, device index (keys the cached launch setup)

@@ -5,8 +5,13 @@ Stands for ``mridc_tpu/nn/dc.py:162-179`` ``log_likelihood_gradient_psf1d``:
 ``[eta, (A(eta) - z0) / sigma^2]`` as [B, H, W, 4] with
 ``A(eta) = sum_c conj(s_c) C_w (s_c eta)``. A is Hermitian, so the gradient
 for an upstream g is ``d_eta = g[..., :2] + A(g[..., 2:]) / sigma^2`` and
-``d_z0 = -g[..., 2:] / sigma^2``; the gradients with respect to ``sens``
-(needed only by learned sensitivity maps) and the operator are not ported.
+``d_z0 = -g[..., 2:] / sigma^2``. The maps' gradient (learned sensitivity
+maps) is ``ds_c = (u_c conj(g[..., 2:]) + conj(eta) A_w(s_c g[..., 2:])) /
+sigma^2`` with ``u_c = A_w(s_c eta)`` (A_w the [W, W] operator along W): a
+kernel of its own (``csrc/psf1d_sens.cu``) that writes d_eta in the same
+pass, launched in place of the backward kernel when the maps take a
+gradient; the forward then saves eta (image-sized). The gradient with
+respect to the operator is not ported.
 
 :func:`psf1d_normal` is the normal operator A alone (VarNet's psf1d q-term,
 ``mridc_tpu/models/recon/vn.py:63-77``): channels 2:4 of the same kernels with
@@ -22,13 +27,16 @@ import torch
 
 from mridc_tpu_torch.kernels.binding import launch, query
 from mridc_tpu_torch.kernels.common import check_operand, dense, device_of, refuse_grads
-from mridc_tpu_torch.nn.dc import log_likelihood_gradient_psf1d
+from mridc_tpu_torch.nn.dc import apply_psf1d, log_likelihood_gradient_psf1d
+from mridc_tpu_torch.ops.cplx import cmul, cmul_conj
 
-__all__ = ["psf1d_dc", "psf1d_dc_plain", "psf1d_dc_bwd", "psf1d_dc_bwd_plain", "bf16_setup", "f32_setup",
-           "psf1d_normal", "SYMBOLS", "BWD_SYMBOLS"]
+__all__ = ["psf1d_dc", "psf1d_dc_plain", "psf1d_dc_bwd", "psf1d_dc_bwd_plain", "psf1d_dc_sens_bwd",
+           "psf1d_dc_sens_bwd_plain", "bf16_setup", "f32_setup", "psf1d_normal", "SYMBOLS", "BWD_SYMBOLS",
+           "SENS_SYMBOLS"]
 
 SYMBOLS = {torch.float32: "k1_psf1d_dc_f32", torch.bfloat16: "k1_psf1d_dc_bf16"}
 BWD_SYMBOLS = {torch.float32: "k1_psf1d_dc_bwd_f32", torch.bfloat16: "k1_psf1d_dc_bwd_bf16"}
+SENS_SYMBOLS = {torch.float32: "k1_psf1d_sens_f32", torch.bfloat16: "k1_psf1d_sens_bf16"}
 
 
 def psf1d_dc_plain(eta, sens, mats, z0, sigma: float = 1.0) -> torch.Tensor:
@@ -41,6 +49,16 @@ def psf1d_dc_bwd_plain(g, sens, mats, sigma: float = 1.0) -> torch.Tensor:
     ``g[..., :2] + A(g[..., 2:]) / sigma^2`` [B, H, W, 2]."""
     v = g[..., 2:]
     return g[..., :2] + log_likelihood_gradient_psf1d(v, sens, mats, torch.zeros_like(v), sigma=sigma)[..., 2:]
+
+
+def psf1d_dc_sens_bwd_plain(g, eta, sens, mats, sigma: float = 1.0):
+    """Plain version of the maps-gradient kernel: ``g`` [B, H, W, 4] ->
+    (d_eta [B, H, W, 2], d_sens [B, C, H, W, 2])."""
+    g2 = g[..., 2:]
+    u = apply_psf1d(cmul(eta.unsqueeze(1), sens), mats)
+    v = apply_psf1d(cmul(g2.unsqueeze(1), sens), mats)
+    d_sens = (cmul_conj(u, g2.unsqueeze(1)) + cmul_conj(v, eta.unsqueeze(1))) / sigma**2
+    return g[..., :2] + cmul_conj(v, sens).sum(dim=1) / sigma**2, d_sens
 
 
 SETUP_KEYS = ("blocks", "smem_bytes", "blocks_per_sm", "threads", "tile_h", "tile_u")
@@ -113,10 +131,30 @@ def psf1d_dc_bwd(g, sens, mats, sigma: float = 1.0) -> torch.Tensor:
     return out
 
 
+def psf1d_dc_sens_bwd(g, eta, sens, mats, sigma: float = 1.0):
+    """The maps-gradient kernel's wrapper: ``g`` [B, H, W, 4] -> (d_eta
+    [B, H, W, 2], d_sens [B, C, H, W, 2]) in the operands' dtype (plain
+    version for CPU tensors)."""
+    dev = device_of("psf1d_dc_sens_bwd", g, eta, sens, mats)
+    if dev.type == "cpu":
+        return psf1d_dc_sens_bwd_plain(g, eta, sens, mats, sigma)
+    (b, c, h, w), dts = _shape("psf1d_dc_sens_bwd", sens, sens.dtype)
+    g = dense("psf1d_dc_sens_bwd", g.to(sens.dtype))
+    check_operand("psf1d_dc_sens_bwd.sens", sens, (b, c, h, w, 2), dts)
+    check_operand("psf1d_dc_sens_bwd.g", g, (b, h, w, 4), dts)
+    check_operand("psf1d_dc_sens_bwd.eta", eta, (b, h, w, 2), dts)
+    check_operand("psf1d_dc_sens_bwd.mats", mats, (b, 3, w, w), dts)
+    d_sens = torch.empty((b, c, h, w, 2), dtype=sens.dtype, device=dev)
+    d_eta = torch.empty((b, h, w, 2), dtype=sens.dtype, device=dev)
+    launch("psf1d_sens", SENS_SYMBOLS[sens.dtype], dev, g.data_ptr(), eta.data_ptr(), sens.data_ptr(),
+           mats.data_ptr(), d_sens.data_ptr(), d_eta.data_ptr(), b, c, h, w, 1.0 / sigma**2)
+    return d_eta, d_sens
+
+
 class _Psf1dDC(torch.autograd.Function):
     @staticmethod
     def forward(ctx, eta, sens, mats, z0, sigma):
-        ctx.save_for_backward(sens, mats)
+        ctx.save_for_backward(sens, mats, eta if ctx.needs_input_grad[1] else None)
         ctx.sigma = sigma
         if eta.device.type == "cpu":
             return psf1d_dc_plain(eta, sens, mats, z0, sigma)
@@ -124,18 +162,23 @@ class _Psf1dDC(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        refuse_grads("psf1d_dc", ctx.needs_input_grad, {1: "sens", 2: "mats"})
-        sens, mats = ctx.saved_tensors
-        d_eta = psf1d_dc_bwd(g, sens, mats, ctx.sigma) if ctx.needs_input_grad[0] else None
+        refuse_grads("psf1d_dc", ctx.needs_input_grad, {2: "mats"})
+        sens, mats, eta = ctx.saved_tensors
+        d_sens = None
+        if ctx.needs_input_grad[1]:
+            d_eta, d_sens = psf1d_dc_sens_bwd(g, eta, sens, mats, ctx.sigma)
+            d_eta = d_eta if ctx.needs_input_grad[0] else None
+        else:
+            d_eta = psf1d_dc_bwd(g, sens, mats, ctx.sigma) if ctx.needs_input_grad[0] else None
         d_z0 = -g[..., 2:] / ctx.sigma**2 if ctx.needs_input_grad[3] else None
-        return d_eta, None, None, d_z0, None
+        return d_eta, d_sens, None, d_z0, None
 
 
 def psf1d_dc(eta, sens, mats, z0, sigma: float = 1.0) -> torch.Tensor:
     """``eta`` [B, H, W, 2], ``sens`` [B, C, H, W, 2], ``mats`` [B, 3, W, W]
     (``psf1d_gauss_mats``), ``z0`` [B, H, W, 2], all of one dtype (float32 or
     bfloat16 on the card) -> [B, H, W, 4] in that dtype; differentiable in
-    ``eta`` and ``z0``."""
+    ``eta``, ``sens`` and ``z0``."""
     device_of("psf1d_dc", eta, sens, mats, z0)
     return _Psf1dDC.apply(eta, sens, mats, z0, sigma)
 

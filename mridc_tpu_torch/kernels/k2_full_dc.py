@@ -50,15 +50,33 @@ y, plus a learned multiple of its input:
 
 It is Hermitian too, so its backward is itself applied to the upstream g, and
 mu's gradient is the real inner product of x and g. Its Function saves the maps
-and the mask (the same tensors at every CG iteration) and, when mu takes a
-gradient, the image-sized x: no coil-sized tensor is kept per call.
+and the mask (the same tensors at every CG iteration) and, when mu or the
+maps take a gradient, the image-sized x: no coil-sized tensor is kept per call.
+
+The maps' gradient (learned sensitivity maps): for each Function it is one
+or two products of a coil image with the conjugate of an image-sized tensor,
+written by the ``sens_grad`` stage (plain: :func:`sens_grad_plain`), which
+also forms the coil sum that ``reduce``/``reduce_acc`` write where the chain
+needs one, so the backward reads each coil image once. With G = g[..., 2:]:
+
+    full_dc      ds_c = (r_c conj(G) + q_c conj(eta)) / sigma^2, d_eta in the same pass
+                 r_c = F^-1 M (F(s_c eta) - y)  (the forward's residual image,
+                 recomputed), q_c = F^-1 M F(s_c G)  (d_eta's chain)
+    normal_op    the same with y = 0, sigma 1 and G = g
+    sens_expand  ds_c = t_c conj(x), t_c = F^H(M g_c)  (d_x's chain; its sum is d_x)
+    sens_reduce  ds_c = p_c conj(g), p_c = F^-1(M k)    (recomputed)
+
+Each recomputes its forward's coil image instead of saving it, so a
+Function keeps no coil-sized tensor per call: it saves the image-sized input
+(and y, an input that lives on anyway) only when the maps take a gradient.
+When they do not, a call launches and saves what it did before.
 
 Each stage has a wrapper (plain version for CPU tensors, kernel for CUDA
 tensors) and a plain version written with the same index arithmetic as its
 kernel; :func:`full_dc`, :func:`sens_expand` and :func:`sens_reduce` take the
 JAX-identical ``nn/dc.py`` functions on the CPU and the stages on the card.
-They are differentiable in ``eta``, the image and the k-space on both; the
-gradients with respect to y, the maps and the mask are not ported.
+They are differentiable in ``eta``, the image, the k-space and the maps on
+both; the gradients with respect to y and the mask are not ported.
 """
 
 from __future__ import annotations
@@ -77,8 +95,11 @@ __all__ = [
     "full_dc", "full_dc_plain", "full_dc_bwd", "full_dc_bwd_plain", "sens_reduce", "sens_reduce_plain",
     "sens_reduce_bwd", "sens_reduce_bwd_plain", "sens_expand", "sens_expand_plain", "sens_expand_bwd",
     "sens_expand_bwd_plain", "to_fft_order", "from_fft_order", "normal_op", "normal_op_plain",
-    "expand", "residual", "load", "reduce", "apply_mask", "reduce_acc",
+    "expand", "residual", "load", "reduce", "apply_mask", "reduce_acc", "sens_grad",
     "expand_plain", "residual_plain", "load_plain", "reduce_plain", "apply_mask_plain", "reduce_acc_plain",
+    "sens_grad_plain", "full_dc_bwd_sens", "full_dc_bwd_sens_plain", "sens_expand_bwd_sens",
+    "sens_expand_bwd_sens_plain", "sens_reduce_bwd_sens", "sens_reduce_bwd_sens_plain", "normal_op_bwd_sens",
+    "normal_op_bwd_sens_plain",
 ]
 
 _F32 = (torch.float32,)
@@ -155,6 +176,27 @@ def reduce_acc_plain(p, sens, g, centered: bool, sigma: float = 1.0) -> torch.Te
     return g[..., :2] + reduce_plain(p, sens, None, centered, sigma)
 
 
+def sens_grad_plain(a, b, centered: bool, scale: float = 1.0, a2=None, b2=None, sens=None, acc=None):
+    """complex [B, C, H, W] inverse-FFT outputs ``a`` (and ``a2``) read at the
+    fftshifted index, [B, H, W, 2] ``b`` (and ``b2``) -> ``ds = scale * (a b^* +
+    a2 b2^*)`` [B, C, H, W, 2] and, with ``sens``, ``acc[..., :2] + scale *
+    sum_c conj(s_c) a_c`` [B, H, W, 2] (else None)."""
+    h, w = a.shape[-2], a.shape[-1]
+    sh, sw = _shifts(h, w, centered)
+
+    def image(p):
+        return torch.view_as_real(_gather(p, (h - sh) % h, (w - sw) % w))
+
+    ra = image(a)
+    ds = cmul_conj(ra, b.unsqueeze(1))
+    if a2 is not None:
+        ds = ds + cmul_conj(image(a2), b2.unsqueeze(1))
+    if sens is None:
+        return ds * scale, None
+    total = cmul_conj(ra, sens).sum(dim=1) * scale
+    return ds * scale, total if acc is None else acc[..., :2] + total
+
+
 def full_dc_plain(eta, y, sens, mask, sigma=1.0, fft_centered=False, fft_normalization="backward",
                   spatial_dims: Sequence[int] = (-2, -1), coil_dim: int = 1) -> torch.Tensor:
     """Plain PyTorch version of the whole chain (the CPU path)."""
@@ -169,6 +211,18 @@ def full_dc_bwd_plain(g, sens, mask, sigma=1.0, fft_centered=False, fft_normaliz
     coil = dc.sens_expand(g[..., 2:], sens, fft_centered, fft_normalization)
     back = dc.sens_reduce(dc.expand_rv_mask(mask) * coil, sens, fft_centered, fft_normalization)
     return g[..., :2] + back / sigma**2
+
+
+def full_dc_bwd_sens_plain(g, eta, y, sens, mask, sigma=1.0, fft_centered=False, fft_normalization="backward"):
+    """Plain version of the backward chain with the maps' gradient: ``g``
+    [B, H, W, 4] -> (d_eta [B, H, W, 2], d_sens [B, C, H, W, 2])."""
+    m = dc.expand_rv_mask(mask)
+    g2 = g[..., 2:]
+    r = ifft2_rv(m * (dc.sens_expand(eta, sens, fft_centered, fft_normalization) - y), fft_centered,
+                 fft_normalization)
+    q = ifft2_rv(m * dc.sens_expand(g2, sens, fft_centered, fft_normalization), fft_centered, fft_normalization)
+    d_sens = (cmul_conj(r, g2.unsqueeze(1)) + cmul_conj(q, eta.unsqueeze(1))) / sigma**2
+    return g[..., :2] + cmul_conj(q, sens).sum(dim=1) / sigma**2, d_sens
 
 
 def _reorder_plain(kspace, centered: bool, fftshift: bool) -> torch.Tensor:
@@ -221,6 +275,28 @@ def sens_expand_bwd_plain(g, sens, fft_centered=False, fft_normalization="backwa
     return dc.sens_reduce(g, sens, fft_centered, _adjoint_norm(fft_normalization))
 
 
+def sens_reduce_bwd_sens_plain(g, kspace, sens, mask=None, fft_centered=False, fft_normalization="backward",
+                               fft_order: bool = False) -> torch.Tensor:
+    """Plain version of :func:`sens_reduce`'s maps gradient: ``g`` [B, H, W, 2]
+    -> ``p_c conj(g)`` [B, C, H, W, 2], p_c = F^-1(m k_c)."""
+    kspace = _reorder_plain(kspace, fft_centered and fft_order, True)
+    if mask is not None:
+        kspace = dc.expand_rv_mask(mask) * kspace
+    return cmul_conj(ifft2_rv(kspace, fft_centered, fft_normalization), g.unsqueeze(1))
+
+
+def sens_expand_bwd_sens_plain(g, image, sens, fft_centered=False, fft_normalization="backward",
+                               fft_order: bool = False, mask=None):
+    """Plain version of :func:`sens_expand`'s backward with the maps' gradient:
+    ``g`` [B, C, H, W, 2] -> (d_x [B, H, W, 2], d_sens = t_c conj(x)), t_c =
+    F^H(m g_c)."""
+    g = _reorder_plain(g, fft_centered and fft_order, True)
+    if mask is not None:
+        g = dc.expand_rv_mask(mask) * g
+    t = ifft2_rv(g, fft_centered, _adjoint_norm(fft_normalization))
+    return cmul_conj(t, sens).sum(dim=1), cmul_conj(t, image.unsqueeze(1))
+
+
 # ---- stage wrappers: plain version on the CPU, kernel on the card ----
 
 
@@ -236,15 +312,15 @@ def _mask_operand(name, mask, b, h, w) -> torch.Tensor:
     return m
 
 
-def _eta_stride(eta, b, h, w) -> int:
+def _eta_stride(eta, b, h, w, name: str = "full_dc.expand.eta") -> int:
     """float2s from one pixel of ``eta`` to the next: 1 for a contiguous
-    [B, H, W, 2], 2 for channels 2:4 of a contiguous [B, H, W, 4]."""
+    [B, H, W, 2], 2 for channels 0:2 or 2:4 of a contiguous [B, H, W, 4]."""
     if tuple(eta.shape) != (b, h, w, 2) or eta.dtype != torch.float32:
-        raise ValueError(f"full_dc.expand.eta: expected float32 {(b, h, w, 2)}, got {eta.dtype} {tuple(eta.shape)}")
+        raise ValueError(f"{name}: expected float32 {(b, h, w, 2)}, got {eta.dtype} {tuple(eta.shape)}")
     for es in (1, 2):
         if eta.stride() == (h * w * 2 * es, w * 2 * es, 2 * es, 1) and eta.data_ptr() % 8 == 0:
             return es
-    raise ValueError("full_dc.expand.eta: the kernel needs a contiguous [B, H, W, 2] or channels 2:4 of a "
+    raise ValueError(f"{name}: the kernel needs a contiguous [B, H, W, 2] or channels 2:4 (or 0:2) of a "
                      "contiguous [B, H, W, 4]")
 
 
@@ -338,6 +414,40 @@ def reduce_acc(p, sens, g, centered: bool, sigma: float = 1.0) -> torch.Tensor:
     return out
 
 
+def sens_grad(a, b, centered: bool, scale: float = 1.0, a2=None, b2=None, sens=None, acc=None):
+    """Stage (sens_grad): ``ds = scale * (a b^* [+ a2 b2^*])`` [B, C, H, W, 2]
+    from inverse-FFT outputs read at the fftshifted index and, with ``sens``,
+    the coil sum ``acc[..., :2] + scale * sum_c conj(s_c) a_c`` [B, H, W, 2]
+    (else None), float32; ``b``, ``b2`` and ``acc`` may be channels of a
+    contiguous [B, H, W, 4]."""
+    dev = device_of("full_dc.sens_grad", a, b, a2, b2, sens, acc)
+    if dev.type == "cpu":
+        return sens_grad_plain(a, b, centered, scale, a2, b2, sens, acc)
+    bb, c, h, w = a.shape
+    check_operand("full_dc.sens_grad.a", a, (bb, c, h, w), _C64)
+    bs = _eta_stride(b, bb, h, w, "full_dc.sens_grad.b")
+    b2s = 1
+    if a2 is not None:
+        check_operand("full_dc.sens_grad.a2", a2, (bb, c, h, w), _C64)
+        b2s = _eta_stride(b2, bb, h, w, "full_dc.sens_grad.b2")
+    if sens is not None:
+        check_operand("full_dc.sens_grad.sens", sens, (bb, c, h, w, 2), _F32, align=8)
+    accs = 1
+    if acc is not None:
+        if sens is None:
+            raise ValueError("full_dc.sens_grad: acc is added to the coil sum, which needs the maps")
+        accs = _eta_stride(acc[..., :2], bb, h, w, "full_dc.sens_grad.acc")
+    ds = torch.empty((bb, c, h, w, 2), dtype=torch.float32, device=dev)
+    total = None if sens is None else torch.empty((bb, h, w, 2), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    launch("full_dc", "k2_sens_grad", dev, a.data_ptr(), b.data_ptr(), bs, ptr(a2), ptr(b2), b2s, ptr(sens),
+           ptr(acc), accs, ds.data_ptr(), ptr(total), bb, c, h, w, *_shifts(h, w, centered), float(scale))
+    return ds, total
+
+
 def _check_layout(name, spatial_dims, coil_dim):
     if tuple(spatial_dims) not in ((-2, -1), (2, 3)) or coil_dim != 1:
         raise ValueError(f"{name}: the kernels take [B, C, H, W, 2] with coils on axis 1")
@@ -357,6 +467,25 @@ def full_dc_bwd(g, sens, mask, sigma=1.0, fft_centered=False, fft_normalization=
     return reduce_acc(p, sens, g, fft_centered, sigma)
 
 
+def full_dc_bwd_sens(g, eta, y, sens, mask, sigma=1.0, fft_centered=False, fft_normalization="backward"):
+    """The backward chain with the maps' gradient: ``g`` [B, H, W, 4] ->
+    (d_eta [B, H, W, 2], d_sens [B, C, H, W, 2]); on the card the forward's
+    residual image recomputed (expand, FFT, residual, inverse FFT), d_eta's
+    chain (expand, FFT, mask, inverse FFT) and one sens_grad stage for both."""
+    dev = device_of("full_dc_bwd_sens", g, eta, y, sens, mask)
+    if dev.type == "cpu":
+        return full_dc_bwd_sens_plain(g, eta, y, sens, mask, sigma, fft_centered, fft_normalization)
+    norm = _norm(fft_normalization)
+    g = dense("full_dc_bwd", g)
+    k = torch.fft.fft2(expand(eta, sens, fft_centered), norm=norm)
+    r = torch.fft.ifft2(residual(k, y, mask, fft_centered), norm=norm)
+    k = torch.fft.fft2(expand(g[..., 2:], sens, fft_centered), norm=norm)
+    q = torch.fft.ifft2(apply_mask(k, mask, fft_centered), norm=norm)
+    del k
+    d_sens, d_eta = sens_grad(q, eta, fft_centered, 1.0 / sigma**2, a2=r, b2=g[..., 2:], sens=sens, acc=g)
+    return d_eta, d_sens
+
+
 def _full_dc_kernels(eta, y, sens, mask, sigma, fft_centered, fft_normalization) -> torch.Tensor:
     norm = _norm(fft_normalization)
     k = torch.fft.fft2(expand(eta, sens, fft_centered), norm=norm)
@@ -368,7 +497,10 @@ def _full_dc_kernels(eta, y, sens, mask, sigma, fft_centered, fft_normalization)
 class _FullDC(torch.autograd.Function):
     @staticmethod
     def forward(ctx, eta, y, sens, mask, sigma, fft_centered, fft_normalization, spatial_dims, coil_dim):
-        ctx.save_for_backward(sens, mask)
+        if ctx.needs_input_grad[2]:  # the maps' gradient recomputes the residual image from eta and y
+            ctx.save_for_backward(sens, mask, eta, y)
+        else:
+            ctx.save_for_backward(sens, mask)
         ctx.args = (sigma, fft_centered, fft_normalization)
         if eta.device.type == "cpu":
             return full_dc_plain(eta, y, sens, mask, sigma, fft_centered, fft_normalization, spatial_dims, coil_dim)
@@ -376,16 +508,20 @@ class _FullDC(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        refuse_grads("full_dc", ctx.needs_input_grad, {1: "y", 2: "sens", 3: "mask"})
-        sens, mask = ctx.saved_tensors
-        return full_dc_bwd(g, sens, mask, *ctx.args), None, None, None, None, None, None, None, None
+        refuse_grads("full_dc", ctx.needs_input_grad, {1: "y", 3: "mask"})
+        if not ctx.needs_input_grad[2]:
+            sens, mask = ctx.saved_tensors
+            return full_dc_bwd(g, sens, mask, *ctx.args), None, None, None, None, None, None, None, None
+        sens, mask, eta, y = ctx.saved_tensors
+        d_eta, d_sens = full_dc_bwd_sens(g, eta, y, sens, mask, *ctx.args)
+        return (d_eta if ctx.needs_input_grad[0] else None), None, d_sens, None, None, None, None, None, None
 
 
 def full_dc(eta, y, sens, mask, sigma=1.0, fft_centered=False, fft_normalization="backward",
             spatial_dims: Sequence[int] = (-2, -1), coil_dim: int = 1) -> torch.Tensor:
     """``eta`` [B, H, W, 2], ``y``/``sens`` [B, C, H, W, 2], ``mask``
     broadcastable to [B, 1, H, W] -> ``[eta, grad]`` [B, H, W, 4], float32;
-    differentiable in ``eta``."""
+    differentiable in ``eta`` and the maps."""
     dev = device_of("full_dc", eta, y, sens, mask)
     if dev.type != "cpu":
         _check_layout("full_dc", spatial_dims, coil_dim)
@@ -436,10 +572,37 @@ def sens_reduce_bwd(g, sens, mask=None, fft_centered=False, fft_normalization="b
     return _kspace_out(k, fft_centered, fft_order)
 
 
+def sens_expand_bwd_sens(g, image, sens, fft_centered=False, fft_normalization="backward", fft_order: bool = False,
+                         mask=None):
+    """:func:`sens_expand`'s backward with the maps' gradient: ``g``
+    [B, C, H, W, 2] -> (d_x [B, H, W, 2], d_sens [B, C, H, W, 2]); on the card
+    d_x's chain with one sens_grad stage in place of its reduce."""
+    dev = device_of("sens_expand_bwd_sens", g, image, sens, mask)
+    if dev.type == "cpu":
+        return sens_expand_bwd_sens_plain(g, image, sens, fft_centered, fft_normalization, fft_order, mask=mask)
+    q = _kspace_in("sens_expand_bwd", g, mask, fft_centered, fft_order)
+    t = torch.fft.ifft2(q, norm=_adjoint_norm(fft_normalization))
+    d_sens, d_x = sens_grad(t, image, fft_centered, sens=sens)
+    return d_x, d_sens
+
+
+def sens_reduce_bwd_sens(g, kspace, sens, mask=None, fft_centered=False, fft_normalization="backward",
+                         fft_order: bool = False) -> torch.Tensor:
+    """:func:`sens_reduce`'s maps gradient: ``g`` [B, H, W, 2] -> d_sens
+    [B, C, H, W, 2]; on the card the forward's coil images recomputed (load
+    where needed, inverse FFT) and one sens_grad stage."""
+    dev = device_of("sens_reduce_bwd_sens", g, kspace, sens, mask)
+    if dev.type == "cpu":
+        return sens_reduce_bwd_sens_plain(g, kspace, sens, mask, fft_centered, fft_normalization, fft_order)
+    p = torch.fft.ifft2(_kspace_in("sens_reduce", kspace, mask, fft_centered, fft_order),
+                        norm=_norm(fft_normalization))
+    return sens_grad(p, dense("sens_reduce_bwd", g), fft_centered)[0]
+
+
 class _SensExpand(torch.autograd.Function):
     @staticmethod
     def forward(ctx, image, sens, mask, fft_centered, fft_normalization, fft_order):
-        ctx.save_for_backward(sens, mask)
+        ctx.save_for_backward(sens, mask, image if ctx.needs_input_grad[1] else None)
         ctx.args = (fft_centered, fft_normalization, fft_order)
         if image.device.type == "cpu":
             return sens_expand_plain(image, sens, fft_centered, fft_normalization, fft_order, mask=mask)
@@ -450,15 +613,18 @@ class _SensExpand(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        refuse_grads("sens_expand", ctx.needs_input_grad, {1: "sens", 2: "mask"})
-        sens, mask = ctx.saved_tensors
-        return sens_expand_bwd(g, sens, *ctx.args, mask=mask), None, None, None, None, None
+        refuse_grads("sens_expand", ctx.needs_input_grad, {2: "mask"})
+        sens, mask, image = ctx.saved_tensors
+        if not ctx.needs_input_grad[1]:
+            return sens_expand_bwd(g, sens, *ctx.args, mask=mask), None, None, None, None, None
+        d_x, d_sens = sens_expand_bwd_sens(g, image, sens, *ctx.args, mask=mask)
+        return (d_x if ctx.needs_input_grad[0] else None), d_sens, None, None, None, None
 
 
 class _SensReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, kspace, sens, mask, fft_centered, fft_normalization, fft_order):
-        ctx.save_for_backward(sens, mask)
+        ctx.save_for_backward(sens, mask, kspace if ctx.needs_input_grad[1] else None)
         ctx.args = (fft_centered, fft_normalization, fft_order)
         if kspace.device.type == "cpu":
             return sens_reduce_plain(kspace, sens, mask, fft_centered, fft_normalization, fft_order=fft_order)
@@ -468,9 +634,11 @@ class _SensReduce(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        refuse_grads("sens_reduce", ctx.needs_input_grad, {1: "sens", 2: "mask"})
-        sens, mask = ctx.saved_tensors
-        return sens_reduce_bwd(g, sens, mask, *ctx.args), None, None, None, None, None
+        refuse_grads("sens_reduce", ctx.needs_input_grad, {2: "mask"})
+        sens, mask, kspace = ctx.saved_tensors
+        d_k = sens_reduce_bwd(g, sens, mask, *ctx.args) if ctx.needs_input_grad[0] else None
+        d_sens = sens_reduce_bwd_sens(g, kspace, sens, mask, *ctx.args) if ctx.needs_input_grad[1] else None
+        return d_k, d_sens, None, None, None, None
 
 
 def _check_order(name, mask, fft_order):
@@ -483,7 +651,7 @@ def sens_expand(image, sens, fft_centered=False, fft_normalization="backward", f
     """Multicoil k-space of a coil-combined image ([B, H, W, 2] -> [B, C, H, W,
     2], in sens' dtype), centered when ``fft_centered`` unless ``fft_order``,
     times ``mask`` (broadcastable to [B, 1, H, W]) when one is given;
-    differentiable in the image."""
+    differentiable in the image and the maps."""
     device_of("sens_expand", image, sens, mask)
     _check_order("sens_expand", mask, fft_order)
     return _SensExpand.apply(image.to(sens.dtype).contiguous(), sens, mask, fft_centered, fft_normalization,
@@ -495,7 +663,7 @@ def sens_reduce(kspace, sens, mask: Optional[torch.Tensor] = None, fft_centered=
                 coil_dim: int = 1, fft_order: bool = False) -> torch.Tensor:
     """SENSE-combined image of ``mask * kspace`` ([B, C, H, W, 2] -> [B, H, W, 2]);
     ``fft_order``: kspace in FFT order (and no mask); differentiable in the
-    k-space."""
+    k-space and the maps."""
     dev = device_of("sens_reduce", kspace, sens, mask)
     _check_order("sens_reduce", mask, fft_order)
     if dev.type == "cpu":
@@ -566,27 +734,68 @@ def _normal_op_apply(x, sens, mask, mu, fft_centered, fft_normalization) -> torc
     return torch.addcmul(reduce(p, sens, None, fft_centered), mu, x)
 
 
+def normal_op_bwd_sens_plain(g, x, sens, mask, mu, fft_centered=False, fft_normalization="backward"):
+    """Plain version of :func:`normal_op`'s backward with the maps' gradient:
+    ``g`` [B, H, W, 2] -> (d_x, d_sens = r_c conj(g) + q_c conj(x)) with
+    r_c = F^-1 M F(s_c x) and q_c = F^-1 M F(s_c g)."""
+    m = mask[..., None]
+
+    def coil_images(v):
+        return ifft2_rv(m * fft2_rv(cmul(v[:, None], sens), fft_centered, fft_normalization), fft_centered,
+                        fft_normalization)
+
+    r, q = coil_images(x), coil_images(g)
+    d_sens = cmul_conj(r, g.unsqueeze(1)) + cmul_conj(q, x.unsqueeze(1))
+    return cmul_conj(q, sens).sum(dim=1) + mu * g, d_sens
+
+
+def normal_op_bwd_sens(g, x, sens, mask, mu, fft_centered=False, fft_normalization="backward"):
+    """:func:`normal_op`'s backward with the maps' gradient: (d_x, d_sens); on
+    the card the forward's coil images recomputed (expand, FFT, mask,
+    inverse FFT), the same for g, one sens_grad stage for both, and mu g
+    added by one ``addcmul``."""
+    dev = device_of("normal_op_bwd_sens", g, x, sens, mask)
+    if dev.type == "cpu":
+        return normal_op_bwd_sens_plain(g, x, sens, mask, mu, fft_centered, fft_normalization)
+    norm = _norm(fft_normalization)
+    g = dense("normal_op", g)
+
+    def coil_images(v):
+        k = torch.fft.fft2(expand(v, sens, fft_centered), norm=norm)
+        return torch.fft.ifft2(apply_mask(k, mask, fft_centered), norm=norm)
+
+    x = dense("normal_op", x)
+    d_sens, total = sens_grad(coil_images(g), x, fft_centered, a2=coil_images(x), b2=g, sens=sens)
+    return torch.addcmul(total, mu, g), d_sens
+
+
 class _NormalOp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, sens, mask, mu, fft_centered, fft_normalization):
-        ctx.save_for_backward(sens, mask, mu, x if ctx.needs_input_grad[3] else None)
+        keep_x = ctx.needs_input_grad[1] or ctx.needs_input_grad[3]
+        ctx.save_for_backward(sens, mask, mu, x if keep_x else None)
         ctx.args = (fft_centered, fft_normalization)
         return _normal_op_apply(x, sens, mask, mu, fft_centered, fft_normalization)
 
     @staticmethod
     def backward(ctx, g):
-        refuse_grads("normal_op", ctx.needs_input_grad, {1: "sens", 2: "mask"})
+        refuse_grads("normal_op", ctx.needs_input_grad, {2: "mask"})
         sens, mask, mu, x = ctx.saved_tensors
-        d_x = _normal_op_apply(g, sens, mask, mu, *ctx.args) if ctx.needs_input_grad[0] else None
+        d_sens = None
+        if ctx.needs_input_grad[1]:
+            d_x, d_sens = normal_op_bwd_sens(g, x, sens, mask, mu, *ctx.args)
+            d_x = d_x if ctx.needs_input_grad[0] else None
+        else:
+            d_x = _normal_op_apply(g, sens, mask, mu, *ctx.args) if ctx.needs_input_grad[0] else None
         d_mu = (x * g).sum().reshape(mu.shape) if ctx.needs_input_grad[3] else None
-        return d_x, None, None, d_mu, None, None
+        return d_x, d_sens, None, d_mu, None, None
 
 
 def normal_op(x, sens, mask, mu, fft_centered=False, fft_normalization="backward") -> torch.Tensor:
     """``A(x) = sum_c conj(s_c) IFFT2(m FFT2(s_c x)) + mu x`` ([B, H, W, 2] ->
     [B, H, W, 2], float32; ``mask`` broadcastable to [B, 1, H, W], ``mu`` a
     float or a float32 tensor broadcastable to x, e.g. a (1,) parameter);
-    differentiable in x and mu."""
+    differentiable in x, mu and the maps."""
     dev = device_of("normal_op", x, sens, mask)
     mu = torch.as_tensor(mu, dtype=torch.float32, device=dev)
     return _NormalOp.apply(x, sens, mask, mu, fft_centered, fft_normalization)

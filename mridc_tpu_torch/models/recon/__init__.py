@@ -3,6 +3,7 @@ from mridc_tpu_torch.models.recon.cirim import CIRIM
 from mridc_tpu_torch.models.recon.crnn import CRNNet
 from mridc_tpu_torch.models.recon.cs import CS, PICS
 from mridc_tpu_torch.models.recon.dunet import DUNet
+from mridc_tpu_torch.models.recon.jointicnet import JointICNet
 from mridc_tpu_torch.models.recon.kikinet import KIKINet
 from mridc_tpu_torch.models.recon.lpd import LPDNet
 from mridc_tpu_torch.models.recon.multidomainnet import MultiDomainNet
@@ -14,5 +15,5 @@ from mridc_tpu_torch.models.recon.vsnet import VSNet
 from mridc_tpu_torch.models.recon.xpdnet import XPDNet
 from mridc_tpu_torch.models.recon.zf import ZF
 
-__all__ = ["CIRIM", "CRNNet", "CS", "CascadeNet", "DUNet", "KIKINet", "LPDNet", "MultiDomainNet", "PICS",
+__all__ = ["CIRIM", "CRNNet", "CS", "CascadeNet", "DUNet", "JointICNet", "KIKINet", "LPDNet", "MultiDomainNet", "PICS",
            "ProximalGradient", "RecurrentVarNet", "ResNet", "UNet", "VSNet", "VarNet", "XPDNet", "ZF"]

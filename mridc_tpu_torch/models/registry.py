@@ -1,7 +1,8 @@
 """Model registry (counterpart of ``mridc_tpu/models/registry.py``):
-name -> constructor, plus the name of the JAX registry that is not ported yet,
-with the ROADMAP item that ports it: JointICNet (M8's second half, which
-brings the learned sensitivity maps it trains).
+name -> constructor for every name of the JAX registry (``PENDING_MODELS``,
+the names not ported yet with the ROADMAP item that ports them, is empty).
+``use_sens_net: true`` wraps a model with a learned sensitivity estimator
+(``models/sens_wrapper.py``) where the JAX package wraps it.
 """
 
 from __future__ import annotations
@@ -10,9 +11,10 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from mridc_tpu_torch.models.recon import (CIRIM, CS, PICS, ZF, CascadeNet, CRNNet, DUNet, KIKINet, LPDNet,
-                                          MultiDomainNet, ProximalGradient, RecurrentVarNet, ResNet, UNet, VarNet,
-                                          VSNet, XPDNet)
+from mridc_tpu_torch.models.recon import (CIRIM, CS, PICS, ZF, CascadeNet, CRNNet, DUNet, JointICNet, KIKINet,
+                                          LPDNet, MultiDomainNet, ProximalGradient, RecurrentVarNet, ResNet, UNet,
+                                          VarNet, VSNet, XPDNet)
+from mridc_tpu_torch.models.sens_wrapper import maybe_wrap_sens_net
 from mridc_tpu_torch.models.multitask import IDSLR, MTLRS, SERANet, IDSLRUNet, RecSegUNet, SegNet
 from mridc_tpu_torch.models.quantitative import qCIRIM, qVarNet
 from mridc_tpu_torch.models.segmentation import (Segmentation3DUNet, SegmentationAttentionUNet, SegmentationDYNUNet,
@@ -35,7 +37,7 @@ MODEL_REGISTRY: Dict[str, Callable] = {
     "VSNET": VSNet.from_config, "DUNET": DUNet.from_config,
     "RVN": RecurrentVarNet.from_config, "RECURRENTVARNET": RecurrentVarNet.from_config,
     "MULTIDOMAINNET": MultiDomainNet.from_config, "MULTIDOMAIN": MultiDomainNet.from_config,
-    "CS": CS.from_config, "PICS": PICS.from_config,
+    "CS": CS.from_config, "PICS": PICS.from_config, "JOINTICNET": JointICNet.from_config,
     "QCIRIM": qCIRIM.from_config, "QRIM": qCIRIM.from_config,
     "QVN": qVarNet.from_config, "QVARNET": qVarNet.from_config,
     "SEGMENTATIONUNET": SegmentationUNet.from_config, "SEGMENTATION2DUNET": SegmentationUNet.from_config,
@@ -48,7 +50,7 @@ MODEL_REGISTRY: Dict[str, Callable] = {
     "RECSEGUNET": RecSegUNet.from_config, "SERANET": SERANet.from_config,
 }
 
-PENDING_MODELS: Dict[str, str] = {"JOINTICNET": "M8 (learned sensitivity maps, second half)"}
+PENDING_MODELS: Dict[str, str] = {}
 
 
 # Perf knobs with model-specific support, as in the JAX package: a knob key in
@@ -86,7 +88,9 @@ def _check_knob_support(name: str, cfg: Dict[str, Any]) -> None:
 def build_model(cfg: Dict[str, Any], device=None, generator: Optional[torch.Generator] = None):
     """Build a model from a config dict with a ``model_name`` key, on ``device``:
     the CUDA device when None (raising if there is none), the CPU only when the
-    caller asks for it. Weights are drawn from ``generator`` (CPU generator)."""
+    caller asks for it. Weights are drawn from ``generator`` (CPU generator);
+    ``use_sens_net: true`` wraps the model with a learned sensitivity
+    estimator."""
     name = str(cfg.get("model_name", "")).upper()
     if name in PENDING_MODELS and name not in MODEL_REGISTRY:
         raise NotImplementedError(
@@ -94,12 +98,10 @@ def build_model(cfg: Dict[str, Any], device=None, generator: Optional[torch.Gene
         )
     if name not in MODEL_REGISTRY:
         raise ValueError(f"Unknown model_name {name!r}. Available: {sorted(MODEL_REGISTRY)}")
-    if cfg.get("use_sens_net", False):
-        raise NotImplementedError("use_sens_net (learned sensitivity maps) is not ported yet: ROADMAP M8, its second "
-                                  "half (nn/sens.py, models/sens_wrapper.py and the maps' gradient of K1 and K2)")
     _check_knob_support(name, cfg)
     dev = resolve_device(device)
-    return MODEL_REGISTRY[name](cfg, generator=generator).to(dev)
+    model = MODEL_REGISTRY[name](cfg, generator=generator)
+    return maybe_wrap_sens_net(model, cfg, model_name=name, generator=generator).to(dev)
 
 
 def available_models():

@@ -17,7 +17,11 @@ statistics (``train_batch_stats``) is archived in that format, as
 ``{"params", "batch_stats"}`` the way the JAX package saves it, so that each
 package restores the other's archive with its statistics; so is every model
 whose reference torch weights ``mridc_tpu`` does not read (RecurrentVarNet,
-MultiDomainNet, the quantitative, segmentation and multitask models).
+MultiDomainNet, JointICNet, the quantitative, segmentation and multitask
+models) and every model with ``use_sens_net``: ``mridc_tpu`` restores no
+reference archive of a wrapped model (its importer names the wrapped scope
+``{Class}_0`` where its ``WithSensNet`` has ``model``), while the port reads
+one (``sens_net.*`` beside the model's reference keys) as it reads any.
 
 Step checkpoints stand in for orbax: ``torch.save`` of the trainer's state
 (``{model, optimizer, scheduler, step, epoch, ema}``) under
@@ -56,15 +60,16 @@ def save_archive(path, cfg: Dict, state_dict: Dict[str, torch.Tensor]) -> Path:
     the JAX package's flax msgpack where ``mridc_tpu`` reads no torch weights
     of the model: ``{"params", "batch_stats"}`` where the state holds live
     BatchNorm statistics (``running_mean``), the bare param tree for
-    RecurrentVarNet, MultiDomainNet, qCIRIM, qVarNet and the segmentation and
-    multitask models."""
+    RecurrentVarNet, MultiDomainNet, JointICNet, qCIRIM, qVarNet, the
+    segmentation and multitask models and every model with
+    ``use_sens_net``."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    flax_params = str(cfg.get("model_name", "")).upper() in _FLAX_ARCHIVED
+    flax_params = str(cfg.get("model_name", "")).upper() in _FLAX_ARCHIVED or cfg.get("use_sens_net", False)
     if flax_params or any(k.endswith("running_mean") for k in state_dict):
-        from mridc_tpu_torch.utils.params import zoo2_params_to_jax
+        from mridc_tpu_torch.utils.params import params_to_jax
 
-        tree = zoo2_params_to_jax(state_dict, cfg)
+        tree = params_to_jax(state_dict, cfg)
         weights = (FLAX_WEIGHTS_NAME, encode_flax_msgpack(tree if "batch_stats" in tree else tree["params"]))
     else:
         buf = io.BytesIO()
@@ -144,34 +149,9 @@ def encode_flax_msgpack(tree: Any) -> bytes:
 _FLAX_ARCHIVED = {"RVN", "RECURRENTVARNET", "MULTIDOMAINNET", "MULTIDOMAIN", "QCIRIM", "QRIM", "QVN", "QVARNET",
                   "SEGMENTATIONUNET", "SEGMENTATION2DUNET", "SEGMENTATION3DUNET", "SEGMENTATIONATTENTIONUNET",
                   "SEGMENTATIONLAMBDAUNET", "SEGMENTATIONVNET", "SEGMENTATIONDYNUNET", "SEGMENTATIONUNETR",
-                  "MTLRS", "JRSCIRIM", "IDSLR", "IDSLRUNET", "SEGNET", "RECSEGNET", "RECSEGUNET", "SERANET"}
-_ZOO2 = {"CASCADENET", "CCNN", "CRNNET", "CRNN", "XPDNET", "KIKINET", "LPDNET", "LPD", "VSNET", "DUNET", *_FLAX_ARCHIVED}
+                  "MTLRS", "JRSCIRIM", "IDSLR", "IDSLRUNET", "SEGNET", "RECSEGNET", "RECSEGUNET", "SERANET",
+                  "JOINTICNET"}
 
-
-def _state_from_flax(cfg: Dict, tree: Any) -> Dict[str, torch.Tensor]:
-    from mridc_tpu_torch.models.registry import MODEL_REGISTRY, PENDING_MODELS
-    from mridc_tpu_torch.utils.params import (cirim_params_from_jax, resnet_params_from_jax, unet_params_from_jax,
-                                              varnet_params_from_jax, zoo2_params_from_jax)
-
-    name = str(cfg.get("model_name", "")).upper()
-    if name in _ZOO2:
-        return zoo2_params_from_jax(tree, cfg)  # with the live BatchNorm statistics, if any
-    if isinstance(tree, dict) and set(tree) == {"params", "batch_stats"}:
-        tree = tree["params"]
-    if name in ("CIRIM", "RIM"):
-        return cirim_params_from_jax(tree)
-    if name in ("VN", "VARNET", "E2EVN"):
-        return varnet_params_from_jax(tree)
-    if name == "UNET":
-        return unet_params_from_jax(tree)
-    if name in ("RESNET", "PROXIMALGRADIENT", "PG"):
-        return resnet_params_from_jax(tree)
-    if name in ("ZF", "CS", "PICS"):
-        return {}
-    if name in PENDING_MODELS and name not in MODEL_REGISTRY:
-        raise NotImplementedError(f"model {name!r} is not ported to mridc_tpu_torch yet: ROADMAP "
-                                  f"{PENDING_MODELS[name]}")
-    raise ValueError(f"no weight mapping for model {name!r} in a mridc_tpu archive")
 
 
 def load_archive(path) -> Tuple[Dict, Dict[str, torch.Tensor]]:
@@ -195,7 +175,9 @@ def load_archive(path) -> Tuple[Dict, Dict[str, torch.Tensor]]:
         if isinstance(state, dict) and "state_dict" in state:
             state = state["state_dict"]
         return cfg, dict(state)
-    return cfg, _state_from_flax(cfg, decode_flax_msgpack(payload))
+    from mridc_tpu_torch.utils.params import params_from_jax
+
+    return cfg, params_from_jax(decode_flax_msgpack(payload), cfg)  # with the live BatchNorm statistics, if any
 
 
 def restore_model(path, override_config: Optional[Dict] = None, device=None):

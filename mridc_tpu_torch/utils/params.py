@@ -56,6 +56,20 @@ U-Nets' ``UnetEncoder_{i}``/``UnetDecoder_{j}`` and the ConvLSTMs'
 ``ConvLSTM_0/ConvLSTMCell_0/Conv_0``. The widths that follow the coil count
 are read off the tree's shapes.
 
+JointICNet (the same table) maps ``NormUnet_0`` (the k-space U-Net),
+``NormUnet_1`` (the image U-Net), ``SensitivityModel_0/NormUnet_0`` and its
+five per-iteration parameters. CIRIM, VarNet, UNet and ResNet/ProximalGradient
+are in the table too: the functions above that read their structure off the
+tree (no config) take the same pairs. CIRIM's leaves are stacked over the
+cascades, and its pairs name row i of a leaf ``leaf[i]``. A model with
+``use_sens_net`` is the JAX package's ``WithSensNet``: the wrapper's
+estimator's ``SensitivityModel_0/NormUnet_0`` beside the wrapped model's
+tree under ``model`` (both read off ``init``); JointICNet's own estimator
+is ``model/SensitivityModel_0``. :func:`params_from_jax` and
+:func:`params_to_jax` map any model of the registry both ways; the port
+archives a wrapped model and JointICNet in flax msgpack through them, since
+``mridc_tpu`` restores no reference torch archive of either.
+
 The flax scope names depend on ``remat_mode``: a rematerialised scan is named
 ``ScanCheckpoint_*``, a plain one ``Scan_*`` — ``step+cascade`` gives
 ``ScanCheckpoint_Cascade_0/RIMBlock_0/ScanCheckpoint_RIMStep_0``, ``none``
@@ -78,8 +92,8 @@ __all__ = ["cirim_params_from_jax", "rim_block_params_from_jax", "normunet_param
            "lpdnet_params_from_jax", "vsnet_params_from_jax", "dunet_params_from_jax", "rvn_params_from_jax",
            "multidomainnet_params_from_jax", "qcirim_params_from_jax", "qvn_params_from_jax", "mtlrs_params_from_jax",
            "idslr_params_from_jax", "idslrunet_params_from_jax", "segnet_params_from_jax",
-           "recsegunet_params_from_jax", "seranet_params_from_jax", "hwio_to_oihw",
-           "hwio_to_iohw_flipped"]
+           "recsegunet_params_from_jax", "seranet_params_from_jax", "jointicnet_params_from_jax",
+           "params_from_jax", "params_to_jax", "hwio_to_oihw", "hwio_to_iohw_flipped"]
 
 _CELL_SCOPE = re.compile(r"^(IndRNNCell|ConvGRUCell|ConvMGUCell)_(\d+)$")
 
@@ -106,73 +120,22 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def _block_state(block: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
-    """State of one RIM block from its flax subtree (``RIMBlock_0`` contents,
-    leaves without the cascade axis)."""
-    step = _one_of(block, ("ScanCheckpoint_RIMStep_0", "Scan_RIMStep_0"), "RIMBlock_0")
-    cells = sorted(
-        ((int(m.group(2)), name) for name in step if (m := _CELL_SCOPE.match(name))),
-    )
-    state: Dict[str, torch.Tensor] = {}
-    for h, name in cells:
-        conv = step[f"ConvNonlinear_{h}"]["Conv_0"]
-        state[f"{prefix}layers.{h}.convs.conv_layer.weight"] = _t(hwio_to_oihw(conv["kernel"]))
-        if "bias" in conv:
-            state[f"{prefix}layers.{h}.convs.conv_layer.bias"] = _t(conv["bias"])
-        cell = step[name]
-        ih = cell["Conv_0"]
-        state[f"{prefix}layers.{h}.rnn.ih.weight"] = _t(hwio_to_oihw(ih["kernel"]))
-        if "bias" in ih:
-            state[f"{prefix}layers.{h}.rnn.ih.bias"] = _t(ih["bias"])
-        if name.startswith("IndRNNCell"):
-            state[f"{prefix}layers.{h}.rnn.hh"] = _t(np.transpose(np.asarray(cell["hh"]), (0, 3, 1, 2)))
-        else:
-            state[f"{prefix}layers.{h}.rnn.hh.weight"] = _t(hwio_to_oihw(cell["Conv_1"]["kernel"]))
-    final = step[f"ConvNonlinear_{len(cells)}"]["Conv_0"]
-    state[f"{prefix}final_layer.0.conv_layer.weight"] = _t(hwio_to_oihw(final["kernel"]))
-    if "bias" in final:
-        state[f"{prefix}final_layer.0.conv_layer.bias"] = _t(final["bias"])
-    if "dc_weight" in block:
-        state[f"{prefix}dc_weight"] = _t(block["dc_weight"])
-    return state
-
-
 def _unwrap(tree: Mapping) -> Mapping:
     return tree["params"] if "params" in tree else tree
 
 
-def rim_block_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """Port :class:`~mridc_tpu_torch.nn.rim.RIMBlock` state from a flax
-    ``RIMBlock`` param tree (as ``RIMBlock(...).init`` returns it)."""
-    return _block_state(_unwrap(tree), "")
-
-
-def cirim_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """Port CIRIM ``state_dict`` from a flax CIRIM param tree of any
-    ``remat_mode`` (with or without the top-level ``"params"`` key)."""
-    cascade = _one_of(_unwrap(tree), ("ScanCheckpoint_Cascade_0", "Scan_Cascade_0"), "CIRIM params")
-    block = cascade["RIMBlock_0"]
-    n = int(np.asarray(_one_of(block, ("ScanCheckpoint_RIMStep_0", "Scan_RIMStep_0"), "RIMBlock_0")
-                       ["ConvNonlinear_0"]["Conv_0"]["kernel"]).shape[0])
-
-    def slice_tree(node, i):
-        if isinstance(node, Mapping):
-            return {k: slice_tree(v, i) for k, v in node.items()}
-        return np.asarray(node)[i]
-
-    state: Dict[str, torch.Tensor] = {}
-    for i in range(n):
-        state.update(_block_state(slice_tree(block, i), f"cirim.{i}."))
-    return state
+_ROW = re.compile(r"^(.*)\[(\d+)\]$")
 
 
 class _Leaves:
     """A flax subtree's leaves by path; :meth:`take` hands each out once and
-    :meth:`done` raises on any left over."""
+    :meth:`done` raises on any left over. A path ``leaf[i]`` takes row i of a
+    leaf stacked over a scan axis (CIRIM's cascades), each row once."""
 
     def __init__(self, tree: Mapping, what: str):
         self.what = what
         self.leaves: Dict[str, np.ndarray] = {}
+        self.rows: Dict[str, set] = {}
 
         def walk(node, path):
             for k, v in node.items():
@@ -187,97 +150,126 @@ class _Leaves:
         return path in self.leaves
 
     def take(self, path: str) -> np.ndarray:
-        if path not in self.leaves:
+        row = _ROW.match(path)
+        leaf = row.group(1) if row else path
+        if leaf not in self.leaves:
             raise KeyError(f"{self.what}: leaf {path!r} missing from the param tree")
-        return self.leaves.pop(path)
+        if not row:
+            return self.leaves.pop(leaf)
+        a, i, seen = self.leaves[leaf], int(row.group(2)), self.rows.setdefault(leaf, set())
+        if i in seen or i >= len(a):
+            raise KeyError(f"{self.what}: row {i} of {leaf!r} (shape {a.shape}) taken twice or missing")
+        seen.add(i)
+        if len(seen) == len(a):
+            del self.leaves[leaf]
+        return a[i]
 
     def done(self) -> None:
         if self.leaves:
             raise KeyError(f"{self.what}: leaves not used: {sorted(self.leaves)}")
 
 
-def _normunet_state(leaves: _Leaves, base: str, prefix: str) -> Dict[str, torch.Tensor]:
-    pools = 0
-    while leaves.has(f"{base}TransposeConvBlock_{pools}/ConvTranspose_0/kernel"):
-        pools += 1
-    if pools == 0:
-        raise KeyError(f"{leaves.what}: no {base}TransposeConvBlock_0 in the param tree")
-    state: Dict[str, torch.Tensor] = {}
-
-    def block(k, name):
-        for j, layer in ((0, 0), (1, 4)):
-            state[f"{prefix}unet.{name}.layers.{layer}.weight"] = _t(
-                hwio_to_oihw(leaves.take(f"{base}ConvBlock_{k}/Conv_{j}/kernel")))
-
-    for i in range(pools):
-        block(i, f"down_sample_layers.{i}")
-    block(pools, "conv")
-    for i in range(pools):
-        state[f"{prefix}unet.up_transpose_conv.{i}.layers.0.weight"] = _t(
-            hwio_to_iohw_flipped(leaves.take(f"{base}TransposeConvBlock_{i}/ConvTranspose_0/kernel")))
-        block(pools + 1 + i, f"up_conv.{i}" if i < pools - 1 else f"up_conv.{i}.0")
-    state[f"{prefix}unet.up_conv.{pools - 1}.1.weight"] = _t(hwio_to_oihw(leaves.take(f"{base}Conv_0/kernel")))
-    state[f"{prefix}unet.up_conv.{pools - 1}.1.bias"] = _t(leaves.take(f"{base}Conv_0/bias"))
+def _take(pairs, tree: Mapping, what: str) -> Dict[str, torch.Tensor]:
+    """The port state of the ``params`` pairs over a bare param tree, every
+    leaf used once."""
+    leaves = _Leaves(tree, what)
+    state = {p: _t(_FROM[kind](leaves.take(f))) for _, f, p, kind in pairs}
+    leaves.done()
     return state
+
+
+def _pools(leaves: _Leaves, f: str) -> int:
+    """The pool count of the ``NormUnet`` at scope ``f`` of a param tree."""
+    n = 0
+    while leaves.has(f"{f}Unet_0/TransposeConvBlock_{n}/ConvTranspose_0/kernel"):
+        n += 1
+    if n == 0:
+        raise KeyError(f"{leaves.what}: no {f}Unet_0/TransposeConvBlock_0 in the param tree")
+    return n
+
+
+def _scope_of(tree: Mapping, names, what: str) -> str:
+    """The one of ``names`` (a remat and a plain scan scope) that ``tree`` holds."""
+    _one_of(tree, names, what)
+    return next(n for n in names if n in tree)
+
+
+_STEP_SCOPES = ("ScanCheckpoint_RIMStep_0", "Scan_RIMStep_0")
+_CASCADE_SCOPES = ("ScanCheckpoint_Cascade_0", "Scan_Cascade_0")
+
+
+def _tree_rim_layout(step: Mapping):
+    """:func:`_rim_layout` read off a flax RIM step's subtree."""
+    cells = sorted((int(m.group(2)), m.group(1)) for name in step if (m := _CELL_SCOPE.match(name)))
+    layers = [(cls, "bias" in step[f"ConvNonlinear_{h}"]["Conv_0"], "bias" in step[f"{cls}_{h}"]["Conv_0"])
+              for h, cls in cells]
+    return layers, "bias" in step[f"ConvNonlinear_{len(cells)}"]["Conv_0"]
+
+
+def rim_block_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Port :class:`~mridc_tpu_torch.nn.rim.RIMBlock` state from a flax
+    ``RIMBlock`` param tree (as ``RIMBlock(...).init`` returns it)."""
+    block = _unwrap(tree)
+    step = _scope_of(block, _STEP_SCOPES, "RIMBlock_0")
+    pairs = _rim_stack_pairs(_tree_rim_layout(block[step]), f"{step}/", "")
+    return _take(pairs + ([_leaf("dc_weight", "dc_weight")] if "dc_weight" in block else []), block, "RIMBlock params")
+
+
+def cirim_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Port CIRIM ``state_dict`` from a flax CIRIM param tree of any
+    ``remat_mode`` (with or without the top-level ``"params"`` key)."""
+    params = _unwrap(tree)
+    cascade = _scope_of(params, _CASCADE_SCOPES, "CIRIM params")
+    block = params[cascade]["RIMBlock_0"]
+    step = _scope_of(block, _STEP_SCOPES, "RIMBlock_0")
+    n = int(np.shape(block[step]["ConvNonlinear_0"]["Conv_0"]["kernel"])[0])
+    pairs = _cirim_pairs(n, _tree_rim_layout(block[step]), "dc_weight" in block, cascade, step)
+    return _take(pairs, params, "CIRIM params")
 
 
 def normunet_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """Port :class:`~mridc_tpu_torch.nn.unet.NormUnet` state from a flax
     ``NormUnet`` param tree (``{"Unet_0": ...}``, with or without ``"params"``)."""
-    leaves = _Leaves(_unwrap(tree), "NormUnet params")
-    state = _normunet_state(leaves, "Unet_0/", "")
-    leaves.done()
-    return state
+    params = _unwrap(tree)
+    return _take(_unet_pairs(_pools(_Leaves(params, "NormUnet params"), ""), "", ""), params, "NormUnet params")
 
 
 def varnet_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """Port :class:`~mridc_tpu_torch.models.recon.vn.VarNet` ``state_dict``
     from a flax VarNet param tree (either ``dc_mode``: they share it)."""
-    leaves = _Leaves(_unwrap(tree), "VarNet params")
-    state: Dict[str, torch.Tensor] = {}
-    i = 0
-    while leaves.has(f"_VarNetBlock_{i}/dc_weight"):
-        state[f"cascades.{i}.dc_weight"] = _t(leaves.take(f"_VarNetBlock_{i}/dc_weight"))
-        state.update(_normunet_state(leaves, f"_VarNetBlock_{i}/NormUnet_0/Unet_0/", f"cascades.{i}.model."))
-        i += 1
-    if i == 0:
+    params = _unwrap(tree)
+    leaves = _Leaves(params, "VarNet params")
+    n = 0
+    while leaves.has(f"_VarNetBlock_{n}/dc_weight"):
+        n += 1
+    if n == 0:
         raise KeyError("VarNet params: no _VarNetBlock_0/dc_weight in the param tree")
-    leaves.done()
-    return state
+    return _take(_varnet_pairs([_pools(leaves, f"_VarNetBlock_{i}/NormUnet_0/") for i in range(n)]), params,
+                 "VarNet params")
 
 
 def unet_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """Port :class:`~mridc_tpu_torch.models.recon.unet.UNet` ``state_dict``
     from a flax UNet param tree (``{"NormUnet_0": {"Unet_0": ...}}``)."""
-    leaves = _Leaves(_unwrap(tree), "UNet params")
-    state = _normunet_state(leaves, "NormUnet_0/Unet_0/", "unet.")
-    leaves.done()
-    return state
+    params = _unwrap(tree)
+    pools = _pools(_Leaves(params, "UNet params"), "NormUnet_0/")
+    return _take(_unet_pairs(pools, "NormUnet_0/", "unet."), params, "UNet params")
 
 
 def resnet_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """Port :class:`~mridc_tpu_torch.models.recon.resnet.ResNet` (or
     ``ProximalGradient``) ``state_dict`` from a flax param tree: the residual
     network's convs where there are any, ``mu`` where there is one."""
-    leaves = _Leaves(_unwrap(tree), "ResNet params")
-    state: Dict[str, torch.Tensor] = {}
-    if leaves.has("mu"):
-        state["mu"] = _t(leaves.take("mu"))
+    params = _unwrap(tree)
+    leaves = _Leaves(params, "ResNet params")
     n = 0
     while leaves.has(f"ResidualNetwork_0/Conv_{n}/kernel"):
         n += 1
-    if n:
-        if n < 3 or n % 2 == 0:
-            raise KeyError(f"ResNet params: {n} convs in ResidualNetwork_0, expected 2 * blocks + 3")
-        blocks = (n - 3) // 2
-        names = ["conv1"] + [f"layers{j}.{i}" for i in range(blocks) for j in (2, 1)] + ["last_layer", "final_layer"]
-        for k, name in enumerate(names):
-            state[f"residual_network.{name}.weight"] = _t(hwio_to_oihw(
-                leaves.take(f"ResidualNetwork_0/Conv_{k}/kernel")))
-    if not state:
+    if n and (n < 3 or n % 2 == 0):
+        raise KeyError(f"ResNet params: {n} convs in ResidualNetwork_0, expected 2 * blocks + 3")
+    if not n and not leaves.has("mu"):
         raise KeyError("ResNet params: neither ResidualNetwork_0 nor mu in the param tree")
-    leaves.done()
-    return state
+    return _take(_resnet_pairs((n - 3) // 2 if n else None, leaves.has("mu")), params, "ResNet params")
 
 
 # ---- the conv-cascade, MWCNN and DIDN models: one table of leaf pairs, both ways ----
@@ -370,8 +362,15 @@ def _didn_pairs(mod, f: str, p: str):
 
 
 def _normunet_pairs(mod, f: str, p: str):
-    """``NormUnet``'s ``Unet_0`` (the pairs of :func:`_normunet_state`)."""
-    f, pools = f + "Unet_0/", len(mod.unet.down_sample_layers)
+    """A port ``NormUnet`` at flax scope ``f``: :func:`_unet_pairs`."""
+    return _unet_pairs(len(mod.unet.down_sample_layers), f, p)
+
+
+def _unet_pairs(pools: int, f: str, p: str):
+    """A ``NormUnet`` of ``pools`` pools: its ``Unet_0``'s ``ConvBlock_k`` (the
+    down blocks, the bottleneck, the up blocks), ``TransposeConvBlock_i``
+    and the final 1x1 ``Conv_0``."""
+    f = f + "Unet_0/"
     out = []
 
     def block(k, name):
@@ -476,24 +475,71 @@ def _multidomain_unet_pairs(mod, f: str, p: str):
     return out + _conv_pairs(f"{f}Conv_0/", f"{p}final_conv.")
 
 
-def _rim_stack_pairs(block, f: str, p: str):
-    """A RIM step's conv/RNN stack (``RIMBlock``'s or ``qRIMBlock``'s, under
-    the step's scan scope ``f``): ``ConvNonlinear_{h}`` and the cells
+def _sens_pairs(mod, f: str, p: str):
+    """A ``SensitivityModel``'s ``NormUnet_0`` (port ``norm_unet``)."""
+    return _normunet_pairs(mod.norm_unet, f + "NormUnet_0/", p + "norm_unet.")
+
+
+def _varnet_pairs(pools):
+    """VarNet's ``_VarNetBlock_{i}``: its ``dc_weight`` and its ``NormUnet_0``
+    of ``pools[i]`` pools."""
+    out = []
+    for i, n in enumerate(pools):
+        out.append(_leaf(f"_VarNetBlock_{i}/dc_weight", f"cascades.{i}.dc_weight"))
+        out += _unet_pairs(n, f"_VarNetBlock_{i}/NormUnet_0/", f"cascades.{i}.model.")
+    return out
+
+
+def _resnet_pairs(blocks, mu: bool):
+    """ResNet's ``ResidualNetwork_0/Conv_k`` of ``blocks`` residual blocks
+    (None: no network), in flax's creation order: ``Conv_0`` the first
+    conv, per block ``Conv_{2i+1}`` the outer and ``Conv_{2i+2}`` the inner,
+    then the last two; and the CG weight ``mu`` where there is one."""
+    out = []
+    if blocks is not None:
+        names = (["conv1"] + [f"layers{j}.{i}" for i in range(blocks) for j in (2, 1)]
+                 + ["last_layer", "final_layer"])
+        out += [_leaf(f"ResidualNetwork_0/Conv_{k}/kernel", f"residual_network.{name}.weight", kind="conv")
+                for k, name in enumerate(names)]
+    return out + ([_leaf("mu", "mu")] if mu else [])
+
+
+def _rim_layout(block):
+    """The flax layout of a port RIM step stack (``RIMBlock``'s or
+    ``qRIMBlock``'s): per layer (cell class, conv bias, input conv bias),
+    and the final conv's bias."""
+    layers = [(type(layer.rnn).__name__, layer.convs.conv_layer.bias is not None, layer.rnn.ih.bias is not None)
+              for layer in block.layers]
+    return layers, block.final_layer[0].conv_layer.bias is not None
+
+
+def _rim_stack_pairs(layout, f: str, p: str):
+    """A RIM step's conv/RNN stack of ``layout`` (:func:`_rim_layout`) under
+    the step's scan scope ``f``: ``ConvNonlinear_{h}`` and the cells
     (``{Cell}_{h}``: ``Conv_0`` the input conv, IndRNN's ``hh`` or a gated
     cell's ``Conv_1``), the last ``ConvNonlinear`` the final conv."""
-    from mridc_tpu_torch.nn.rnn_cells import IndRNNCell
-
+    layers, final_bias = layout
     out = []
-    for h, layer in enumerate(block.layers):
-        conv, cell = layer.convs.conv_layer, layer.rnn
-        out += _conv_pairs(f"{f}ConvNonlinear_{h}/Conv_0/", f"{p}layers.{h}.convs.conv_layer.", conv.bias is not None)
-        scope = f"{f}{type(cell).__name__}_{h}/"
-        out += _conv_pairs(f"{scope}Conv_0/", f"{p}layers.{h}.rnn.ih.", cell.ih.bias is not None)
-        out += ([_leaf(f"{scope}hh", f"{p}layers.{h}.rnn.hh", kind="hh")] if isinstance(cell, IndRNNCell)
+    for h, (cls, conv_bias, ih_bias) in enumerate(layers):
+        out += _conv_pairs(f"{f}ConvNonlinear_{h}/Conv_0/", f"{p}layers.{h}.convs.conv_layer.", conv_bias)
+        scope = f"{f}{cls}_{h}/"
+        out += _conv_pairs(f"{scope}Conv_0/", f"{p}layers.{h}.rnn.ih.", ih_bias)
+        out += ([_leaf(f"{scope}hh", f"{p}layers.{h}.rnn.hh", kind="hh")] if cls == "IndRNNCell"
                 else _conv_pairs(f"{scope}Conv_1/", f"{p}layers.{h}.rnn.hh.", False))
-    final = block.final_layer[0].conv_layer
-    return out + _conv_pairs(f"{f}ConvNonlinear_{len(block.layers)}/Conv_0/", f"{p}final_layer.0.conv_layer.",
-                             final.bias is not None)
+    return out + _conv_pairs(f"{f}ConvNonlinear_{len(layers)}/Conv_0/", f"{p}final_layer.0.conv_layer.", final_bias)
+
+
+def _cirim_pairs(n: int, layout, dc_weight: bool, cascade: str, step: str):
+    """CIRIM's ``{cascade}/RIMBlock_0``: every leaf stacked over the ``n``
+    cascades (row i the port's ``cirim.{i}``), the step stack under
+    ``step``, the soft-DC ``dc_weight`` at the block."""
+    block = f"{cascade}/RIMBlock_0/"
+    out = []
+    for i in range(n):
+        pairs = _rim_stack_pairs(layout, f"{block}{step}/", f"cirim.{i}.")
+        pairs += [_leaf(f"{block}dc_weight", f"cirim.{i}.dc_weight")] if dc_weight else []
+        out += [(coll, f"{f}[{i}]", p, kind) for coll, f, p, kind in pairs]
+    return out
 
 
 def _quantitative_pairs(model):
@@ -507,10 +553,10 @@ def _quantitative_pairs(model):
     out = []
     if isinstance(model, qCIRIM):
         for k, block in enumerate(model.recon):
-            out += _rim_stack_pairs(block, f"RIMBlock_{k}/ScanCheckpoint_RIMStep_0/", f"recon.{k}.")
+            out += _rim_stack_pairs(_rim_layout(block), f"RIMBlock_{k}/ScanCheckpoint_RIMStep_0/", f"recon.{k}.")
         for i, block in enumerate(model.qrim):
             scan = "ScanCheckpoint_QRIMStep_0" if block.remat else "Scan_QRIMStep_0"
-            out += _rim_stack_pairs(block, f"qRIMBlock_{i}/{scan}/", f"qrim.{i}.")
+            out += _rim_stack_pairs(_rim_layout(block), f"qRIMBlock_{i}/{scan}/", f"qrim.{i}.")
         return out
     for j, block in enumerate(model.recon):
         out += _normunet_pairs(block.model, f"_VarNetBlock_{j}/NormUnet_0/", f"recon.{j}.model.")
@@ -550,8 +596,9 @@ def _model_pairs(model):
     multitask model, read off the port model: MTLRS's ``RIMBlock_{k}`` step
     scans as qCIRIM's, the rest by the modules' flax scopes."""
     from mridc_tpu_torch.models.quantitative import qCIRIM, qVarNet
-    from mridc_tpu_torch.models.recon import (CascadeNet, CRNNet, DUNet, KIKINet, LPDNet, MultiDomainNet,
-                                              RecurrentVarNet, VSNet, XPDNet)
+    from mridc_tpu_torch.models.recon import (CIRIM, CS, PICS, ZF, CascadeNet, CRNNet, DUNet, JointICNet, KIKINet,
+                                              LPDNet, MultiDomainNet, ProximalGradient, RecurrentVarNet, ResNet, UNet,
+                                              VarNet, VSNet, XPDNet)
     from mridc_tpu_torch.models.segmentation import SegmentationModel
 
     from mridc_tpu_torch.models.multitask import MTLRS, IDSLR, RecSegUNet, SegNet, SERANet
@@ -561,7 +608,8 @@ def _model_pairs(model):
         out += _scoped_pairs(model)
     elif isinstance(model, MTLRS):
         for k, block in enumerate(model.rim_blocks):
-            out += _rim_stack_pairs(block, f"RIMBlock_{k}/ScanCheckpoint_RIMStep_0/", f"rim_blocks.{k}.")
+            out += _rim_stack_pairs(_rim_layout(block), f"RIMBlock_{k}/ScanCheckpoint_RIMStep_0/",
+                                    f"rim_blocks.{k}.")
         out += _scoped_pairs(model.seg_heads, "", "seg_heads.")
     elif isinstance(model, (qCIRIM, qVarNet)):
         out += _quantitative_pairs(model)
@@ -598,9 +646,38 @@ def _model_pairs(model):
         out += _rvn_pairs(model)
     elif isinstance(model, MultiDomainNet):
         out += _multidomain_unet_pairs(model.unet, "MultiDomainUnet2d_0/", "unet.")
+    elif isinstance(model, JointICNet):
+        out += _normunet_pairs(model.kspace_model, "NormUnet_0/", "kspace_model.")
+        out += _normunet_pairs(model.image_model, "NormUnet_1/", "image_model.")
+        out += _sens_pairs(model.sens_net, "SensitivityModel_0/", "sens_net.")
+        out += [_leaf(n, n) for n in ("reg_param_I", "reg_param_F", "reg_param_C", "lr_image", "lr_sens")]
+    elif isinstance(model, VarNet):
+        out += _varnet_pairs([len(block.model.unet.down_sample_layers) for block in model.cascades])
+    elif isinstance(model, UNet):
+        out += _normunet_pairs(model.unet, "NormUnet_0/", "unet.")
+    elif isinstance(model, (ResNet, ProximalGradient)):
+        net = getattr(model, "residual_network", None)
+        out += _resnet_pairs(None if net is None else len(net.layers1), getattr(model, "mu", None) is not None)
+    elif isinstance(model, CIRIM):
+        first = model.cirim[0]
+        out += _cirim_pairs(len(model.cirim), _rim_layout(first), getattr(first, "dc_weight", None) is not None,
+                            _CASCADE_SCOPES[0 if model.remat_cascade else 1], _STEP_SCOPES[0 if first.remat_step else 1])
+    elif isinstance(model, (ZF, CS, PICS)):
+        pass
     else:
         raise TypeError(f"no flax mapping for model {type(model).__name__}")
     return out
+
+
+def _all_pairs(model):
+    """:func:`_model_pairs`, and for a model with ``use_sens_net`` the
+    wrapper's estimator's pairs beside the wrapped model's under ``model/``."""
+    from mridc_tpu_torch.models.sens_wrapper import estimator, is_wrapped
+
+    if not is_wrapped(model):
+        return _model_pairs(model)
+    return _sens_pairs(estimator(model), "SensitivityModel_0/", f"{model.sens_attr}.") + [
+        (coll, "model/" + f, p, kind) for coll, f, p, kind in _model_pairs(model)]
 
 
 def _port_model(cfg: Mapping, in_chans=None):
@@ -676,10 +753,8 @@ def _unstack_xpd_scan(params: Mapping, num_iter: int) -> Dict:
 
 
 def zoo2_params_from_jax(tree: Mapping, cfg: Mapping) -> Dict[str, torch.Tensor]:
-    """Port ``state_dict`` of a CascadeNet, CRNNet, XPDNet, KIKINet, LPDNet,
-    VSNet, DUNet, RecurrentVarNet, MultiDomainNet, qCIRIM, qVarNet or
-    segmentation model (``cfg``'s
-    ``model_name``) from a flax variables tree:
+    """Port ``state_dict`` of any model of the registry (``cfg``'s
+    ``model_name``, with or without ``use_sens_net``) from a flax variables tree:
     ``{"params": ..., "batch_stats": ...}`` or the bare params, with numpy
     leaves. Frozen BatchNorm entries (``mean``/``var`` in params) become
     parameters, live ones (``batch_stats``) the buffers ``running_mean`` and
@@ -691,7 +766,7 @@ def zoo2_params_from_jax(tree: Mapping, cfg: Mapping) -> Dict[str, torch.Tensor]
     elif str(cfg.get("model_name", "")).upper() in MULTITASK_NAMES:
         model = _port_model(cfg)
         if not getattr(model, "materialized", True):  # built at the input width of the tree's shapes
-            node = params
+            node = params["model"] if cfg.get("use_sens_net", False) else params
             for scope in model.width_leaf.split("/"):
                 node = node[scope]
             model._materialize_width(int(np.shape(node)[-2]))
@@ -703,7 +778,7 @@ def zoo2_params_from_jax(tree: Mapping, cfg: Mapping) -> Dict[str, torch.Tensor]
         params = _unstack_xpd_scan(params, len(model.iterations))
     name = str(cfg.get("model_name"))
     leaves = {"params": _Leaves(params, f"{name} params"), "batch_stats": _Leaves(stats, f"{name} batch_stats")}
-    state = {p: _t(_FROM[kind](leaves[coll].take(f))) for coll, f, p, kind in _model_pairs(model)}
+    state = {p: _t(_FROM[kind](leaves[coll].take(f))) for coll, f, p, kind in _all_pairs(model)}
     for lv in leaves.values():
         lv.done()
     return state
@@ -725,7 +800,7 @@ def zoo2_params_to_jax(state: Mapping[str, torch.Tensor], cfg: Mapping) -> Dict:
         model = _port_model(cfg, None if first is None else first.shape[1])
     out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
     left = set(state)
-    for coll, f, p, kind in _model_pairs(model):
+    for coll, f, p, kind in _all_pairs(model):
         if p not in state:
             raise KeyError(f"{cfg.get('model_name')} state dict: {p!r} missing")
         left.discard(p)
@@ -733,9 +808,21 @@ def zoo2_params_to_jax(state: Mapping[str, torch.Tensor], cfg: Mapping) -> Dict:
         *scopes, leaf = f.split("/")
         for s in scopes:
             node = node.setdefault(s, {})
-        node[leaf] = _TO[kind](state[p].detach().cpu().float().numpy())
+        row = _ROW.match(leaf)
+        value = _TO[kind](state[p].detach().cpu().float().numpy())
+        if row:  # a row of a leaf stacked over a scan axis, stacked below
+            node.setdefault(row.group(1), {})[int(row.group(2))] = value
+        else:
+            node[leaf] = value
     if left:
         raise KeyError(f"{cfg.get('model_name')} state dict: keys not used: {sorted(left)}")
+
+    def stacked(node):
+        if node and all(isinstance(k, int) for k in node):
+            return np.stack([node[i] for i in range(len(node))])
+        return {k: stacked(v) if isinstance(v, dict) else v for k, v in node.items()}
+
+    out = stacked(out)
     return out if out["batch_stats"] else {"params": out["params"]}
 
 
@@ -770,3 +857,8 @@ idslrunet_params_from_jax = _named("IDSLRUNet")
 segnet_params_from_jax = _named("SegNet")
 recsegunet_params_from_jax = _named("RecSegUNet")
 seranet_params_from_jax = _named("SERANet")
+jointicnet_params_from_jax = _named("JointICNet")
+
+
+# any model of the registry, with or without ``use_sens_net``, maps by the table
+params_from_jax, params_to_jax = zoo2_params_from_jax, zoo2_params_to_jax

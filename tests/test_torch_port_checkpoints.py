@@ -86,16 +86,30 @@ def test_archive_without_weights_says_so(tmp_path):
         checkpoints.load_archive(path)
 
 
-def test_flax_archive_of_an_unported_model_names_its_item(tmp_path):
-    path = tmp_path / "jointicnet.mridc"
-    with tarfile.open(path, "w:gz") as tar:
+def test_flax_archive_of_jointicnet_restores(tmp_path):
+    """JointICNet, the last model ported (M8), is archived in flax msgpack
+    and restored from it; an archive with an empty tree names the leaves it
+    lacks."""
+    cfg = {"model_name": "JointICNet", "num_iter": 1, "kspace_unet_num_filters": 2, "kspace_unet_num_pool_layers": 1,
+           "imspace_unet_num_filters": 2, "imspace_unet_num_pool_layers": 1, "sens_unet_num_filters": 2,
+           "sens_unet_num_pool_layers": 1}
+    from mridc_tpu_torch.models import build_model
+
+    state = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0)).state_dict()
+    path = checkpoints.save_archive(tmp_path / "jointicnet.mridc", cfg, state)
+    with tarfile.open(path) as tar:
+        assert "model_weights.msgpack" in tar.getnames()
+    got_cfg, got = checkpoints.load_archive(path)
+    assert got_cfg == cfg and sorted(got) == sorted(state) and all(torch.equal(got[k], state[k]) for k in state)
+    empty = tmp_path / "empty.mridc"
+    with tarfile.open(empty, "w:gz") as tar:
         for name, data in (("model_config.yaml", b'{"model_name": "JointICNet"}'),
                            ("model_weights.msgpack", b"\x80")):
             info = tarfile.TarInfo(name)
             info.size = len(data)
             tar.addfile(info, io.BytesIO(data))
-    with pytest.raises(NotImplementedError, match="M8"):
-        checkpoints.load_archive(path)
+    with pytest.raises(KeyError, match="missing"):
+        checkpoints.load_archive(empty)
 
 
 def _batches(n):

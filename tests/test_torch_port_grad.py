@@ -247,15 +247,20 @@ def test_replicate_pad_gradient_equals_f_pad(pad, channels_last):
 
 
 def test_wrappers_refuse_gradients_they_do_not_compute():
+    """The gradients with respect to the operator, y and the mask raise; the
+    maps' gradient is computed (held against jax.vjp in
+    ``test_torch_port_sens.py``)."""
     y, sens, mask, eta, _ = _data(16, 12, seed=8)
     ts, mats, z0 = _psf1d_operands(y, sens, mask, True, "ortho")
     ty, tm = _t(y, mask)
     te = torch.from_numpy(eta).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="sens"):
-        kernels.psf1d_dc(te, ts.clone().requires_grad_(True), mats, z0).sum().backward()
     with pytest.raises(NotImplementedError, match="mats"):
         kernels.psf1d_dc(te, ts, mats.clone().requires_grad_(True), z0).sum().backward()
     for name, args in (("y", (ty.clone().requires_grad_(True), ts, tm)),
-                       ("sens", (ty, ts.clone().requires_grad_(True), tm))):
+                       ("mask", (ty, ts, tm.clone().requires_grad_(True)))):
         with pytest.raises(NotImplementedError, match=name):
             kernels.full_dc(te, *args).sum().backward()
+    for fn in (lambda s: kernels.psf1d_dc(te, s, mats, z0), lambda s: kernels.full_dc(te, ty, s, tm)):
+        s = ts.clone().requires_grad_(True)
+        fn(s).sum().backward()
+        assert s.grad is not None and float(s.grad.abs().max()) > 0

@@ -403,9 +403,9 @@ def test_bf16_compute_matches_jax_bf16(name):
 
 
 def test_registry_builds_every_multitask_name_and_only_jointicnet_is_pending():
-    """All 8 multitask names build; ``PENDING_MODELS`` keeps JointICNet alone
-    (M8)."""
-    assert PENDING_MODELS == {"JOINTICNET": PENDING_MODELS["JOINTICNET"]} and "M8" in PENDING_MODELS["JOINTICNET"]
+    """All 8 multitask names build; ``PENDING_MODELS``, which kept JointICNet
+    alone until M8's second half was ported, is empty."""
+    assert PENDING_MODELS == {} and "JOINTICNET" in MODEL_REGISTRY
     for name in ("MTLRS", "JRSCIRIM", "IDSLR", "IDSLRUNET", "SEGNET", "RECSEGNET", "RECSEGUNET", "SERANET"):
         assert name in MODEL_REGISTRY
     assert type(build_model({**MTLRS_SMALL, "model_name": "JRSCIRIM"}, device="cpu")).__name__ == "MTLRS"

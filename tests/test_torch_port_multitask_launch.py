@@ -364,18 +364,15 @@ def test_multitask_yamls_build_through_the_launcher(name):
 
 
 def test_every_project_yaml_but_jointicnets_builds():
-    """85 of the 87 ``projects/`` YAMLs build through ``_auto_dc_mode`` and
-    ``build_model`` on the CPU; JointICNet's 2 raise naming M8."""
-    built, refused = [], []
+    """All 87 ``projects/`` YAMLs build through ``_auto_dc_mode`` and
+    ``build_model`` on the CPU (JointICNet's 2, which raised naming M8 until
+    it was ported, included)."""
+    built = []
     for path in sorted((ROOT / "projects").glob("*/conf/*.yaml")):
         model = jconfig.load_config(path).get("model") or {}
-        try:
-            build_model(launch._auto_dc_mode(dict(model)), device="cpu")
-            built.append(path.stem)
-        except NotImplementedError as e:
-            assert "M8" in str(e) and str(model["model_name"]).upper() == "JOINTICNET", path
-            refused.append(path.stem)
-    assert (len(built), len(refused)) == (85, 2)
+        build_model(launch._auto_dc_mode(dict(model)), device="cpu")
+        built.append(path.stem)
+    assert len(built) == 87 and {"base_jointicnet_train", "base_jointicnet_run"} <= set(built)
 
 
 def test_multitask_entry_points_run_on_the_card_unless_asked(monkeypatch, mtroot):

@@ -85,7 +85,7 @@ def test_build_model_without_device_needs_cuda(monkeypatch):
 
 def test_every_jax_model_name_builds_or_names_its_roadmap_item():
     assert available_models() == ["CASCADENET", "CCNN", "CIRIM", "CRNN", "CRNNET", "CS", "DUNET", "E2EVN", "IDSLR",
-                                  "IDSLRUNET", "JRSCIRIM", "KIKINET", "LPD", "LPDNET", "MTLRS", "MULTIDOMAIN",
+                                  "IDSLRUNET", "JOINTICNET", "JRSCIRIM", "KIKINET", "LPD", "LPDNET", "MTLRS", "MULTIDOMAIN",
                                   "MULTIDOMAINNET", "PG", "PICS", "PROXIMALGRADIENT", "QCIRIM", "QRIM", "QVARNET",
                                   "QVN", "RECSEGNET", "RECSEGUNET", "RECURRENTVARNET", "RESNET", "RIM", "RVN",
                                   "SEGMENTATION2DUNET", "SEGMENTATION3DUNET", "SEGMENTATIONATTENTIONUNET",
@@ -107,8 +107,10 @@ def test_config_errors_are_loud():
         build_model({"model_name": "CIRIM", "dc_mode": "fast"}, device="cpu")
     with pytest.raises(ValueError, match="remat_mode"):
         build_model({"model_name": "CIRIM", "remat_mode": "all"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="M8"):
-        build_model({"model_name": "CIRIM", "use_sens_net": True}, device="cpu")
+    with pytest.raises(ValueError, match="use_sens_net is not supported for QCIRIM"):
+        build_model({"model_name": "QCIRIM", "use_sens_net": True}, device="cpu")
+    wrapped = build_model({"model_name": "CIRIM", "use_sens_net": True}, device="cpu")
+    assert type(wrapped).__name__ == "CIRIMWithSensNet" and hasattr(wrapped, "sens_net")
 
 
 def test_weights_come_from_the_generator_alone():

@@ -359,8 +359,8 @@ def test_varnet_names_build_and_its_guards_raise(monkeypatch):
         model = build_model({**_cfg(), "model_name": name}, device="cpu")
         assert type(model).__name__ == "VarNet" and len(model.cascades) == 2
         assert all(float(b.dc_weight.detach()) == 1.0 for b in model.cascades)
-    with pytest.raises(NotImplementedError, match="ROADMAP M8, its second half"):
-        build_model(_cfg(use_sens_net=True), device="cpu")
+    wrapped = build_model(_cfg(use_sens_net=True), device="cpu")
+    assert type(wrapped).__name__ == "VarNetWithSensNet" and len(wrapped.cascades) == 2
     for bad in ({"no_dc": True}, {"coil_combination_method": "RSS"}):
         with pytest.raises(ValueError, match="VarNet dc_mode=psf1d requires no_dc=false"):
             build_model(_cfg(dc_mode="psf1d", **bad), device="cpu")
@@ -518,9 +518,10 @@ def test_fft_order_round_trips_and_refuses_a_mask():
     assert torch.equal(k2.from_fft_order(kf, True), kspace) and k2.to_fft_order(kspace, False) is kspace
     with pytest.raises(ValueError, match="fft_order takes no mask"):
         kernels.sens_reduce(kf, sens, mask, True, "ortho", fft_order=True)
-    with pytest.raises(NotImplementedError, match="sens"):
-        kernels.sens_expand(torch.zeros(B, 5, 7, 2, requires_grad=True), sens.clone().requires_grad_(True),
-                            True).sum().backward()
+    # the maps' gradient (zero at a zero image)
+    s = sens.clone().requires_grad_(True)
+    kernels.sens_expand(torch.zeros(B, 5, 7, 2, requires_grad=True), s, True).sum().backward()
+    assert s.grad is not None and torch.equal(s.grad, torch.zeros_like(sens))
 
 
 def test_psf1d_normal_is_k1_without_its_data_term():

@@ -273,12 +273,18 @@ def test_normal_op_passes_gradcheck_in_float64(centered, norm):
     assert torch.autograd.gradcheck(fn, (x, mu))
 
 
-def test_normal_op_refuses_the_maps_gradient():
+def test_normal_op_takes_the_maps_gradient():
+    """The maps' gradient against the plain backward's (``r_c conj(g) + q_c
+    conj(x)``; held against jax.vjp in ``test_torch_port_sens.py``); the
+    mask's still raises."""
     y, sens, mask, _ = _data(seed=14)
     ts = torch.from_numpy(sens).requires_grad_(True)
-    out = k2.normal_op(torch.from_numpy(y[:, 0]), ts, torch.from_numpy(mask), 0.1)
-    with pytest.raises(NotImplementedError, match="sens"):
-        out.sum().backward()
+    x, m = torch.from_numpy(y[:, 0]), torch.from_numpy(mask)
+    k2.normal_op(x, ts, m, 0.1).sum().backward()
+    want = k2.normal_op_bwd_sens_plain(torch.ones_like(x), x, torch.from_numpy(sens), m, 0.1)[1]
+    _close(ts.grad, want.numpy())
+    with pytest.raises(NotImplementedError, match="mask"):
+        k2.normal_op(x, torch.from_numpy(sens), m.clone().requires_grad_(True), 0.1).sum().backward()
 
 
 @pytest.mark.parametrize("mu", [0.05, 0.0])
