@@ -1305,7 +1305,7 @@ def kernel_category(name: str) -> str:
     n = name.lower()
     if "sens_grad_kernel" in n:
         return "K2 maps gradient"
-    if "sens_kernel<" in n:
+    if "sens_kernel<" in n or "sens_bf16_kernel" in n:
         return "K1 maps gradient"
     if "psf1d_dc" in n:
         return "K1 psf1d_dc backward" if "<true" in n else "K1 psf1d_dc"
@@ -4640,6 +4640,7 @@ def m_launch_phase(dev, card, rows, masks) -> None:
 
 
 J_KERNELS = ("k2_sens_grad", "k1_psf1d_sens_f32", "k1_psf1d_sens_bf16")  # the maps-gradient kernels' rows
+J1_WIDE = (1, 4, 24, 640)  # B, C, H, W: k1_psf1d_sens_bf16's wide route, held beside the on-chip one
 
 
 def j_cirim_cfg(**overrides):
@@ -4680,7 +4681,9 @@ def j_kernels(dev, card, rows, y, sens, mask) -> None:
     upstream g [B, H, W, 4], eta the SENSE image, sigma 0.7) with its coil
     sum, and the one-term form of sens_reduce's backward. K1: both dtypes on
     the psf1d operator of the mask (bf16 against the plain version computed
-    in float32 on the same bf16 operands and rounded once)."""
+    in float32 on the same bf16 operands and rounded once); bf16 also at
+    ``J1_WIDE``, a width no on-chip tile holds (its wide route), and each
+    route with its launch setup."""
     import torch
 
     from mridc_tpu_torch import kernels
@@ -4725,12 +4728,30 @@ def j_kernels(dev, card, rows, y, sens, mask) -> None:
         del q, r
 
         mats = psf1d_gauss_mats(mask[:, 0, 0, :], True, "ortho")
+
+        def held(sym, args, tol, tag=""):
+            got = k1.psf1d_dc_sens_bwd(*args)
+            return max(check(f"{sym}{tag}[{part}]", got[i],
+                             rounded_once(lambda *a: k1.psf1d_dc_sens_bwd_plain(*a)[i], *args), *tol)
+                       for i, part in enumerate(("d_eta", "d_sens")))
+
+        # the bf16 kernel's wide route (the first version's kernel) at a width no on-chip tile holds
+        wb, wc, wh, ww = J1_WIDE
+        wide_mask = (torch.rand((wb, ww), generator=gen) < 0.4).float()
+        wide = [torch.randn(shape, generator=gen) for shape in ((wb, wh, ww, 4), (wb, wh, ww, 2), (wb, wc, wh, ww, 2))]
+        wide = [a.to(dev, torch.bfloat16) for a in wide + [psf1d_gauss_mats(wide_mask, True, "ortho")]] + [sigma]
+        wide_setup = k1.sens_bf16_setup(wb, wh, ww, dev)
+        wide_err = held(k1.SENS_SYMBOLS[torch.bfloat16], wide, K1_BF16, f"[wide {wb}x{wc}x{wh}x{ww}]")
+        emit({"kernel": "k1_psf1d_sens_bf16", "shape": list(J1_WIDE), "max_abs_err": wide_err, **wide_setup,
+              "card": card})
+        setup = k1.sens_bf16_setup(b, H, W, dev)
+        if (setup["route"], wide_setup["route"]) != ("on_chip", "wide"):
+            raise AssertionError(f"k1_psf1d_sens_bf16 routes: {setup['route']} at W={W}, {wide_setup['route']} "
+                                 f"at W={ww}: want on_chip and wide")
         for dt, dname, es, tol in ((torch.float32, "float32", 4, F32), (torch.bfloat16, "bfloat16", 2, K1_BF16)):
             args = [a.to(dt) for a in (g, eta, sens, mats)] + [sigma]
             sym = k1.SENS_SYMBOLS[dt]
-            got = k1.psf1d_dc_sens_bwd(*args)
-            err = max(check(f"{sym}[{part}]", got[i], rounded_once(lambda *a: k1.psf1d_dc_sens_bwd_plain(*a)[i], *args),
-                            *tol) for i, part in enumerate(("d_eta", "d_sens")))
+            err = held(sym, args, tol)
             # bytes: g, eta, sens and the three operator planes in; ds and d_eta out. flops: two
             # complex [W, W] products per coil row in the Gauss form (the least on the tensor cores
             # at the dtype's accuracy), and per coil pixel the expands and the epilogue on the CUDA cores
@@ -4739,13 +4760,14 @@ def j_kernels(dev, card, rows, y, sens, mask) -> None:
             bound_ms, by = bound(nbytes, flops)
             ms = time_ms(lambda: k1.psf1d_dc_sens_bwd(*args), iters=10)
             plain_ms = time_ms(lambda: k1.psf1d_dc_sens_bwd_plain(*args), iters=10)
+            launch = {"launch": setup, "wide_max_abs_err": wide_err} if dt == torch.bfloat16 else {}
             rows.append({"name": sym, "route": "cuda", "source": "mridc_tpu_torch/csrc/psf1d_sens.cu",
                          "replaces": "none: XLA's autodiff of mridc_tpu/nn/dc.py:162 "
                                      "(log_likelihood_gradient_psf1d) in sens",
                          "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": by, "library_ms": None})
+                         "bound_by": by, "library_ms": None, **launch})
             emit({"kernel": sym, "batch": b, "dtype": dname, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                  "bound_by": by, "bytes": nbytes, "flops": flops, "card": card})
+                  "bound_by": by, "bytes": nbytes, "flops": flops, **(setup if launch else {}), "card": card})
 
 
 def j_phase(dev, card, rows) -> None:

@@ -89,6 +89,11 @@ QUERIES: Dict[str, Dict[str, tuple]] = {
         "k1_psf1d_dc_bf16_setup": (_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)),
         "k1_psf1d_dc_f32_setup": (_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)),
     },
+    "psf1d_sens": {
+        # B, H, W, device index, out: int[7] (blocks, shared memory bytes, blocks per SM, threads, tile rows,
+        # tile columns, route: 0 on chip, 1 wide)
+        "k1_psf1d_sens_bf16_setup": (_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)),
+    },
     "indrnn_bwd": {
         # bf16 (0 or 1), P, CI, F, device index, out: int[7] (blocks of the grid, shared memory bytes,
         # blocks per SM, threads, tile pixels, stages, route: 0 tensor cores, 1 the float32 wide route;

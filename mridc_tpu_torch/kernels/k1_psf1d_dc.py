@@ -8,10 +8,11 @@ for an upstream g is ``d_eta = g[..., :2] + A(g[..., 2:]) / sigma^2`` and
 ``d_z0 = -g[..., 2:] / sigma^2``. The maps' gradient (learned sensitivity
 maps) is ``ds_c = (u_c conj(g[..., 2:]) + conj(eta) A_w(s_c g[..., 2:])) /
 sigma^2`` with ``u_c = A_w(s_c eta)`` (A_w the [W, W] operator along W): a
-kernel of its own (``csrc/psf1d_sens.cu``) that writes d_eta in the same
-pass, launched in place of the backward kernel when the maps take a
-gradient; the forward then saves eta (image-sized). The gradient with
-respect to the operator is not ported.
+kernel of its own (``csrc/psf1d_sens.cu``; in bf16 both products on the
+tensor cores with the operator held on chip across the coils, up to W = 352)
+that writes d_eta in the same pass, launched in place of the backward kernel
+when the maps take a gradient; the forward then saves eta (image-sized).
+The gradient with respect to the operator is not ported.
 
 :func:`psf1d_normal` is the normal operator A alone (VarNet's psf1d q-term,
 ``mridc_tpu/models/recon/vn.py:63-77``): channels 2:4 of the same kernels with
@@ -21,7 +22,7 @@ z0 = 0 and sigma = 1.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 
@@ -31,8 +32,8 @@ from mridc_tpu_torch.nn.dc import apply_psf1d, log_likelihood_gradient_psf1d
 from mridc_tpu_torch.ops.cplx import cmul, cmul_conj
 
 __all__ = ["psf1d_dc", "psf1d_dc_plain", "psf1d_dc_bwd", "psf1d_dc_bwd_plain", "psf1d_dc_sens_bwd",
-           "psf1d_dc_sens_bwd_plain", "bf16_setup", "f32_setup", "psf1d_normal", "SYMBOLS", "BWD_SYMBOLS",
-           "SENS_SYMBOLS"]
+           "psf1d_dc_sens_bwd_plain", "bf16_setup", "f32_setup", "sens_bf16_setup", "psf1d_normal", "SYMBOLS",
+           "BWD_SYMBOLS", "SENS_SYMBOLS"]
 
 SYMBOLS = {torch.float32: "k1_psf1d_dc_f32", torch.bfloat16: "k1_psf1d_dc_bf16"}
 BWD_SYMBOLS = {torch.float32: "k1_psf1d_dc_bwd_f32", torch.bfloat16: "k1_psf1d_dc_bwd_bf16"}
@@ -63,17 +64,20 @@ def psf1d_dc_sens_bwd_plain(g, eta, sens, mats, sigma: float = 1.0):
 
 SETUP_KEYS = ("blocks", "smem_bytes", "blocks_per_sm", "threads", "tile_h", "tile_u")
 ROUTES = ("on_chip", "wide")
-_SETUPS: Dict[Tuple[str, int, int, int, int, bool], Dict[str, object]] = {}
+_SETUPS: Dict[tuple, Dict[str, object]] = {}
 
 
-def _setup(symbol: str, b: int, h: int, w: int, device: torch.device, bwd: bool, n: int) -> list:
+def _setup(lib: str, symbol: str, b: int, h: int, w: int, device: torch.device, *flag: int) -> Dict[str, object]:
+    """The launch setup that query ``symbol`` of library ``lib`` reports at
+    [B, H, W] on ``device`` (cached); ``flag`` precedes the shape in the
+    query's arguments."""
     index = torch.cuda.current_device() if device.index is None else device.index
-    key = (symbol, b, h, w, index, bwd)
+    key = (symbol, b, h, w, index, *flag)
     if key not in _SETUPS:
-        info = (ctypes.c_int * n)()
-        query("psf1d_dc", symbol, device, int(bwd), b, h, w, index, info)
-        _SETUPS[key] = list(info)
-    return _SETUPS[key]
+        info = (ctypes.c_int * (len(SETUP_KEYS) + 1))()
+        query(lib, symbol, device, *flag, b, h, w, index, info)
+        _SETUPS[key] = {**dict(zip(SETUP_KEYS, info)), "route": ROUTES[info[-1]]}
+    return dict(_SETUPS[key])
 
 
 def bf16_setup(b: int, h: int, w: int, device: torch.device, bwd: bool = False) -> Dict[str, object]:
@@ -82,15 +86,21 @@ def bf16_setup(b: int, h: int, w: int, device: torch.device, bwd: bool = False) 
     rows h and columns u, and its route: ``on_chip`` (the operator's tile rows
     held in shared memory, W <= 480) or ``wide`` (the first version's kernel,
     any W)."""
-    info = _setup("k1_psf1d_dc_bf16_setup", b, h, w, device, bwd, len(SETUP_KEYS) + 1)
-    return {**dict(zip(SETUP_KEYS, info)), "route": ROUTES[info[-1]]}
+    return _setup("psf1d_dc", "k1_psf1d_dc_bf16_setup", b, h, w, device, int(bwd))
 
 
 def f32_setup(b: int, h: int, w: int, device: torch.device, bwd: bool = False) -> Dict[str, object]:
     """The float32 kernel's launch at [B, H, W] on ``device`` (cached), as
     :func:`bf16_setup`; its on-chip route takes W <= 416."""
-    info = _setup("k1_psf1d_dc_f32_setup", b, h, w, device, bwd, len(SETUP_KEYS) + 1)
-    return {**dict(zip(SETUP_KEYS, info)), "route": ROUTES[info[-1]]}
+    return _setup("psf1d_dc", "k1_psf1d_dc_f32_setup", b, h, w, device, int(bwd))
+
+
+def sens_bf16_setup(b: int, h: int, w: int, device: torch.device) -> Dict[str, object]:
+    """The bf16 maps-gradient kernel's launch at [B, H, W] on ``device``
+    (cached), as :func:`bf16_setup`: ``on_chip`` (32 x 64 tiles with the
+    operator's tile rows held in shared memory across the coils, W <= 352)
+    or ``wide`` (the first version's kernel, any W)."""
+    return _setup("psf1d_sens", "k1_psf1d_sens_bf16_setup", b, h, w, device)
 
 
 def _shape(name, sens, dtype):

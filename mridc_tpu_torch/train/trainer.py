@@ -71,7 +71,7 @@ import torch
 
 from mridc_tpu_torch.metrics.reconstruction import METRIC_FUNCS, ReconstructionMetrics, ssim
 from mridc_tpu_torch.models.base import ModelOutput
-from mridc_tpu_torch.parallel.multihost import reduce_mean_stats
+from mridc_tpu_torch.parallel.multihost import process_info, reduce_mean_stats
 from mridc_tpu_torch.train.losses import process_reconstruction_loss
 from mridc_tpu_torch.train.optim import get_optimizer, parse_optimizer_args
 from mridc_tpu_torch.train.schedulers import ReduceLROnPlateau, prepare_lr_schedule
@@ -420,7 +420,20 @@ class Trainer:
             max_epochs: Optional[int] = None, log_every_n_steps: int = 10):
         """Train over ``train_loader``'s epochs (and validate on
         ``val_loader``) under ``trainer_cfg``'s knobs; returns one dict of
-        epoch metrics per epoch (``train_loss`` and the validation metrics)."""
+        epoch metrics per epoch (``train_loss`` and the validation metrics).
+
+        Refuses to train across processes (world size > 1), before any step:
+        the port reduces no gradient across processes yet (M13 in
+        ``ROADMAP.md``), so each process would train a replica of its own
+        on its shard while rank 0 alone saved checkpoints (F8). ``validate``
+        and ``test`` run across processes."""
+        count = process_info()[1]
+        if count > 1:
+            raise RuntimeError(
+                f"Trainer.fit: training at world size {count} is refused until M13 (data-parallel gradient "
+                "reduction) lands: the port reduces no gradient across processes, so each would train its own "
+                "replica and rank 0 alone would checkpoint (F8). Train in one process; validate and test run "
+                "across processes.")
         max_epochs = max_epochs or self.trainer_cfg.get("max_epochs", 1)
         ms = self.trainer_cfg.get("max_steps")
         # max_steps counts optimizer steps (PTL); the loop counts micro-steps

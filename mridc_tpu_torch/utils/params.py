@@ -567,11 +567,12 @@ def _quantitative_pairs(model):
     return out
 
 
-def _scoped_pairs(module, f: str = "", p: str = ""):
+def _scoped_pairs(module, f: str = "", p: str = "", skip=()):
     """The pairs of a module tree whose flax scopes are named on the modules
     (``flax_scope``, the segmentation trunks): a conv's, transpose conv's or
     Dense's kernel and bias, a BatchNorm's entries, and the leaves a module
-    lists in ``flax_params``."""
+    lists in ``flax_params``; ``module``'s children named in ``skip`` are left
+    out."""
     from torch import nn
 
     from mridc_tpu_torch.nn.layers import BatchNorm
@@ -585,6 +586,8 @@ def _scoped_pairs(module, f: str = "", p: str = ""):
                 [_leaf(f + "bias", p + "bias")] if module.bias is not None else [])
     out = [_leaf(f + leaf, p + name) for leaf, name in getattr(module, "flax_params", {}).items()]
     for name, child in module.named_children():
+        if name in skip:
+            continue
         scope = getattr(child, "flax_scope", None)
         out += _scoped_pairs(child, f"{f}{scope}/" if scope else f, f"{p}{name}.")
     return out
@@ -602,10 +605,12 @@ def _model_pairs(model):
     from mridc_tpu_torch.models.segmentation import SegmentationModel
 
     from mridc_tpu_torch.models.multitask import MTLRS, IDSLR, RecSegUNet, SegNet, SERANet
+    from mridc_tpu_torch.models.sens_wrapper import is_wrapped
 
     scopes, out = _Scopes(), []
     if isinstance(model, (SegmentationModel, IDSLR, SegNet, RecSegUNet, SERANet)):
-        out += _scoped_pairs(model)
+        # a wrapper's estimator maps under SensitivityModel_0/ (_all_pairs), not in the model's scopes
+        out += _scoped_pairs(model, skip=(model.sens_attr,) if is_wrapped(model) else ())
     elif isinstance(model, MTLRS):
         for k, block in enumerate(model.rim_blocks):
             out += _rim_stack_pairs(_rim_layout(block), f"RIMBlock_{k}/ScanCheckpoint_RIMStep_0/",

@@ -520,6 +520,79 @@ def test_two_process_gloo_reduction_and_process_info():
         assert "key sets differ" in r["mismatch"]
 
 
+def _fit_batch(seed):
+    """One [1, 2, 8, 8] reconstruction batch drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    mask = (rng.random((1, 1, 8, 8)) < 0.5).astype(np.float32)
+    return {"masked_kspace": rng.standard_normal((1, 2, 8, 8, 2)).astype(np.float32) * mask[..., None],
+            "sensitivity_maps": rng.standard_normal((1, 2, 8, 8, 2)).astype(np.float32), "mask": mask,
+            "target": np.abs(rng.standard_normal((1, 8, 8))).astype(np.float32)}
+
+
+def _fit_trainer():
+    from mridc_tpu_torch.models import build_model
+    from mridc_tpu_torch.train.trainer import Trainer
+
+    torch.manual_seed(0)
+    return Trainer(build_model({"model_name": "UNet", "channels": 4, "pooling_layers": 1}, device="cpu"),
+                   trainer_cfg={"max_steps": 2}, device="cpu")
+
+
+def _gloo_fit_worker(rank, world, port, out):
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
+    res = {}
+    try:
+        trainer = _fit_trainer()
+        before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        try:
+            trainer.fit([_fit_batch(10 + rank)] * 2, max_epochs=1)
+        except RuntimeError as exc:
+            res["refused"] = str(exc)
+        res["no_step"] = trainer.state is None and all(
+            torch.equal(v, before[k]) for k, v in trainer.model.state_dict().items())
+        res["val"] = trainer.validate([_fit_batch(20 + rank)])
+    except Exception as exc:  # reported to the test, which would otherwise wait for the queue
+        res["error"] = repr(exc)
+    finally:
+        out.put((rank, res))
+        dist.destroy_process_group()
+
+
+def test_two_process_fit_refuses_and_validate_reduces():
+    """At world size 2 ``Trainer.fit`` refuses on both ranks, naming M13 and
+    F8, before any step (no optimizer state, the weights as built);
+    ``validate`` still runs on each rank's shard and returns the
+    metrics of both shards together, as one process validating both batches
+    gives them."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=_gloo_fit_worker, args=(r, 2, port, out)) for r in range(2)]
+    for p in procs:
+        p.start()
+    res = dict(out.get(timeout=240) for _ in procs)
+    for p in procs:
+        p.join(timeout=60)
+    assert not any(p.is_alive() for p in procs) and all(p.exitcode == 0 for p in procs)
+    want = _fit_trainer().validate([_fit_batch(20), _fit_batch(21)])
+    for rank in range(2):
+        r = res[rank]
+        assert "error" not in r, r["error"]
+        assert "M13" in r["refused"] and "F8" in r["refused"], r["refused"]
+        assert r["no_step"]
+        assert sorted(r["val"]) == sorted(want)
+        for k, v in want.items():
+            assert r["val"][k] == pytest.approx(v, rel=1e-12, abs=1e-12), k
+
+
 # ---- host metrics ----
 
 

@@ -12,6 +12,12 @@ rounds and how it sums:
   conj(s_c) times each coil's sum added in float32 in coil order, and the
   output rounded once to bf16.
 
+K1's bf16 maps gradient (``csrc/psf1d_sens.cu``, its on-chip route) rounds
+x = s_c * eta and y = s_c * g[..., 2:] once each, takes both products the
+same way, writes ds_c per coil rounded once and sums d_eta in float32 in coil
+order: emulated and held at the same limit against the plain version rounded
+once and ``jax.vjp`` of the JAX package.
+
 Each emulation is held against ``rounded_once(psf1d_dc_plain)`` (the plain
 version in float32 on the same bf16 operands, rounded once at the end) and
 against ``mridc_tpu.nn.dc.log_likelihood_gradient_psf1d`` in float32, at the
@@ -196,6 +202,115 @@ def test_k1_bf16_check_catches_a_plane_mix_up():
     want = _bf(k1.psf1d_dc_plain(eta, sens, mats, z0, SIGMA)).double()
     assert _headroom(emulate_forward(eta, sens, mats, z0).double(), want)[0] < 1.0
     assert _headroom(emulate_forward(eta, sens, swapped, z0).double(), want)[0] > 1.0
+
+
+# ---- K1's bf16 maps gradient (csrc/psf1d_sens.cu, the on-chip route) ----------
+
+
+def emulate_sens(g, eta, sens, mats, swap_uv=False):
+    """(d_eta, d_sens) as the bf16 maps-gradient kernel's on-chip route
+    computes them: per coil x = s_c eta and y = s_c g[..., 2:] formed in
+    float32 from the bf16 operands and rounded once; Ci = (Cr+Ci) - Cr rebuilt
+    and rounded again; four products each for u_c = C x and v_c = C y, of bf16
+    values (exact in float32), summed in float32 over 16-deep steps of v;
+    ds_c = (u_c conj(G) + v_c conj(eta)) / sigma^2 rounded once; d_eta =
+    g[..., :2] + (sum of conj(s_c) v_c in float32 in coil order) / sigma^2
+    rounded once. ``swap_uv`` is a mutation the limit must catch: u_c and v_c
+    swapped in the epilogue."""
+    b, c, h, w, _ = sens.shape
+    cr = mats[:, 0]
+    ci = _bf(mats[:, 1] - cr)
+    er, ei = eta[..., 0], eta[..., 1]
+    gr, gi = g[..., 2], g[..., 3]
+    inv = 1.0 / SIGMA**2
+
+    def step(x, op, v0):
+        return torch.einsum("bhv,buv->bhu", x[..., v0 : v0 + KSTEP], op[..., v0 : v0 + KSTEP])
+
+    def product(xr, xi):
+        re = torch.zeros(b, h, w)
+        im = torch.zeros(b, h, w)
+        for v0 in range(0, w, KSTEP):
+            re = re + step(xr, cr, v0)
+            re = re + step(xi, -ci, v0)
+            im = im + step(xr, ci, v0)
+            im = im + step(xi, cr, v0)
+        return re, im
+
+    de_r = torch.zeros(b, h, w)
+    de_i = torch.zeros(b, h, w)
+    ds = []
+    for k in range(c):
+        sr, si = sens[:, k, ..., 0], sens[:, k, ..., 1]
+        ur, ui = product(_bf(er * sr - ei * si), _bf(er * si + ei * sr))
+        vr, vi = product(_bf(gr * sr - gi * si), _bf(gr * si + gi * sr))
+        if swap_uv:
+            ur, ui, vr, vi = vr, vi, ur, ui
+        ds.append(torch.stack([(ur * gr + ui * gi + vr * er + vi * ei) * inv,
+                               (ui * gr - ur * gi + vi * er - vr * ei) * inv], dim=-1))
+        de_r = de_r + (sr * vr + si * vi)
+        de_i = de_i + (sr * vi - si * vr)
+    d_eta = g[..., :2] + torch.stack([de_r, de_i], dim=-1) * inv
+    return _bf(d_eta), _bf(torch.stack(ds, dim=1))
+
+
+def _jax_sens_vjp(g, eta, sens, mats, z0):
+    """jax.vjp of ``mridc_tpu.nn.dc.log_likelihood_gradient_psf1d`` in (eta,
+    sens) at the upstream g, in float32."""
+    import jax
+
+    fn = lambda e, s: jdc.log_likelihood_gradient_psf1d(e, s, jnp.asarray(mats.numpy()), jnp.asarray(z0.numpy()),
+                                                        sigma=SIGMA)  # noqa: E731
+    _, vjp = jax.vjp(fn, jnp.asarray(eta.numpy()), jnp.asarray(sens.numpy()))
+    return tuple(torch.from_numpy(np.array(t)) for t in vjp(jnp.asarray(g.numpy())))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_k1_sens_bf16_arithmetic_meets_its_limits(shape):
+    """The emulated maps-gradient kernel (x and y rounded once to bf16, both
+    products on bf16 MMAs) against the plain version rounded once and against
+    ``jax.vjp`` of the JAX package in float32, d_eta and d_sens each at
+    K1_BF16. (At w640 the kernel takes the wide route, whose x and y stay in
+    float32; the on-chip rounding is held to the limit at that width too.)"""
+    eta, sens, mats, z0, g = _operands(*SHAPES[shape], seed=sum(SHAPES[shape]) + 1)
+    got = emulate_sens(g, eta, sens, mats)
+    plain = k1.psf1d_dc_sens_bwd_plain(g, eta, sens, mats, SIGMA)
+    ref = _jax_sens_vjp(g, eta, sens, mats, z0)
+    for i, part in enumerate(("d_eta", "d_sens")):
+        _check(f"sens {part} [{shape}] vs rounded_once(plain)", got[i], _bf(plain[i]))
+        _check(f"sens {part} [{shape}] vs mridc_tpu float32", got[i], ref[i])
+
+
+def test_k1_sens_bf16_check_catches_swapped_products():
+    """The limit is not vacuous: the emulation with u_c and v_c swapped in
+    the epilogue (an indexing slip between the two accumulator sets) lies
+    outside it, where the emulation as the kernel computes lies inside."""
+    eta, sens, mats, _, g = _operands(*SHAPES["odd"], seed=8)
+    want = _bf(k1.psf1d_dc_sens_bwd_plain(g, eta, sens, mats, SIGMA)[1]).double()
+    assert _headroom(emulate_sens(g, eta, sens, mats)[1].double(), want)[0] < 1.0
+    assert _headroom(emulate_sens(g, eta, sens, mats, swap_uv=True)[1].double(), want)[0] > 1.0
+
+
+def _sens_bf16_on_chip_bytes(w: int) -> int:
+    """Shared memory of the bf16 maps-gradient tile of 32 rows by 64 columns
+    at width ``w`` (``csrc/psf1d_sens.cu``, ``tc::Layout``): the operator's
+    two planes [2][64][kp + 8], eta's and G's rows [32][2 kp + 16] each, and
+    per row group of 16 its s_c ring, its x/y planes and s_c at the tile's
+    columns."""
+    tk, lx, stages, groups, tm, tn = 32, 40, 3, 2, 32, 64
+    kp = -(-w // tk) * tk
+    per_group = stages * 16 * tk * 2 + 2 * 4 * 16 * lx + 16 * (2 * tn + 16)
+    return 2 * (2 * tn * (kp + 8) + 2 * tm * (2 * kp + 16) + groups * per_group)
+
+
+@pytest.mark.parametrize("w", [45, 320, 352, 353, 384, 640])
+def test_k1_sens_bf16_route_by_width(w):
+    """The bf16 maps gradient holds the operator's tile rows on chip up to
+    W = 352 and takes the wide route (the first version's kernel, any W)
+    above; the wrapper refuses no width."""
+    on_chip = _sens_bf16_on_chip_bytes(w) <= 232448
+    assert on_chip == (w <= 352)
+    assert not hasattr(k1, "_check_width")
 
 
 # ---- K1-f32 -----------------------------------------------------------------

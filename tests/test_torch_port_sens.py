@@ -6,8 +6,10 @@ functions in both centerings and all three normalisations, against float64
 ``gradcheck``, and the card's chain of stages (their plain versions, the
 same index arithmetic) against each Function's plain backward; the
 ``use_sens_net`` wrapper over CIRIM (full and psf1d), VarNet, ResNet (the
-CG's ``normal_op``) and XPDNet (the masked ``sens_expand``): forward, loss and
-every gradient, the sens net's included, against ``jax.grad``; the registry
+CG's ``normal_op``), XPDNet (the masked ``sens_expand``), IDSLR and SERANet:
+forward, loss and every gradient, the sens net's included, against
+``jax.grad``; the weight carry and archives of the wrapped multitask models
+(IDSLR, IDSLRUNet, SegNet, RecSegUNet, SERANet); the registry
 wraps what ``mridc_tpu`` wraps and raises where it raises; archives of
 wrapped models both ways, and the reference-archive repair.
 
@@ -311,6 +313,19 @@ WRAPPED["jointicnet"] = {"model_name": "JointICNet", "num_iter": 2, "kspace_unet
                          "kspace_unet_num_pool_layers": 1, "imspace_unet_num_filters": 4,
                          "imspace_unet_num_pool_layers": 1, "sens_unet_num_filters": 4,
                          "sens_unet_num_pool_layers": 2}
+# the multitask models whose flax scopes are named on their modules: the wrapper's estimator maps under
+# SensitivityModel_0 only, never into the model's own scopes (their outputs are (recon, segmentation))
+_U = {"segmentation_module_channels": 4, "segmentation_module_pooling_layers": 2}
+WRAPPED.update({
+    "idslr": {"model_name": "IDSLR", "num_iters": 2, **_U},
+    "idslrunet": {"model_name": "IDSLRUNET", "num_iters": 2, **_U},
+    "segnet": {"model_name": "SegNet", "num_iters": 2, **_U},
+    "recsegunet": {"model_name": "RecSegUNet", "reconstruction_module_channels": 4, "segmentation_module_channels": 4},
+    "seranet": {"model_name": "SERANet", "reconstruction_module_channels": 4, "reconstruction_module_pooling_layers": 2,
+                "recurrent_module_attention_channels": 4, "recurrent_module_attention_pooling_layers": 2,
+                "num_iterations": 2, **_U},
+})
+MULTITASK = ("idslr", "idslrunet", "segnet", "recsegunet", "seranet")
 _STEP_SIZES = ("reg_param_I", "reg_param_F", "reg_param_C", "lr_image", "lr_sens")
 SENS = {"use_sens_net": True, "sens_chans": 4, "sens_pools": 1}
 
@@ -356,35 +371,58 @@ def _port_model(cfg, params):
     return model
 
 
+def _recon(out):
+    """The reconstruction output of a model's call: a multitask model's is the
+    first of (reconstruction, segmentation)."""
+    return out[0] if isinstance(out, tuple) else out
+
+
 def _jax_loss_and_grads(cfg, params, y, sens, mask, target):
     model = jax_build_model(cfg)
 
     def loss_fn(p):
         out = model.apply({"params": p}, jnp.asarray(y), jnp.asarray(sens), jnp.asarray(mask), train=True)
-        return jloss(out, jnp.asarray(target), "l1")  # CIRIM's intermediates included
+        return jloss(_recon(out), jnp.asarray(target), "l1")  # CIRIM's intermediates included
 
     loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
     return float(loss), params_from_jax(jax.tree_util.tree_map(np.asarray, grads), cfg)
 
 
-@pytest.mark.parametrize("name", sorted(WRAPPED))
+@pytest.mark.parametrize("name", sorted(set(WRAPPED) - {"idslrunet", "segnet", "recsegunet"}))
 def test_wrapped_model_forward_loss_and_gradients_match_jax(name):
     """The dataset's maps are ignored (zeros give the same prediction); the
     sens net's gradients, which reach it only through the maps' gradient of
-    the DC Functions, match ``jax.grad`` with every other parameter's."""
+    the DC Functions, match ``jax.grad`` with every other parameter's. A
+    multitask model's segmentation matches too; its loss is the
+    reconstruction's. The multitask models run in float64 in both packages:
+    in float32 the jitted ``jax.grad`` and the port's IDSLR encoder gradients
+    differ by up to ~3e-2 (relative l2), roundoff that its U-Nets amplify (as
+    ``tests/test_torch_port_multitask.py`` notes), while in float64 they
+    agree to ~2e-6."""
+    f64 = name in MULTITASK
+    with jax.enable_x64(f64):
+        _wrapped_model_matches_jax(name, np.float64 if f64 else np.float32)
+
+
+def _wrapped_model_matches_jax(name, dtype):
     cfg = _wrapped_cfg(name)
-    y, sens, mask, target = _wrapped_data(seed=11)
-    params = _jax_init(cfg, y, sens, mask, seed=2)
+    y, sens, mask, target = (a.astype(dtype) for a in _wrapped_data(seed=11))
+    params = jax.tree_util.tree_map(lambda a: a.astype(dtype), _jax_init(cfg, y, sens, mask, seed=2))
     assert set(params) == {"SensitivityModel_0", "model"}
-    model = _port_model(cfg, params)
+    tdt = torch.float64 if dtype == np.float64 else torch.float32
+    model = _port_model(cfg, params).to(tdt)
     assert is_wrapped(model) and type(model).__name__.endswith("WithSensNet")
-    want = jax_build_model(cfg).apply({"params": params}, *(jnp.asarray(a) for a in (y, sens, mask))).prediction
+    jout = jax_build_model(cfg).apply({"params": params}, *(jnp.asarray(a) for a in (y, sens, mask)))
+    want = _recon(jout).prediction
     with torch.no_grad():
-        got = model(*_t(y, sens, mask)).prediction
-        _close(got, want)
-        _close(model(*_t(y, np.zeros_like(sens), mask)).prediction, want)
+        out = model(*_t(y, sens, mask, dtype=tdt))
+        _close(_recon(out).prediction, want)
+        if name in MULTITASK:
+            _close(out[1], jout[1])
+        _close(_recon(model(*_t(y, np.zeros_like(sens), mask, dtype=tdt))).prediction, want)
     want_loss, want_grads = _jax_loss_and_grads(cfg, params, y, sens, mask, target)
-    loss = process_reconstruction_loss(model(*_t(y, sens, mask), train=True), torch.from_numpy(target), "l1")
+    loss = process_reconstruction_loss(_recon(model(*_t(y, sens, mask, dtype=tdt), train=True)),
+                                       torch.from_numpy(target), "l1")
     loss.backward()
     _close(float(loss.detach()), want_loss)
     got_grads = {k: p.grad for k, p in model.named_parameters()}
@@ -445,7 +483,7 @@ def test_wrapper_keys_are_the_reference_ones(name, prefix):
     assert all(k.startswith(f"{prefix}norm_unet.unet.") for k in keys - set(plain.state_dict()))
 
 
-@pytest.mark.parametrize("name", ["cirim_full", "varnet", "xpdnet", "jointicnet"])
+@pytest.mark.parametrize("name", ["cirim_full", "varnet", "xpdnet", "jointicnet", *MULTITASK])
 def test_params_round_trip_bit_for_bit(name):
     cfg = _wrapped_cfg(name)
     y, sens, mask, _ = _wrapped_data(seed=12)
@@ -460,6 +498,26 @@ def test_params_round_trip_bit_for_bit(name):
 
 
 # ---- archives ----
+
+
+@pytest.mark.parametrize("name", MULTITASK)
+def test_wrapped_multitask_archive_round_trips_bit_for_bit(name, tmp_path):
+    """``save_archive`` writes one flax leaf per state key of a wrapped
+    multitask model (the estimator's under ``SensitivityModel_0`` alone), and
+    ``load_archive`` reads back every key bit for bit."""
+    cfg = _wrapped_cfg(name)
+    y, sens, mask, _ = _wrapped_data(seed=15)
+    params = _jax_init(cfg, y, sens, mask, seed=7)
+    state = _port_model(cfg, params).state_dict()
+    path = checkpoints.save_archive(tmp_path / "port.mridc", cfg, state)
+    with tarfile.open(path) as tar:
+        tree = checkpoints.decode_flax_msgpack(tar.extractfile("model_weights.msgpack").read())
+    assert set(tree) == {"SensitivityModel_0", "model"}
+    assert len(jax.tree_util.tree_leaves(tree)) == len(state)
+    _, back = checkpoints.load_archive(path)
+    assert sorted(back) == sorted(state)
+    for k, v in state.items():
+        assert torch.equal(back[k], v), k
 
 
 def _jax_predict(cfg, params, y, sens, mask):
