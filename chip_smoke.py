@@ -1305,7 +1305,7 @@ def kernel_category(name: str) -> str:
     n = name.lower()
     if "sens_grad_kernel" in n:
         return "K2 maps gradient"
-    if "sens_kernel<" in n or "sens_bf16_kernel" in n:
+    if "sens_kernel<" in n or "sens_bf16_kernel" in n or "sens_f32_kernel" in n:
         return "K1 maps gradient"
     if "psf1d_dc" in n:
         return "K1 psf1d_dc backward" if "<true" in n else "K1 psf1d_dc"
@@ -4640,7 +4640,7 @@ def m_launch_phase(dev, card, rows, masks) -> None:
 
 
 J_KERNELS = ("k2_sens_grad", "k1_psf1d_sens_f32", "k1_psf1d_sens_bf16")  # the maps-gradient kernels' rows
-J1_WIDE = (1, 4, 24, 640)  # B, C, H, W: k1_psf1d_sens_bf16's wide route, held beside the on-chip one
+J1_WIDE = (1, 4, 24, 640)  # B, C, H, W: k1_psf1d_sens_{bf16,f32}'s wide route, held beside the on-chip one
 
 
 def j_cirim_cfg(**overrides):
@@ -4681,9 +4681,14 @@ def j_kernels(dev, card, rows, y, sens, mask) -> None:
     upstream g [B, H, W, 4], eta the SENSE image, sigma 0.7) with its coil
     sum, and the one-term form of sens_reduce's backward. K1: both dtypes on
     the psf1d operator of the mask (bf16 against the plain version computed
-    in float32 on the same bf16 operands and rounded once); bf16 also at
-    ``J1_WIDE``, a width no on-chip tile holds (its wide route), and each
-    route with its launch setup."""
+    in float32 on the same bf16 operands and rounded once); both also at
+    ``J1_WIDE``, a width no on-chip tile holds (their wide route), each
+    route with its launch setup, and float32 bit for bit across two calls on
+    both routes. Beside them, on a line of its own, the products-alone
+    yardstick of the float32 kernel: one float32 ``torch.bmm`` of the
+    real-embedded product [B, 2*C*H, 2W] x [B, 2W, 2W] (the tensor work of the
+    two complex products a coil row takes, four real products each), with
+    TF32 off and on; the port never calls it."""
     import torch
 
     from mridc_tpu_torch import kernels
@@ -4735,23 +4740,57 @@ def j_kernels(dev, card, rows, y, sens, mask) -> None:
                              rounded_once(lambda *a: k1.psf1d_dc_sens_bwd_plain(*a)[i], *args), *tol)
                        for i, part in enumerate(("d_eta", "d_sens")))
 
-        # the bf16 kernel's wide route (the first version's kernel) at a width no on-chip tile holds
+        def same_twice(sym, args, tag=""):
+            """Two calls of the kernel give the same bits (no atomics, sums in a fixed order)."""
+            first, second = k1.psf1d_dc_sens_bwd(*args), k1.psf1d_dc_sens_bwd(*args)
+            same = all(bool(torch.equal(x, z)) for x, z in zip(first, second))
+            emit({"check": f"{sym}{tag} bit for bit across two calls", "ok": same})
+            if not same:
+                raise AssertionError(f"{sym}{tag}: two calls on the same operands differ")
+
+        # the wide routes (the first version's kernel) at a width no on-chip tile holds
         wb, wc, wh, ww = J1_WIDE
         wide_mask = (torch.rand((wb, ww), generator=gen) < 0.4).float()
         wide = [torch.randn(shape, generator=gen) for shape in ((wb, wh, ww, 4), (wb, wh, ww, 2), (wb, wc, wh, ww, 2))]
-        wide = [a.to(dev, torch.bfloat16) for a in wide + [psf1d_gauss_mats(wide_mask, True, "ortho")]] + [sigma]
-        wide_setup = k1.sens_bf16_setup(wb, wh, ww, dev)
-        wide_err = held(k1.SENS_SYMBOLS[torch.bfloat16], wide, K1_BF16, f"[wide {wb}x{wc}x{wh}x{ww}]")
-        emit({"kernel": "k1_psf1d_sens_bf16", "shape": list(J1_WIDE), "max_abs_err": wide_err, **wide_setup,
-              "card": card})
-        setup = k1.sens_bf16_setup(b, H, W, dev)
-        if (setup["route"], wide_setup["route"]) != ("on_chip", "wide"):
-            raise AssertionError(f"k1_psf1d_sens_bf16 routes: {setup['route']} at W={W}, {wide_setup['route']} "
-                                 f"at W={ww}: want on_chip and wide")
+        wide = wide + [psf1d_gauss_mats(wide_mask, True, "ortho")]
+        tag = f"[wide {wb}x{wc}x{wh}x{ww}]"
+        routes, wide_err = {}, {}
+        for dt, tol, setup_of in ((torch.bfloat16, K1_BF16, k1.sens_bf16_setup), (torch.float32, F32,
+                                                                                 k1.sens_f32_setup)):
+            sym, args = k1.SENS_SYMBOLS[dt], [a.to(dev, dt) for a in wide] + [sigma]
+            wide_setup = setup_of(wb, wh, ww, dev)
+            wide_err[dt] = held(sym, args, tol, tag)
+            if dt == torch.float32:
+                same_twice(sym, args, tag)
+            emit({"kernel": sym, "shape": list(J1_WIDE), "max_abs_err": wide_err[dt], **wide_setup, "card": card})
+            routes[dt] = setup_of(b, H, W, dev)
+            if (routes[dt]["route"], wide_setup["route"]) != ("on_chip", "wide"):
+                raise AssertionError(f"{sym} routes: {routes[dt]['route']} at W={W}, {wide_setup['route']} "
+                                     f"at W={ww}: want on_chip and wide")
+
+        # the float32 kernel's products alone: a float32 torch.bmm of the same real-embedded tensor work
+        cuda_gen = torch.Generator(device=dev).manual_seed(12)
+        xe = torch.randn((b, 2 * c * H, 2 * W), generator=cuda_gen, device=dev)
+        me = torch.randn((b, 2 * W, 2 * W), generator=cuda_gen, device=dev)
+        ye = torch.empty_like(xe)
+        bmm_ms = {}
+        for key, tf32 in (("bmm_fp32_ms", False), ("bmm_tf32_ms", True)):
+            before = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                bmm_ms[key] = time_ms(lambda: torch.bmm(xe, me, out=ye), iters=10)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = before
+        emit({"yardstick": "k1_psf1d_sens_f32 products alone", "shape": [b, 2 * c * H, 2 * W, 2 * W],
+              "flops": 2 * b * 2 * c * H * (2 * W) ** 2, **bmm_ms, "card": card})
+        del xe, me, ye
+
         for dt, dname, es, tol in ((torch.float32, "float32", 4, F32), (torch.bfloat16, "bfloat16", 2, K1_BF16)):
             args = [a.to(dt) for a in (g, eta, sens, mats)] + [sigma]
             sym = k1.SENS_SYMBOLS[dt]
             err = held(sym, args, tol)
+            if dt == torch.float32:
+                same_twice(sym, args)
             # bytes: g, eta, sens and the three operator planes in; ds and d_eta out. flops: two
             # complex [W, W] products per coil row in the Gauss form (the least on the tensor cores
             # at the dtype's accuracy), and per coil pixel the expands and the epilogue on the CUDA cores
@@ -4760,14 +4799,14 @@ def j_kernels(dev, card, rows, y, sens, mask) -> None:
             bound_ms, by = bound(nbytes, flops)
             ms = time_ms(lambda: k1.psf1d_dc_sens_bwd(*args), iters=10)
             plain_ms = time_ms(lambda: k1.psf1d_dc_sens_bwd_plain(*args), iters=10)
-            launch = {"launch": setup, "wide_max_abs_err": wide_err} if dt == torch.bfloat16 else {}
+            launch = {"launch": routes[dt], "wide_max_abs_err": wide_err[dt]}
             rows.append({"name": sym, "route": "cuda", "source": "mridc_tpu_torch/csrc/psf1d_sens.cu",
                          "replaces": "none: XLA's autodiff of mridc_tpu/nn/dc.py:162 "
                                      "(log_likelihood_gradient_psf1d) in sens",
                          "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": by, "library_ms": None, **launch})
             emit({"kernel": sym, "batch": b, "dtype": dname, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                  "bound_by": by, "bytes": nbytes, "flops": flops, **(setup if launch else {}), "card": card})
+                  "bound_by": by, "bytes": nbytes, "flops": flops, **routes[dt], "card": card})
 
 
 def j_phase(dev, card, rows) -> None:

@@ -18,9 +18,9 @@
 // row in the Gauss form (three real products each): 12 * C * H * W^2 per
 // slice, 4.7e10 at B=8, 15 coils and 320x320, against ~0.4 GB of traffic.
 //
-// float32, and bfloat16 at widths no on-chip tile holds (sens_kernel, the
-// first version, on the CUDA cores with float32 accumulation): one block of
-// 256 threads takes 32 rows h by 64 columns u of one example and walks the
+// The wide route, both dtypes at widths no on-chip tile holds (sens_kernel,
+// the first version, on the CUDA cores with float32 accumulation): one block
+// of 256 threads takes 32 rows h by 64 columns u of one example and walks the
 // coils; for each coil it walks v in chunks of 16, staging the three operator
 // planes [64 u x 16 v] (read again for every coil, from L2) and x = s_c eta,
 // y = s_c G for its rows, formed in float32 from the operands and kept in
@@ -29,6 +29,46 @@
 // of each of x and y (broadcast across the warp) for 48 FMAs. The coil
 // epilogue writes ds_c and adds conj(s_c) v_c into d_eta's sums in
 // registers, in coil order: no atomics, the same result from run to run.
+//
+// float32 (tf32 below, the on-chip route, W <= 320): 3xTF32 on mma.sync
+// m16n8k8, as K1-f32's forward (psf1d_dc.cu, namespace tf32), with the
+// operator held on chip across the coils.
+//   - A persistent grid of one wave walks tiles of 16 rows h by 32 columns u,
+//     one block of 8 warps an SM. A tile stages its rows of the three
+//     operator planes as delivered (Cr, Cr+Ci, Ci-Cr) for every v once (123
+//     KB at W = 320, dynamic shared memory) and eta's and G's 16 rows once
+//     (82 KB), then streams only s_c. Past W = 320 these no longer fit.
+//   - The coils are split across the warps, not v: warp w takes coils w,
+//     w + 8, ..., each over the whole tile and the whole v depth, so u_c and
+//     v_c of a coil lie in one warp's registers and ds_c needs no exchange
+//     between warps. (A split of v would need a cross-warp sum for every
+//     coil; a split of the two products, an exchange of ds_c's halves.) Each
+//     warp streams its coils' rows of s_c through its own ring of 8-column
+//     chunks (cp.async, two chunks in flight ahead of the one in use) and
+//     meets only itself (__syncwarp) inside the coil loop.
+//   - Per 8-deep step a warp forms x = s_c eta and y = s_c G in float32 at its
+//     A fragments' pixels, splits the Gauss planes (re + im, im, re) of each
+//     into TF32 hi and lo once (split_trunc), and splits each operator
+//     fragment once for both products: 72 MMAs (hi*lo, lo*hi, hi*hi over two
+//     products, three planes and four n tiles) for 48 A and 24 B splits. The
+//     MMAs go to the six accumulators of an n tile in turn, so that no MMA
+//     waits on the one before it.
+//   - The coil epilogue runs in registers: a warp writes ds_c at its pixels
+//     (s_c there read from L2, eta and G from shared memory) and adds
+//     conj(s_c) v_c into its d_eta sums in float32, in its coils' order. At
+//     the tile's end the warps' sums are added in warp order through shared
+//     memory: no atomics, the same result from run to run.
+//   - 15 coils over 8 warps leave one warp a coil short (15/16 of the
+//     tile's warp time busy); at B=8 and 320x320, 1600 tiles take 13 rounds
+//     of 132 SMs for 12.12 of work.
+//   - tests/test_torch_port_k1.py emulates this arithmetic (the truncating
+//     splits, the product order, the d_eta sums' order) and holds it to
+//     chip_smoke.py's limit against the plain version and the JAX package.
+//   - Widths no tile holds (W > 320) take the wide route: the launcher picks
+//     the route by shape (k1_psf1d_sens_f32_setup reports it).
+//   - mma.sync, not wgmma: a wgmma B operand is read from shared memory as
+//     TF32 words, so 3xTF32 would need hi and lo planes of the operator
+//     resident, twice its float32 bytes.
 //
 // bfloat16 (tc below, the on-chip route, W <= 352): the design of K1-bf16's
 // forward tiles (psf1d_dc.cu, namespace tc) with two products a coil.
@@ -523,6 +563,342 @@ inline int units(int B, int H, int W) { return B * ((H + TM - 1) / TM) * ((W + T
 
 }  // namespace tc
 
+// ---- float32 on 3xTF32 tensor cores: the on-chip route ----------------------
+
+namespace tf32 {
+
+constexpr int KW = 8;      // v per chunk: one k8 step
+constexpr int WARPS = 8, THREADS = 32 * WARPS;
+constexpr int TM = 16;     // rows h a tile
+constexpr int TN = 32;     // columns u a tile
+constexpr int NT = TN / 8;  // n tiles of 8 columns a warp
+constexpr int STAGES = 3;  // raw s_c chunks a warp has in flight: two ahead of the one in use
+
+// Shared memory of a tile at width W, in floats: eta's and G's rows [TM][2
+// kp] each (complex, every v), the operator [3][TN][kp] (planes Cr, Cr+Ci,
+// Ci-Cr as delivered; rows u, every v), then each warp's ring
+// [STAGES][16][2 KW] of raw s_c. kp is W rounded up to 32, zeros past W. Rows
+// are swizzled, not padded (op_sw, row_sw). At the tile's end the region from
+// eta's rows on holds the warps' d_eta sums ([WARPS][TN][32], ``scratch``).
+struct Layout {
+  int kp;
+  size_t gg, op, ring, floats;
+
+  __host__ __device__ explicit Layout(int W) {
+    kp = (W + 31) / 32 * 32;
+    gg = (size_t)TM * 2 * kp;
+    op = 2 * gg;
+    ring = op + (size_t)3 * TN * kp;
+    floats = ring + (size_t)WARPS * STAGES * 16 * 2 * KW;
+    const size_t scratch = (size_t)WARPS * TN * 32;
+    if (scratch > floats) floats = scratch;
+  }
+  __host__ __device__ size_t bytes() const { return floats * 4; }
+};
+
+// word of v in operator row r: the 64-bit B fragment loads of a half warp
+// (rows g = 0..3) fall 8 words apart mod 32, on 32 distinct banks
+__device__ __forceinline__ int op_sw(int r, int v) { return v ^ ((r & 3) << 3); }
+// word of complex pixel v in eta's or G's row r: the 128-bit A loads of a
+// quarter warp (rows 2q, 2q + 1) fall 16 words apart mod 32
+__device__ __forceinline__ int row_sw(int r, int v) { return (2 * v) ^ ((r & 1) << 4); }
+
+// the complex pixels (h, u) and (h, u + 1) of one [H, W] complex plane ``p``
+// as (re, im, re, im), zeros where outside; one 16-byte load when W is even
+__device__ __forceinline__ float4 load_pair(const float* p, int h, int u, int H, int W) {
+  if (h >= H || u >= W) return make_float4(0.f, 0.f, 0.f, 0.f);
+  const float* q = p + ((size_t)h * W + u) * 2;
+  if (W % 2 == 0) return __ldg(reinterpret_cast<const float4*>(q));
+  const float2 a = __ldg(reinterpret_cast<const float2*>(q));
+  const float2 c = u + 1 < W ? __ldg(reinterpret_cast<const float2*>(q + 2)) : make_float2(0.f, 0.f);
+  return make_float4(a.x, a.y, c.x, c.y);
+}
+
+// The Gauss form over the planes as delivered: A planes (xr + xi, xi, xr),
+// B planes (Cr, Cr + Ci, Ci - Cr), k1 = Cr (xr + xi), k2 = (Cr + Ci) xi,
+// k3 = (Ci - Cr) xr, re = k1 - k2, im = k1 + k3; y likewise. Inside each k8
+// step the pixels v0 + 2 t4 and v0 + 2 t4 + 1 stand for k = t4 and t4 + 4 of
+// the fragment layout (a permutation of v applied to A and B alike), so that
+// a lane's B fragment is one 64-bit load and its A pixels one 128-bit load
+// per row. The grid walks the tiles (b, h-tile, u-tile), u-tile fastest.
+__global__ void __launch_bounds__(THREADS, 1)
+    sens_f32_kernel(const float* __restrict__ g, const float* __restrict__ eta, const float* __restrict__ sens,
+                    const float* __restrict__ mats, float* __restrict__ ds, float* __restrict__ d_eta, int B, int C,
+                    int H, int W, float inv_sigma2) {
+  extern __shared__ __align__(16) unsigned char smem_f32[];
+  float* const smem = reinterpret_cast<float*>(smem_f32);
+  const Layout L(W);
+  const int kp = L.kp;
+  const size_t plane = (size_t)TN * kp;  // floats of one operator plane
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gq = lane >> 2, t4 = lane & 3;
+  float* const eta_s = smem;                                                // [TM][2 kp]
+  float* const g_s = smem + L.gg;                                           // [TM][2 kp]: G = g[..., 2:4]
+  float* const op_s = smem + L.op;                                          // [3][TN][kp]
+  float* const ring = smem + L.ring + (size_t)warp * STAGES * 16 * 2 * KW;  // [STAGES][16][2 KW]
+  const size_t HW = (size_t)H * W;
+  const bool vec4 = W % 4 == 0;  // 16-byte copies of operator rows stay aligned
+  const bool even = W % 2 == 0;  // 16-byte copies of complex pixel pairs stay aligned
+  const int nk = (W + KW - 1) / KW;
+  const int mine = warp < C ? (C - warp + WARPS - 1) / WARPS : 0;  // this warp's coils: warp, warp + 8, ...
+  const int nh = (H + TM - 1) / TM, nu = (W + TN - 1) / TN, units = B * nh * nu;
+
+  for (int unit = blockIdx.x; unit < units; unit += gridDim.x) {
+    const int u0 = (unit % nu) * TN, h0 = (unit / nu % nh) * TM, b = unit / (nu * nh);
+    const float* g_b = g + (size_t)b * HW * 4;
+    const float* eta_b = eta + (size_t)b * HW * 2;
+    const float* s_b = sens + (size_t)b * C * HW * 2;
+    const float* m_b = mats + (size_t)b * 3 * W * W;
+    __syncthreads();  // the previous tile is done with shared memory
+
+    // one group: the operator's rows u0.. of the three planes and eta's and
+    // G's rows, for every v, zeros past W and H
+    for (int e = tid; e < 3 * TN * (kp / 4); e += THREADS) {
+      const int p = e / (TN * (kp / 4)), r = e / (kp / 4) % TN, v = 4 * (e % (kp / 4)), u = u0 + r;
+      float* dst = op_s + p * plane + (size_t)r * kp;
+      const float* src = m_b + (size_t)p * W * W + (size_t)u * W + v;
+      if (vec4) {
+        const bool ok = u < W && v < W;
+        cp_async16(dst + op_sw(r, v), ok ? src : m_b, ok);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool ok = u < W && v + j < W;
+          cp_async4(dst + op_sw(r, v + j), ok ? src + j : m_b, ok);
+        }
+      }
+    }
+    for (int e = tid; e < TM * (kp / 2); e += THREADS) {
+      const int r = e / (kp / 2), v = 2 * (e % (kp / 2)), h = h0 + r;
+      const size_t o = (size_t)r * 2 * kp;
+      const float* se = eta_b + ((size_t)h * W + v) * 2;
+      const float* sg = g_b + ((size_t)h * W + v) * 4 + 2;
+      if (even) {
+        const bool ok = h < H && v < W;
+        cp_async16(eta_s + o + row_sw(r, v), ok ? se : eta_b, ok);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const bool ok = h < H && v + j < W;
+          cp_async8(eta_s + o + row_sw(r, v + j), ok ? se + 2 * j : eta_b, ok);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {  // channels 2:4 of g: 8 bytes a pixel
+        const bool ok = h < H && v + j < W;
+        cp_async8(g_s + o + row_sw(r, v + j), ok ? sg + 4 * j : g_b, ok);
+      }
+    }
+    cp_async_commit();
+
+    // this warp's next chunk of raw s_c (its coil ik, chunk ij of v: 16 rows
+    // x 8 pixels) into ring slot is, zeros past H and W; one group per call,
+    // empty past the last chunk
+    int ik = 0, ij = 0, is = 0;
+    auto copy_next = [&]() {
+      if (ik < mine) {
+        const float* s_c = s_b + (size_t)(warp + WARPS * ik) * HW * 2;
+        const int v0 = ij * KW;
+        float* slot = ring + (size_t)is * 16 * 2 * KW;
+        if (even) {
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const int e = lane + 32 * k, h = h0 + e / 4, v = v0 + 2 * (e % 4);  // row e / 4, pixels 2 (e % 4), +1
+            const bool ok = h < H && v < W;
+            cp_async16(slot + 4 * e, ok ? s_c + ((size_t)h * W + v) * 2 : s_c, ok);
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int e = lane + 32 * k, h = h0 + e / 8, v = v0 + e % 8;  // row e / 8, pixel e % 8
+            const bool ok = h < H && v < W;
+            cp_async8(slot + 2 * e, ok ? s_c + ((size_t)h * W + v) * 2 : s_c, ok);
+          }
+        }
+        if (++ij == nk) ij = 0, ++ik;
+        is = is + 1 == STAGES ? 0 : is + 1;
+      }
+      cp_async_commit();
+    };
+
+    // der/dei[n][j]: this warp's d_eta sums at accumulator register j of n
+    // tile n: row gq (+8 for j >= 2), column 8n + 2 t4 + (j & 1) of the tile
+    float der[NT][4], dei[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) der[n][j] = dei[n][j] = 0.f;
+
+    for (int t = 0; t < STAGES - 1; ++t) copy_next();
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // every thread's copies of the operator, eta and G (and its chunk 0) have landed
+    int slot = 0;
+    for (int k = 0; k < mine; ++k) {
+      const int c = warp + WARPS * k;
+      // acc[q][p][n][j]: product q (0: u_c from x, 1: v_c from y), Gauss plane p
+      float acc[2][3][NT][4];
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[q][p][n][j] = 0.f;
+
+      for (int jc = 0; jc < nk; ++jc) {
+        if (k + jc > 0) {
+          cp_async_wait<STAGES - 2>();  // this chunk has landed (this lane's copies) ...
+          __syncwarp();                 // ... every lane's, and every lane is done with the slot refilled below
+        }
+        const float* sl = ring + (size_t)slot * 16 * 2 * KW;
+        slot = slot + 1 == STAGES ? 0 : slot + 1;
+        copy_next();
+        const int v0 = jc * KW;
+        Split a[2][3][4];  // A fragments of x and y in the planes (re + im, im, re)
+        {
+          float xr[4], xi[4], yr[4], yi[4];
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {  // rows gq and gq + 8: pixels v0 + 2 t4 (j = hf), v0 + 2 t4 + 1 (j = 2 + hf)
+            const int r = gq + 8 * hf;
+            const size_t o = (size_t)r * 2 * kp + row_sw(r, v0 + 2 * t4);
+            const float4 s = *reinterpret_cast<const float4*>(sl + r * 2 * KW + 4 * t4);
+            const float4 e = *reinterpret_cast<const float4*>(eta_s + o);
+            const float4 q = *reinterpret_cast<const float4*>(g_s + o);
+            xr[hf] = e.x * s.x - e.y * s.y;
+            xi[hf] = e.x * s.y + e.y * s.x;
+            xr[2 + hf] = e.z * s.z - e.w * s.w;
+            xi[2 + hf] = e.z * s.w + e.w * s.z;
+            yr[hf] = q.x * s.x - q.y * s.y;
+            yi[hf] = q.x * s.y + q.y * s.x;
+            yr[2 + hf] = q.z * s.z - q.w * s.w;
+            yi[2 + hf] = q.z * s.w + q.w * s.z;
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            a[0][0][j] = split_trunc(xr[j] + xi[j]);
+            a[0][1][j] = split_trunc(xi[j]);
+            a[0][2][j] = split_trunc(xr[j]);
+            a[1][0][j] = split_trunc(yr[j] + yi[j]);
+            a[1][1][j] = split_trunc(yi[j]);
+            a[1][2][j] = split_trunc(yr[j]);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const int r = 8 * n + gq;  // operator row (u) in the tile
+          const float* bp = op_s + (size_t)r * kp + op_sw(r, v0 + 2 * t4);
+          Split bs[3][2];  // each split feeds both products
+#pragma unroll
+          for (int p = 0; p < 3; ++p) {
+            const float2 bv = *reinterpret_cast<const float2*>(bp + p * plane);
+            bs[p][0] = split_trunc(bv.x);
+            bs[p][1] = split_trunc(bv.y);
+          }
+          // mma3's terms (hi*lo, lo*hi, hi*hi) in turn over the n tile's six
+          // accumulators: each accumulator sums them in mma3's order, and no
+          // MMA waits on the one before it
+#pragma unroll
+          for (int p = 0; p < 3; ++p)
+#pragma unroll
+            for (int q = 0; q < 2; ++q)
+              mma_tf32(acc[q][p][n], a[q][p][0].hi, a[q][p][1].hi, a[q][p][2].hi, a[q][p][3].hi, bs[p][0].lo,
+                       bs[p][1].lo);
+#pragma unroll
+          for (int p = 0; p < 3; ++p)
+#pragma unroll
+            for (int q = 0; q < 2; ++q)
+              mma_tf32(acc[q][p][n], a[q][p][0].lo, a[q][p][1].lo, a[q][p][2].lo, a[q][p][3].lo, bs[p][0].hi,
+                       bs[p][1].hi);
+#pragma unroll
+          for (int p = 0; p < 3; ++p)
+#pragma unroll
+            for (int q = 0; q < 2; ++q)
+              mma_tf32(acc[q][p][n], a[q][p][0].hi, a[q][p][1].hi, a[q][p][2].hi, a[q][p][3].hi, bs[p][0].hi,
+                       bs[p][1].hi);
+        }
+      }
+
+      // coil done: ds_c at this lane's pixels, and conj(s_c) v_c into d_eta's sums
+      const float* s_c = s_b + (size_t)c * HW * 2;
+      float* ds_c = ds + ((size_t)b * C + c) * HW * 2;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = gq + 8 * hf, h = h0 + r, u = u0 + 8 * n + 2 * t4;
+          const float4 sv = load_pair(s_c, h, u, H, W);
+          const size_t o = (size_t)r * 2 * kp + row_sw(r, u);
+          const float4 ev = *reinterpret_cast<const float4*>(eta_s + o);
+          const float4 gv = *reinterpret_cast<const float4*>(g_s + o);
+          float out[4];
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const int j = 2 * hf + jj;
+            const float ur = acc[0][0][n][j] - acc[0][1][n][j], ui = acc[0][0][n][j] + acc[0][2][n][j];
+            const float vr = acc[1][0][n][j] - acc[1][1][n][j], vi = acc[1][0][n][j] + acc[1][2][n][j];
+            const float er = jj ? ev.z : ev.x, ei = jj ? ev.w : ev.y, gr = jj ? gv.z : gv.x, gi = jj ? gv.w : gv.y;
+            const float sr = jj ? sv.z : sv.x, si = jj ? sv.w : sv.y;
+            // u * conj(g[..., 2:]) + v * conj(eta)
+            out[2 * jj] = (ur * gr + ui * gi + vr * er + vi * ei) * inv_sigma2;
+            out[2 * jj + 1] = (ui * gr - ur * gi + vi * er - vr * ei) * inv_sigma2;
+            der[n][j] += sr * vr + si * vi;
+            dei[n][j] += sr * vi - si * vr;
+          }
+          if (h < H && u < W) {
+            float* o4 = ds_c + ((size_t)h * W + u) * 2;
+            if (even) {
+              *reinterpret_cast<float4*>(o4) = make_float4(out[0], out[1], out[2], out[3]);
+            } else {
+              o4[0] = out[0];
+              o4[1] = out[1];
+              if (u + 1 < W) o4[2] = out[2], o4[3] = out[3];
+            }
+          }
+        }
+    }
+    cp_async_wait<0>();  // the empty groups past the last chunk
+
+    // d_eta = g[..., :2] + (the warps' sums added in warp order) / sigma^2
+    // (element-major: a warp's 32 lanes write 32 consecutive words)
+    __syncthreads();  // every warp is done with eta's and G's rows
+    float* const scratch = smem;  // [WARPS][8 NT][32]
+    {
+      float* dst = scratch + (size_t)warp * 8 * NT * 32 + lane;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          dst[(4 * n + j) * 32] = der[n][j];
+          dst[(4 * NT + 4 * n + j) * 32] = dei[n][j];
+        }
+    }
+    __syncthreads();
+    for (int e = tid; e < 4 * NT * 32; e += THREADS) {
+      const int l = e % 32, i = e / 32, n = i / 4, j = i % 4;  // lane l's accumulator register j of n tile n
+      const int h = h0 + (l >> 2) + 8 * (j >> 1), u = u0 + 8 * n + 2 * (l & 3) + (j & 1);
+      float sr = 0.f, si = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) {
+        sr += scratch[((size_t)w * 8 * NT + i) * 32 + l];
+        si += scratch[((size_t)w * 8 * NT + 4 * NT + i) * 32 + l];
+      }
+      if (h < H && u < W) {
+        const size_t p = (size_t)h * W + u;
+        const float2 gv = __ldg(reinterpret_cast<const float2*>(g_b + p * 4));
+        *reinterpret_cast<float2*>(d_eta + ((size_t)b * HW + p) * 2) =
+            make_float2(gv.x + sr * inv_sigma2, gv.y + si * inv_sigma2);
+      }
+    }
+  }
+}
+
+// the route at width W: the on-chip tile where its shared memory fits (W <= 320), else the wide route
+inline int route(int W) { return Layout(W).bytes() <= (size_t)MAX_DYNAMIC_SMEM ? tc::ON_CHIP : tc::WIDE; }
+
+inline int units(int B, int H, int W) { return B * ((H + TM - 1) / TM) * ((W + TN - 1) / TN); }
+
+}  // namespace tf32
+
 bool bad(int B, int C, int H, int W) {
   return B <= 0 || C <= 0 || H <= 0 || W <= 0 || B > 65535 || (H + TR - 1) / TR > 65535 ||
          (long long)H * W > (1LL << 30);
@@ -555,6 +931,22 @@ int launch_bf16(const void* g, const void* eta, const void* sens, const void* ma
   return (int)cudaGetLastError();
 }
 
+int launch_f32(const void* g, const void* eta, const void* sens, const void* mats, void* ds, void* d_eta, int B,
+               int C, int H, int W, float inv_sigma2, void* stream) {
+  if (tf32::route(W) == tc::WIDE)
+    return launch_wide<float>(g, eta, sens, mats, ds, d_eta, B, C, H, W, inv_sigma2, stream);
+  const size_t smem = tf32::Layout(W).bytes();
+  int device = 0, cap = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = wave((const void*)tf32::sens_f32_kernel, tf32::THREADS, smem, device, &cap);
+  if (err != cudaSuccess) return (int)err;
+  const int units = tf32::units(B, H, W);
+  tf32::sens_f32_kernel<<<units < cap ? units : cap, tf32::THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)g, (const float*)eta, (const float*)sens, (const float*)mats, (float*)ds, (float*)d_eta, B, C, H,
+      W, inv_sigma2);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // g [B, H, W, 4], eta [B, H, W, 2], sens [B, C, H, W, 2], mats [B, 3, W, W] -> ds [B, C, H, W, 2],
@@ -562,7 +954,7 @@ int launch_bf16(const void* g, const void* eta, const void* sens, const void* ma
 extern "C" int k1_psf1d_sens_f32(const void* g, const void* eta, const void* sens, const void* mats, void* ds,
                                  void* d_eta, int B, int C, int H, int W, float inv_sigma2, void* stream) {
   if (bad(B, C, H, W)) return (int)cudaErrorInvalidValue;
-  return launch_wide<float>(g, eta, sens, mats, ds, d_eta, B, C, H, W, inv_sigma2, stream);
+  return launch_f32(g, eta, sens, mats, ds, d_eta, B, C, H, W, inv_sigma2, stream);
 }
 
 extern "C" int k1_psf1d_sens_bf16(const void* g, const void* eta, const void* sens, const void* mats, void* ds,
@@ -602,6 +994,42 @@ extern "C" int k1_psf1d_sens_bf16_setup(int B, int H, int W, int device, int* in
     info[3] = tc::THREADS;
     info[4] = tc::TM;
     info[5] = tc::TN;
+  }
+  if (err != cudaSuccess) return (int)err;
+  info[2] = per_sm;
+  info[6] = route;
+  return (int)cudaSuccess;
+}
+
+// Writes info[0..6] for k1_psf1d_sens_f32 at [B, H, W] on ``device``, as
+// k1_psf1d_sens_bf16_setup: the on-chip route takes 16 x 32 tiles up to W =
+// 320, the wide route any W.
+extern "C" int k1_psf1d_sens_f32_setup(int B, int H, int W, int device, int* info) {
+  for (int i = 0; i < 7; ++i) info[i] = 0;
+  if (bad(B, 1, H, W)) return (int)cudaSuccess;
+  int sms = 0, per_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const int route = tf32::route(W);
+  if (route == tc::WIDE) {
+    const dim3 grid = wide_grid(B, H, W);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, (const void*)sens_kernel<float>, THREADS, 0);
+    info[0] = (int)(grid.x * grid.y * grid.z);
+    info[1] = (int)sizeof(float) * 3 * TK * (CU + 2 * CR);
+    info[3] = THREADS;
+    info[4] = TR;
+    info[5] = TU;
+  } else {
+    const size_t smem = tf32::Layout(W).bytes();
+    int cap = 0;
+    err = wave((const void*)tf32::sens_f32_kernel, tf32::THREADS, smem, device, &cap);
+    const int units = tf32::units(B, H, W);
+    info[0] = units < cap ? units : cap;
+    per_sm = cap / (sms > 0 ? sms : 1);
+    info[1] = (int)smem;
+    info[3] = tf32::THREADS;
+    info[4] = tf32::TM;
+    info[5] = tf32::TN;
   }
   if (err != cudaSuccess) return (int)err;
   info[2] = per_sm;

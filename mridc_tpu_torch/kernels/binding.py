@@ -93,6 +93,7 @@ QUERIES: Dict[str, Dict[str, tuple]] = {
         # B, H, W, device index, out: int[7] (blocks, shared memory bytes, blocks per SM, threads, tile rows,
         # tile columns, route: 0 on chip, 1 wide)
         "k1_psf1d_sens_bf16_setup": (_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)),
+        "k1_psf1d_sens_f32_setup": (_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)),
     },
     "indrnn_bwd": {
         # bf16 (0 or 1), P, CI, F, device index, out: int[7] (blocks of the grid, shared memory bytes,

@@ -8,10 +8,12 @@ for an upstream g is ``d_eta = g[..., :2] + A(g[..., 2:]) / sigma^2`` and
 ``d_z0 = -g[..., 2:] / sigma^2``. The maps' gradient (learned sensitivity
 maps) is ``ds_c = (u_c conj(g[..., 2:]) + conj(eta) A_w(s_c g[..., 2:])) /
 sigma^2`` with ``u_c = A_w(s_c eta)`` (A_w the [W, W] operator along W): a
-kernel of its own (``csrc/psf1d_sens.cu``; in bf16 both products on the
-tensor cores with the operator held on chip across the coils, up to W = 352)
-that writes d_eta in the same pass, launched in place of the backward kernel
-when the maps take a gradient; the forward then saves eta (image-sized).
+kernel of its own (``csrc/psf1d_sens.cu``) that writes d_eta in the same pass,
+launched in place of the backward kernel when the maps take a gradient; the
+forward then saves eta (image-sized). Both dtypes run both products on the
+tensor cores with the operator held on chip across the coils (bf16 up to W =
+352; float32 on 3xTF32 up to W = 320) and take the first version's kernel,
+on the CUDA cores, at wider W.
 The gradient with respect to the operator is not ported.
 
 :func:`psf1d_normal` is the normal operator A alone (VarNet's psf1d q-term,
@@ -32,8 +34,8 @@ from mridc_tpu_torch.nn.dc import apply_psf1d, log_likelihood_gradient_psf1d
 from mridc_tpu_torch.ops.cplx import cmul, cmul_conj
 
 __all__ = ["psf1d_dc", "psf1d_dc_plain", "psf1d_dc_bwd", "psf1d_dc_bwd_plain", "psf1d_dc_sens_bwd",
-           "psf1d_dc_sens_bwd_plain", "bf16_setup", "f32_setup", "sens_bf16_setup", "psf1d_normal", "SYMBOLS",
-           "BWD_SYMBOLS", "SENS_SYMBOLS"]
+           "psf1d_dc_sens_bwd_plain", "bf16_setup", "f32_setup", "sens_bf16_setup", "sens_f32_setup",
+           "psf1d_normal", "SYMBOLS", "BWD_SYMBOLS", "SENS_SYMBOLS"]
 
 SYMBOLS = {torch.float32: "k1_psf1d_dc_f32", torch.bfloat16: "k1_psf1d_dc_bf16"}
 BWD_SYMBOLS = {torch.float32: "k1_psf1d_dc_bwd_f32", torch.bfloat16: "k1_psf1d_dc_bwd_bf16"}
@@ -101,6 +103,14 @@ def sens_bf16_setup(b: int, h: int, w: int, device: torch.device) -> Dict[str, o
     operator's tile rows held in shared memory across the coils, W <= 352)
     or ``wide`` (the first version's kernel, any W)."""
     return _setup("psf1d_sens", "k1_psf1d_sens_bf16_setup", b, h, w, device)
+
+
+def sens_f32_setup(b: int, h: int, w: int, device: torch.device) -> Dict[str, object]:
+    """The float32 maps-gradient kernel's launch at [B, H, W] on ``device``
+    (cached), as :func:`bf16_setup`: ``on_chip`` (16 x 32 tiles up to W =
+    320, the operator's tile rows held in shared memory across the coils,
+    products on 3xTF32) or ``wide`` (the first version's kernel, any W)."""
+    return _setup("psf1d_sens", "k1_psf1d_sens_f32_setup", b, h, w, device)
 
 
 def _shape(name, sens, dtype):

@@ -33,6 +33,14 @@ phases (step index mod KP), each phase adds conj(s_c) times its coil's
 partial products in coil order, and the phases' sums are added in phase
 order. Held against the plain version and the JAX package in float32 at
 chip_smoke.py's F32 limit (rtol 1e-4, atol 1e-4 x the largest magnitude).
+
+K1's float32 maps gradient (``csrc/psf1d_sens.cu``, its on-chip route) takes
+the same Gauss form and 3xTF32 splits for both products, x = s_c * eta and
+y = s_c * g[..., 2:] formed in float32, over every 8-deep step of v in order;
+its coils are split across 8 warps (warp w takes coils w, w + 8, ...), each
+warp sums conj(s_c) v_c for d_eta in its coils' order and the warps' sums
+are added in warp order. Emulated and held at F32 against the plain version
+and ``jax.vjp`` of the JAX package.
 """
 
 import importlib
@@ -355,14 +363,7 @@ def emulate_f32(eta, sens, mats, swap_b=False, swap_a=False):
     total_r = torch.zeros(b, h, w)
     total_i = torch.zeros(b, h, w)
     for phase in range(kp):
-        acc = [torch.zeros(b, c, h, w) for _ in range(3)]
-        for j in range(phase, nk, kp):
-            sl = slice(j * KW, (j + 1) * KW)
-            for p in range(3):
-                (ahi, alo), (bhi, blo) = a_split[p], b_split[p]
-                for ta, tb in ((ahi, blo), (alo, bhi), (ahi, bhi)):
-                    acc[p] = acc[p] + torch.einsum("bchk,buk->bchu", ta[..., sl], tb[..., sl])
-        re, im = acc[0] - acc[1], acc[0] + acc[2]
+        re, im = _gauss_3xtf32(a_split, b_split, range(phase, nk, kp))
         gr = torch.zeros(b, h, w)
         gi = torch.zeros(b, h, w)
         for k in range(c):  # coil order
@@ -370,6 +371,24 @@ def emulate_f32(eta, sens, mats, swap_b=False, swap_a=False):
             gi = gi + (sr[:, k] * im[:, k] - si[:, k] * re[:, k])
         total_r, total_i = total_r + gr, total_i + gi
     return torch.stack([total_r, total_i], dim=-1)
+
+
+def _gauss_3xtf32(a_split, b_split, steps, drop_lo_hi=False):
+    """(re, im) [B, C, H, W] of the Gauss form's three products over the
+    8-deep steps of v in ``steps``, in order: per plane p and step, hi*lo,
+    lo*hi and hi*hi (mma3's order) of A plane p's split (a_split[p], [B, C,
+    H, Wp]) and B plane p's (b_split[p], [B, W, Wp]) each added in float32;
+    re = k1 - k2, im = k1 + k3. ``drop_lo_hi`` leaves out the lo*hi term (a
+    mutation the limit must catch)."""
+    acc = [0.0, 0.0, 0.0]
+    for j in steps:
+        sl = slice(j * KW, (j + 1) * KW)
+        for p in range(3):
+            (ahi, alo), (bhi, blo) = a_split[p], b_split[p]
+            terms = ((ahi, blo), (ahi, bhi)) if drop_lo_hi else ((ahi, blo), (alo, bhi), (ahi, bhi))
+            for ta, tb in terms:
+                acc[p] = acc[p] + torch.einsum("bchk,buk->bchu", ta[..., sl], tb[..., sl])
+    return acc[0] - acc[1], acc[0] + acc[2]
 
 
 def _inv_sigma2():
@@ -432,3 +451,107 @@ def test_k1_f32_check_catches_a_mutation(mutation):
     want = k1.psf1d_dc_plain(eta, sens, mats, z0, SIGMA).double()
     assert _f32_headroom(emulate_f32_forward(eta, sens, mats, z0).double(), want)[0] < 1.0
     assert _f32_headroom(emulate_f32_forward(eta, sens, mats, z0, **{mutation: True}).double(), want)[0] > 1.0
+
+
+# ---- K1's float32 maps gradient (csrc/psf1d_sens.cu, the on-chip route) -------
+
+WARPS = 8  # the kernel's warps: warp w takes coils w, w + 8, ...
+
+
+def emulate_sens_f32(g, eta, sens, mats, swap_uv=False, drop_lo_hi=False):
+    """(d_eta, d_sens) as the float32 maps-gradient kernel's on-chip route
+    computes them: x = s_c eta and y = s_c g[..., 2:] in float32, their Gauss
+    planes (re + im, im, re) and the operator's (Cr, Cr + Ci, Ci - Cr) split
+    into truncated TF32 hi and lo, u_c = C x and v_c = C y each as 3xTF32 over
+    every 8-deep step of v in order; ds_c = (u_c conj(G) + v_c conj(eta)) /
+    sigma^2; d_eta = g[..., :2] + (the warps' sums of conj(s_c) v_c, each over
+    its coils w, w + 8, ... in order, added in warp order) / sigma^2.
+    Mutations the limit must catch: ``swap_uv`` (u_c and v_c swapped in the
+    epilogue) and ``drop_lo_hi`` (the lo*hi term of every product left out)."""
+    b, c, h, w, _ = sens.shape
+    nk = -(-w // KW)
+    pad = nk * KW - w
+    sr, si = sens[..., 0], sens[..., 1]  # [B, C, H, W]
+    b_split = [_split(torch.nn.functional.pad(mats[:, p], (0, pad))) for p in range(3)]
+
+    def product(z):  # C (s_c z) for z [B, H, W, 2]: (re, im) [B, C, H, W]
+        zr, zi = z[:, None, ..., 0], z[:, None, ..., 1]
+        xr, xi = zr * sr - zi * si, zr * si + zi * sr
+        a_split = [_split(torch.nn.functional.pad(x, (0, pad))) for x in (xr + xi, xi, xr)]
+        return _gauss_3xtf32(a_split, b_split, range(nk), drop_lo_hi)
+
+    g2 = g[..., 2:].contiguous()
+    (ur, ui), (vr, vi) = product(eta), product(g2)
+    if swap_uv:
+        ur, ui, vr, vi = vr, vi, ur, ui
+    inv = _inv_sigma2()
+    er, ei = eta[:, None, ..., 0], eta[:, None, ..., 1]
+    gr, gi = g2[:, None, ..., 0], g2[:, None, ..., 1]
+    d_sens = torch.stack([(ur * gr + ui * gi + vr * er + vi * ei) * inv,
+                          (ui * gr - ur * gi + vi * er - vr * ei) * inv], dim=-1)
+    term_r, term_i = sr * vr + si * vi, sr * vi - si * vr
+    total_r = torch.zeros(b, h, w)
+    total_i = torch.zeros(b, h, w)
+    for warp in range(WARPS):
+        part_r = torch.zeros(b, h, w)
+        part_i = torch.zeros(b, h, w)
+        for k in range(warp, c, WARPS):
+            part_r, part_i = part_r + term_r[:, k], part_i + term_i[:, k]
+        total_r, total_i = total_r + part_r, total_i + part_i
+    return g[..., :2] + torch.stack([total_r, total_i], dim=-1) * inv, d_sens
+
+
+# SHAPES, then one width on each side of the on-chip route's end (W = 320:
+# 9 coils so that warp 0 takes two; 321: the wide route)
+F32_SENS_SHAPES = {**SHAPES, "w320": (1, 9, 8, 320), "w321": (1, 2, 8, 321)}
+
+
+@pytest.mark.parametrize("shape", F32_SENS_SHAPES)
+def test_k1_sens_f32_arithmetic_meets_its_limits(shape):
+    """The emulated float32 maps-gradient kernel against the plain version
+    and against ``jax.vjp`` of the JAX package in float32, d_eta and d_sens
+    each at K1_F32. (At w640 and w321 the kernel takes the wide route, which
+    sums in float32 on the CUDA cores; the on-chip arithmetic is held to the
+    limit at those widths too.)"""
+    eta, sens, mats, z0, g = _operands(*F32_SENS_SHAPES[shape], seed=sum(F32_SENS_SHAPES[shape]) + 2, rounded=False)
+    got = emulate_sens_f32(g, eta, sens, mats)
+    plain = k1.psf1d_dc_sens_bwd_plain(g, eta, sens, mats, SIGMA)
+    ref = _jax_sens_vjp(g, eta, sens, mats, z0)
+    for i, part in enumerate(("d_eta", "d_sens")):
+        _f32_check(f"sens f32 {part} [{shape}] vs plain", got[i], plain[i])
+        _f32_check(f"sens f32 {part} [{shape}] vs mridc_tpu float32", got[i], ref[i])
+
+
+@pytest.mark.parametrize("mutation", ["swap_uv", "drop_lo_hi"])
+def test_k1_sens_f32_check_catches_a_mutation(mutation):
+    """The limit is not vacuous: the emulation with u_c and v_c swapped in
+    the epilogue, or with the lo*hi term of the 3xTF32 products left out,
+    lies outside it (d_sens against the plain version), where the emulation
+    as the kernel computes lies inside."""
+    eta, sens, mats, _, g = _operands(*SHAPES["odd"], seed=9, rounded=False)
+    want = k1.psf1d_dc_sens_bwd_plain(g, eta, sens, mats, SIGMA)[1].double()
+    assert _f32_headroom(emulate_sens_f32(g, eta, sens, mats)[1].double(), want)[0] < 1.0
+    assert _f32_headroom(emulate_sens_f32(g, eta, sens, mats, **{mutation: True})[1].double(), want)[0] > 1.0
+
+
+def _sens_f32_on_chip_bytes(w: int) -> int:
+    """Shared memory of the float32 maps-gradient tile of 16 rows by 32
+    columns at width ``w`` (``csrc/psf1d_sens.cu``, ``tf32::Layout``): eta's
+    and G's rows [16][2 kp] each, the operator's three planes [3][32][kp] and
+    each of 8 warps' ring of 3 raw s_c chunks [16][2 x 8], in floats, kp = W
+    rounded up to 32; at least the warps' d_eta sums [8][32][32]."""
+    tm, tn, stages = 16, 32, 3
+    kp = -(-w // 32) * 32
+    floats = 2 * tm * 2 * kp + 3 * tn * kp + WARPS * stages * 16 * 2 * KW
+    return 4 * max(floats, WARPS * tn * 32)
+
+
+@pytest.mark.parametrize("w", [45, 320, 321, 352, 448, 449, 640])
+def test_k1_sens_f32_route_by_width(w):
+    """The float32 maps gradient holds the operator's tile rows on chip in
+    16 x 32 tiles up to W = 320 and takes the wide route (the first
+    version's kernel, any W) above; the wrapper refuses no width."""
+    on_chip = _sens_f32_on_chip_bytes(w) <= 232448
+    assert on_chip == (w <= 320)
+    assert _sens_f32_on_chip_bytes(320) == 229376  # the on-chip setup's smem_bytes at J1 (8x15x320x320)
+    assert not hasattr(k1, "_check_width")
