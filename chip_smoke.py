@@ -208,7 +208,22 @@ Phases (any failure raises; no phase catches its own):
      base_jointicnet_run.yaml (``mode: test``) on its archive, and of
      base_cirim_train.yaml with ``model.use_sens_net=true``, read centered
      (``J_CENTERED``), on phantom volumes with D2's premade masks
-     (``j_launch_phase``, ``J_LAUNCH_PER_STEP``).
+     (``j_launch_phase``, ``J_LAUNCH_PER_STEP``);
+  P. data parallelism, pretrained models and export (``p_phase``): P1
+     ``train_bf16_psf1d`` (B=24) through ``Trainer(mesh=make_mesh())`` in a
+     one-process NCCL group (``tcp://localhost``), beside two plain runs
+     from the same weights: loss and parameters within twice their spread,
+     one NCCL all-reduce a step, launches per step against ``PER_STEP``, ms
+     per step; P2 L1's archive registered as ``P_PRETRAINED`` and cached
+     under ``P_URL``'s key: ``from_pretrained`` through both (weights bit for
+     bit, equal forwards) and ``cli.main(["run", "-c", ...])`` with
+     ``pretrained=true``, ``checkpoint=P_PRETRAINED`` and ``mode: test``;
+     P3 the serving forwards of ``P_EXPORT`` (CIRIM bf16 psf1d and f32 full,
+     VarNet bf16 psf1d at B=8) exported with ``utils/export.py``, loaded and
+     run: the ``mridc_tpu_torch::`` ops of ``P_OPS`` in each graph, the
+     launches of ``PER_FORWARD``/``VN_PER_FORWARD``, the output within two
+     eager runs' spread; export, load and run seconds. ``python3
+     chip_smoke.py --phase P`` runs the build and P alone.
 
 The poisson2d masks of D1 and D2 (pure-Python dart throwing: minutes a mask
 at 320x320) are drawn at the start, in worker processes that run beside
@@ -232,8 +247,10 @@ import contextlib
 import json
 import multiprocessing
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from concurrent.futures import ProcessPoolExecutor
@@ -244,7 +261,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 COILS, H, W = 15, 320, 320
 CASCADES, TIME_STEPS, FILTERS = 5, 8, 64
-BATCH, WARMUP, ITERS = 8, 2, 5
+BATCH, WARMUP, ITERS = 8, 1, 2
 DEVICE = "cuda"
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM bytes/s and
@@ -290,7 +307,7 @@ PER_STEP = {
     "train_f32_full": {"k2_expand": 115, "k2_residual": 80, "k2_mask": 35, "k2_reduce": 81, "k2_reduce_acc": 35,
                        "k2_load": 1, "k3_indrnn_f32": 230, "k3_indrnn_bwd_f32": 80},
 }
-TRAIN_BATCH, TRAIN_F32_BATCH, TRAIN_WARMUP, TRAIN_ITERS = 24, 8, 2, 3
+TRAIN_BATCH, TRAIN_F32_BATCH, TRAIN_WARMUP, TRAIN_ITERS = 24, 8, 1, 1
 # projects/reconstruction/conf/base_cirim_train.yaml's optim block
 TRAIN_OPTIM = {"name": "adam", "lr": 1e-3, "betas": [0.9, 0.98], "weight_decay": 0.0,
                "sched": {"name": "InverseSquareRootAnnealing", "min_lr": 0.0, "warmup_ratio": 0.1}}
@@ -344,10 +361,10 @@ D1_COILS, D1_HW, D1_VOLUMES, D1_SLICES, D1_BATCH = 4, 64, 2, 3, 2
 # D2: training volumes x slices, validation slices (one volume), host worker
 # threads of the prefetching modes, and the two runs: (dataset, model, batch,
 # phase 8's run whose PER_STEP they share)
-D2_TRAIN_VOLUMES, D2_SLICES, D2_VAL_SLICES, D2_WORKERS = 2, 24, 16, 4
+D2_TRAIN_VOLUMES, D2_SLICES, D2_VAL_SLICES, D2_WORKERS = 2, 24, 8, 4
 # D2's steps per feeding mode: 1 warm-up and 2 timed, so that the script
 # keeps within its time with phase L
-D2_WARMUP, D2_ITERS = 1, 2
+D2_WARMUP, D2_ITERS = 1, 1
 D2_RUNS = {
     "data_f32_full": (TRAIN_DS, dict(compute_dtype=None, dc_mode="full"), TRAIN_F32_BATCH, "train_f32_full"),
     "data_bf16_psf1d": (EQUISPACED_DS, {}, TRAIN_BATCH, "train_bf16_psf1d"),
@@ -389,7 +406,7 @@ L_RUNS = {
                           for a, v in (("type", '"equispaced1d"'), ("accelerations", "[4]"),
                                        ("center_fractions", "[0.08]"))], "phantom/1d", "train_f32_psf1d"),
 }
-L_STEPS = 16  # training steps of a launch run (trainer.limit_train_batches): a third of D2's 48,
+L_STEPS = 12  # training steps of a launch run (trainer.limit_train_batches): a quarter of D2's 48,
 # so that the script keeps within its time
 L_VAL_LIMIT = 2  # validation batches of the resumed runs
 
@@ -788,7 +805,7 @@ SEG_UNET_TRAIN_CFG = _q_cfg("segmentation_unet", G_CFGS["unet"], "train")
 SEG_UNET_RUN_CFG = _q_cfg("segmentation_unet", G_CFGS["unet"], "test")
 SEG_LAMBDA5_TRAIN_CFG = _q_cfg("lambdaunet3d", G_CFGS["lambda_unet3d"], "train", consecutive=5)
 # the config-file runs: G_STEPS steps at batch 1 and 1 validation batch
-G_STEPS = 3
+G_STEPS = 2
 # the config-file runs' phantom volumes: 1 training volume of Q_SLICES slices
 # (Q_SLICES steps at batch 1) and 1 validation volume of 1 slice, each with
 # the poisson2d mask the YAML's masker draws for its file name, premade; qVN
@@ -864,7 +881,7 @@ M_TRAIN_CFG = _q_cfg("mtlrs", M_CFGS["mtlrs"], "train")
 M_RUN_CFG = _q_cfg("mtlrs", M_CFGS["mtlrs"], "test")
 SERANET_TRAIN_CFG = _q_cfg("seranet", M_CFGS["seranet"], "train")
 SERANET_RUN_CFG = _q_cfg("seranet", M_CFGS["seranet"], "test")
-M_STEPS = 3  # the config-file runs: M_STEPS steps at batch 1, 1 validation batch
+M_STEPS = 2  # the config-file runs: M_STEPS steps at batch 1, 1 validation batch
 
 # J: learned sensitivity maps (M8's second half). J1: the maps-gradient
 # kernels (K2's sens_grad stage, K1's psf1d_sens) against their plain
@@ -963,7 +980,27 @@ J_LAUNCH_PER_STEP = {
     "launch_j_cirim_sens": {"k2_expand": 160, "k2_residual": 120, "k2_mask": 40, "k2_reduce": 80,
                             "k2_sens_grad": 40, "k3_indrnn_f32": 230, "k3_indrnn_bwd_f32": 80},
 }
-J_STEPS = 3  # the config-file runs: J_STEPS steps at batch 1, 1 validation batch
+J_STEPS = 2  # the config-file runs: J_STEPS steps at batch 1, 1 validation batch
+
+# P: data parallelism, pretrained models and export. P1 trains phase 8's
+# train_bf16_psf1d (B=24) for P_STEPS steps through Trainer(mesh=make_mesh())
+# in a one-process NCCL group, and twice without a group beside it; P3 exports
+# the serving forwards at B=8 whose kernels cover K1's forward and normal
+# operator, K2's forward stages and K3's forward (P_EXPORT: phase 5's and
+# V2's configurations and launch tables)
+P_STEPS = 2
+P_PRETRAINED = "cirim_launch_f32_full"  # phase L1's archive, registered under this name
+P_URL = "https://models.example.org/mridc/cirim_launch_f32_full.mridc"  # cached, never fetched
+P_EXPORT = {
+    "export_bf16_psf1d": ("cirim", {"stack_intermediates": False}, "bf16_psf1d"),
+    "export_f32_full": ("cirim", {"stack_intermediates": False, "compute_dtype": None, "dc_mode": "full"}, "f32_full"),
+    "export_vn_bf16_psf1d": ("vn", {}, "vn_bf16_psf1d"),
+}
+P_OPS = {  # the custom ops each exported graph must hold
+    "export_bf16_psf1d": {"k1_psf1d_dc", "k3_indrnn", "k2_load", "k2_reduce"},
+    "export_f32_full": {"k2_expand", "k2_residual", "k2_load", "k2_reduce", "k3_indrnn"},
+    "export_vn_bf16_psf1d": {"k1_psf1d_dc", "k2_load", "k2_reduce"},
+}
 
 def fed_per_step(phase8_run: str) -> dict:
     """Launches per training step fed by the loader: those of phase 8's run
@@ -1002,7 +1039,14 @@ EXACT = (0.0, 0.0)
 BF16_MODEL, BF16_REL_L2 = (3e-2, 3e-2), 5e-2
 
 
+_T_IMPORT = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """One JSON line; every line but the ``kernels`` and ``ok`` ones carries
+    ``at_s``, the seconds since the script started (the run's timeline)."""
+    if "kernels" not in obj and set(obj) != {"ok", "device"}:
+        obj = {**obj, "at_s": round(time.perf_counter() - _T_IMPORT, 2)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1340,20 +1384,24 @@ def kernel_category(name: str) -> str:
     return "elementwise: pad, cast, add, copy"
 
 
-def trace_call(fn, ms_per_call, ranges=()):
+def trace_call(fn, ms_per_call, ranges=(), by_op=True):
     """Device time and kernel launches of one call of ``fn`` (a forward or a
     training step) by kernel, by layer and by ATen op, from torch.profiler's
     CUDA kernel events (CUPTI), beside the unprofiled wall time of a call;
     ``copy_launches``/``copy_ms``: ATen's copy kernels among them (``copy_``,
     ``contiguous``, ``to``: a mask densified at every K2 stage would show
     there, one a stage); ``ranges``: the device time under each of these
-    ``record_function`` ranges (``ranges_ms``)."""
+    ``record_function`` ranges (``ranges_ms``); ``by_op``: the device time by
+    ATen op (``by_op_ms``), for which the trace records the host's op events
+    too, the bulk of its cost (without it, and without ranges, the device's
+    kernel events alone). Every caller traces a warm call: one it has timed
+    just before, or (Z2's heaviest model, rebuilt) one after an untraced call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    host = by_op or bool(ranges)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA] if host else [ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     by_name, calls = {}, {}
@@ -1381,7 +1429,8 @@ def trace_call(fn, ms_per_call, ranges=()):
             "device_busy_share": busy / ms_per_call if ms_per_call else None,
             "by_layer_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
             "by_layer_launches": dict(sorted(launches.items(), key=lambda kv: -kv[1])),
-            "top_kernels_ms": [[name[:120], ms] for name, ms in top], "by_op_ms": op_device_ms(prof)}
+            "top_kernels_ms": [[name[:120], ms] for name, ms in top],
+            **({"by_op_ms": op_device_ms(prof)} if by_op else {})}
 
 
 def traced_kernel_ms(fn, name_part=None, calls=20):
@@ -1709,7 +1758,8 @@ def varnet_phases(dev, card, rows) -> None:
             raise AssertionError(f"{name}: loss {rec['loss']} not finite or parameters unchanged ({moved})")
         for k, v in delta.items():
             vn_train_counts[k] += v
-        emit({"trace": name, **trace_call(lambda: trainer.training_batch(batch), rec["ms_per_step"]), "card": card})
+        emit({"trace": name, **trace_call(lambda: trainer.training_batch(batch), rec["ms_per_step"], by_op=False),
+              "card": card})
         if name == "train_vn_f32_full":
             restore = [capturing("sens_expand_bwd"), capturing("sens_reduce_bwd")]
             trainer.training_batch(batch)
@@ -2110,7 +2160,7 @@ def data_phases(dev, card, rows, state, state_small, small, phase8, masks) -> di
     return d2_recs
 
 
-def launch_phase(dev, card, rows, masks, d2_recs) -> None:
+def launch_phase(dev, card, rows, masks, d2_recs) -> Path:
     """Phase L: the launch path at full width, through the entry point a user
     calls. ``run_from_config`` of LAUNCH_CFG (the flagship config as written)
     with the overrides printed, mode ``train``: the initial validation, then
@@ -2130,7 +2180,8 @@ def launch_phase(dev, card, rows, masks, d2_recs) -> None:
     the CPU. Then L1's archive, restored with ``checkpoints.restore_model``,
     tests as the trained model does; a second ``fit`` on L1's run dir
     (``resume_if_exists``) gets SIGTERM after its first step, returns, and
-    saves ``last``; a third resumes from it."""
+    saves ``last``; a third resumes from it. Returns a copy of L1's archive
+    (phase P's pretrained model), in a directory of its own."""
     import os
     import shutil
     import signal
@@ -2188,7 +2239,8 @@ def launch_phase(dev, card, rows, masks, d2_recs) -> None:
                 overrides = ["trainer.max_epochs=1", f"trainer.limit_train_batches={L_STEPS}",
                              f'model.train_ds.data_path="{root}/train"',
                              f'model.validation_ds.data_path="{root}/val"', f'model.test_ds.data_path="{root}/val"',
-                             f'trainer.profile_dir="{profile_dir}"', f'exp_manager.exp_dir="{tmp / run_name}"', *extra]
+                             f'trainer.profile_dir="{profile_dir}"', "trainer.profile_steps=1",
+                             f'exp_manager.exp_dir="{tmp / run_name}"', *extra]
                 emit({"phase": "L", "run": run_name, "config": "projects/reconstruction/conf/base_cirim_train.yaml",
                       "overrides": overrides, "batch": 1, "card": card})
                 torch.cuda.synchronize()
@@ -2203,7 +2255,7 @@ def launch_phase(dev, card, rows, masks, d2_recs) -> None:
                 want = fed_per_step(p8)
                 steps = len(record["marks"])
                 bad = [c for c in record["counts"] if c != want]
-                marks = record["marks"][10:]  # after the profiler window (steps 3-7) and its stop
+                marks = record["marks"][5:]  # after the profiler window (step 3) and its stop
                 ms = (marks[-1] - marks[0]) / (len(marks) - 1) * 1e3
                 run_dir = trainer.exp_manager.log_dir
                 traces = sorted(p.name for p in profile_dir.glob("*.json"))
@@ -2243,6 +2295,8 @@ def launch_phase(dev, card, rows, masks, d2_recs) -> None:
                       torch.from_numpy(np.stack([want_recons[k] for k in sorted(want_recons)])), *F32,
                       note=f"{len(got)} volume(s) of {D2_VAL_SLICES} slices")
                 del restored, val_loader, trainer
+                kept = Path(tempfile.mkdtemp(prefix="chip_smoke_l1_")) / "cirim.mridc"
+                shutil.copyfile(run_dir / "cirim.mridc", kept)
 
                 # SIGTERM after the first step of a resumed fit, then resume again
                 resume = overrides + ["exp_manager.resume_if_exists=true", f'exp_manager.version="{run_dir.name}"',
@@ -2275,6 +2329,7 @@ def launch_phase(dev, card, rows, masks, d2_recs) -> None:
     if missing:
         raise AssertionError(f"kernels not launched on the launch path: {missing}")
     emit({"phase": "L", "seconds": time.perf_counter() - t_l})
+    return kept
 
 
 @contextlib.contextmanager
@@ -2477,7 +2532,8 @@ def zoo_phases(dev, card, rows) -> None:
             for k, v in delta.items():
                 zoo_train_counts[k] += v
             if run == "train_resnet_b1":
-                emit({"trace": run, **trace_call(lambda: trainer.training_batch(batch), rec["ms_per_step"]),
+                emit({"trace": run,
+                      **trace_call(lambda: trainer.training_batch(batch), rec["ms_per_step"], by_op=False),
                       "card": card})
             del trainer, model, batch, before
             torch.cuda.empty_cache()
@@ -2787,6 +2843,7 @@ def zoo2_phase(dev, card, rows) -> None:
     if heaviest != "kikinet":  # KIKINet's forward is traced above
         model = fresh(heaviest)
         with torch.inference_mode():
+            model(y, sens, mask)  # a rebuilt model: one untraced call first, so that the traced one is warm
             emit({"trace": f"zoo2_{heaviest}", "batch": BATCH,
                   **trace_call(lambda: model(y, sens, mask), serve_ms[heaviest]), "card": card})
         del model
@@ -2971,7 +3028,8 @@ def zoo3_phase(dev, card, rows) -> None:
         for k, v in delta.items():
             z3_train_counts[k] += v
         if name == "rvn":
-            emit({"trace": f"zoo3_{run}", **trace_call(lambda: trainer.training_batch(batch), rec["ms_per_step"]),
+            emit({"trace": f"zoo3_{run}",
+                  **trace_call(lambda: trainer.training_batch(batch), rec["ms_per_step"], by_op=False),
                   "card": card})
         del trainer
         torch.cuda.empty_cache()
@@ -3169,7 +3227,7 @@ def selfsup_phase(dev, card, rows, masks) -> None:
                 t0 = time.perf_counter()
                 batches = [b for _, b in zip(range(S_STEPS), loader)]
                 host_ms = (time.perf_counter() - t0) / len(batches) * 1e3
-                traced = trace_call(lambda: step(trainer, batches[-1]), ms)
+                traced = trace_call(lambda: step(trainer, batches[-1]), ms, by_op=False)
                 emit({"trace": run, "host_pipeline_ms_per_batch": host_ms,
                       "device_idle_share": None if traced.get("device_ms") is None else 1 - traced["device_ms"] / ms,
                       **traced, "card": card})
@@ -3581,8 +3639,9 @@ def q_launch_phase(dev, card, rows, q_masks) -> None:
     premade. ms per step (between the starts of consecutive steps), slices/s,
     launches per step (``Q_PER_STEP``), the host pipeline's ms per batch
     (``QBatchLoader``: the mask, the zero-filled SENSE echoes and
-    ``fit_quantitative_maps``, whose phase unwrap runs once per echo) and one
-    traced step (the device's idle share); ``validate()``'s ``val_NMSE_*``
+    ``fit_quantitative_maps``, whose phase unwrap runs once per echo; qCIRIM's
+    run, whose loader qVN's shares) and one traced step on the run's last
+    batch (the device's idle share); ``validate()``'s ``val_NMSE_*``
     finite; the test run's maps, which it writes through h5py (replaced here
     by a capture: the card's machine has no h5py), finite and [S, H, W, 4]."""
     import json as json_mod
@@ -3624,7 +3683,7 @@ def q_launch_phase(dev, card, rows, q_masks) -> None:
         return out
 
     def recording(self, batch):
-        record["trainer"] = self
+        record["trainer"], record["batch"] = self, batch
         record["marks"].append(time.perf_counter())
         before = kernels.launch_counts()
         out = step(self, batch)
@@ -3696,19 +3755,23 @@ def q_launch_phase(dev, card, rows, q_masks) -> None:
                                "(the masked echoes' SENSE images and the map fit) and the step, at batch 1",
                        "card": card}
                 emit(rec)
-                run_cfg = apply_overrides(cfg, overrides)
-                from mridc_tpu_torch.launch import _build_task_loader
+                host_ms = None
+                if run == "launch_qcirim":  # the host pipeline alone: one batch of the run's loader
+                    from mridc_tpu_torch.launch import _build_task_loader
 
-                loader = _build_task_loader("quantitative", run_cfg["model"]["train_ds"], run_cfg["model"], False,
-                                            dev)
-                t0 = time.perf_counter()
-                host = [b for _, b in zip(range(1), loader)]
-                host_ms = (time.perf_counter() - t0) / len(host) * 1e3
-                traced = trace_call(lambda: step(trainer, host[-1]), ms)
+                    run_cfg = apply_overrides(cfg, overrides)
+                    loader = _build_task_loader("quantitative", run_cfg["model"]["train_ds"], run_cfg["model"], False,
+                                                dev)
+                    t0 = time.perf_counter()
+                    next(iter(loader))
+                    host_ms = (time.perf_counter() - t0) * 1e3
+                    del loader
+                batch = record["batch"]
+                traced = trace_call(lambda: step(trainer, batch), ms, by_op=False)
                 emit({"trace": run, "host_pipeline_ms_per_batch": host_ms,
                       "device_idle_share": None if traced.get("device_ms") is None else 1 - traced["device_ms"] / ms,
                       **traced, "card": card})
-                del loader, host
+                del batch
                 if len(marks) != steps or bad:
                     raise AssertionError(f"{run}: {len(marks)} steps; launches per step, expected: {bad[:1]}")
                 if not np.isfinite(rec["losses"] + rec["grad_norms"]).all():
@@ -3720,7 +3783,7 @@ def q_launch_phase(dev, card, rows, q_masks) -> None:
                     raise AssertionError(f"{run}: no archive in the run dir {files}")
                 archive = run_dir / f"{cfg['exp_manager']['name']}.mridc"
                 del trainer
-                record["trainer"] = None
+                record["trainer"] = record["batch"] = None
                 torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4169,7 +4232,7 @@ def g_launch_phase(dev, card, rows) -> None:
                 t0 = time.perf_counter()
                 host = [b for _, b in zip(range(1), loader)]
                 host_ms = (time.perf_counter() - t0) / len(host) * 1e3
-                traced = trace_call(lambda: step(trainer, host[-1]), ms)
+                traced = trace_call(lambda: step(trainer, host[-1]), ms, by_op=False)
                 emit({"trace": run, "host_pipeline_ms_per_batch": host_ms, "image": list(host[-1]["image"].shape),
                       "device_idle_share": None if traced.get("device_ms") is None else 1 - traced["device_ms"] / ms,
                       **traced, "card": card})
@@ -4613,7 +4676,7 @@ def m_launch_phase(dev, card, rows, masks) -> None:
                 t0 = time.perf_counter()
                 host = [b for _, b in zip(range(1), loader)]
                 host_ms = (time.perf_counter() - t0) / len(host) * 1e3
-                traced = trace_call(lambda: step(trainer, host[-1]), ms)
+                traced = trace_call(lambda: step(trainer, host[-1]), ms, by_op=False)
                 emit({"trace": run, "host_pipeline_ms_per_batch": host_ms,
                       "device_idle_share": None if traced.get("device_ms") is None else 1 - traced["device_ms"] / ms,
                       **traced, "card": card})
@@ -4891,7 +4954,7 @@ def j_phase(dev, card, rows) -> None:
         for k, v in delta.items():
             train_counts[k] += v
         if run in J_TRACED:
-            traced = trace_call(lambda: trainer.training_batch(batch), rec["ms_per_step"])
+            traced = trace_call(lambda: trainer.training_batch(batch), rec["ms_per_step"], by_op=False)
             by = traced["by_layer_ms"]
             maps = by.get("K1 maps gradient", 0.0) + by.get("K2 maps gradient", 0.0)
             emit({"trace": run, **traced, "maps_gradient_ms": maps,
@@ -5041,6 +5104,316 @@ def j_launch_phase(dev, card, rows, masks) -> None:
     emit({"phase": "J4", "seconds": time.perf_counter() - t_jl})
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def p_export_model(name, dev):
+    """``P_EXPORT[name]``'s model on ``dev`` with phase 5's (CIRIM) or V2's
+    (VarNet) weights."""
+    from mridc_tpu_torch.models import build_model
+    from mridc_tpu_torch.utils.params import cirim_params_from_jax, varnet_params_from_jax
+
+    kind, over, _ = P_EXPORT[name]
+    if kind == "cirim":
+        model = build_model(flagship_cfg(**over), device=dev)
+        model.load_state_dict(cirim_params_from_jax(jax_layout_tree(flagship_cfg(), seed=0, gain=MAIN_GAIN)))
+    else:
+        model = build_model(vn_cfg(**over), device=dev)
+        model.load_state_dict(varnet_params_from_jax(vn_layout_tree(vn_cfg(), seed=0, gain=VN_GAIN)))
+    return model
+
+
+def p_export(name, path):
+    """P3's export of ``P_EXPORT[name]`` at B=8 to ``path``; returns (path,
+    seconds of the export and the save)."""
+    import torch
+
+    from mridc_tpu_torch.utils.export import export_model
+
+    dev = torch.device(DEVICE)
+    model = p_export_model(name, dev)
+    args = tuple(torch.from_numpy(a).to(dev) for a in bench_data(BATCH, COILS, H, W))
+    t0 = time.perf_counter()
+    export_model(model, args, path)
+    return path, time.perf_counter() - t0
+
+
+def p_phase(dev, card, rows, archive) -> None:
+    """P: data parallelism, pretrained models and export (``P_*``).
+
+    P1: phase 8's ``train_bf16_psf1d`` (flagship, B=24, its weights and
+    batch) trained ``P_STEPS`` steps through ``Trainer(mesh=make_mesh())`` in
+    a one-process NCCL group (``tcp://localhost``, left after), and without a
+    group before and after it from the same weights: the group's loss and
+    every parameter within twice the spread of the two plain runs (its run is
+    a third draw of the same arithmetic; a zero spread demands equality), one
+    NCCL all-reduce of the gradients a step (``parallel/mesh.py``'s counter),
+    launches per step equal to ``PER_STEP``, ms per step of each run.
+
+    P2: phase L1's archive (``archive``) registered as ``P_PRETRAINED`` and
+    placed in a cache directory under ``P_URL``'s key: ``from_pretrained``
+    through both gives the archive's weights bit for bit and equal forwards;
+    ``cli.main(["run", ...])`` of ``LAUNCH_CFG`` with ``pretrained=true``,
+    ``checkpoint=P_PRETRAINED`` and ``mode: test`` on a 2-slice phantom
+    volume (1D masks the transform draws, full DC) runs with those weights,
+    and its written reconstruction equals ``Trainer.test`` of the restored
+    model (within two such tests' spread).
+
+    P3: the serving forwards of ``P_EXPORT`` at B=8 exported
+    (``utils/export.py``, :func:`p_export`), loaded and run: the graph
+    holds ``P_OPS``' custom ops, a run launches ``PER_FORWARD``'s or
+    ``VN_PER_FORWARD``'s kernels, and the output equals the eager forward's
+    within two eager runs' spread. Seconds of each part, and of export, load
+    and the first and second run."""
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    import torch
+    import torch.distributed as dist
+
+    from mridc_tpu_torch import cli, kernels
+    from mridc_tpu_torch import launch as launch_mod
+    from mridc_tpu_torch.data import factory
+    from mridc_tpu_torch.models import build_model, pretrained
+    from mridc_tpu_torch.parallel import mesh as pmesh
+    from mridc_tpu_torch.train.checkpoints import load_archive
+    from mridc_tpu_torch.train.config import apply_overrides, save_config
+    from mridc_tpu_torch.train.trainer import Trainer
+    from mridc_tpu_torch.utils.cloud import cache_path
+    from mridc_tpu_torch.utils.export import load_exported
+    from mridc_tpu_torch.utils.params import cirim_params_from_jax
+
+    t_p = time.perf_counter()
+    parts = {}
+    p_counts = {k: 0 for k in kernels.launch_counts()}
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+
+    def max_abs(a, b):
+        return float((a - b).abs().max())
+
+    # P1. one step over the joined batch of a one-process NCCL group
+    t0 = time.perf_counter()
+    state = cirim_params_from_jax(jax_layout_tree(flagship_cfg(), seed=0, gain=MAIN_GAIN))
+    y, sens, mask = (t(a) for a in bench_data(TRAIN_BATCH, COILS, H, W))
+    batch = {"masked_kspace": y, "sensitivity_maps": sens, "mask": mask,
+             "target": t(train_target(TRAIN_BATCH, H, W))}
+
+    def train(mesh):
+        model = build_model(flagship_cfg(), device=dev)
+        model.load_state_dict(state)
+        trainer = Trainer(model, optim_cfg=TRAIN_OPTIM, trainer_cfg=TRAIN_CFG, device=dev, mesh=mesh)
+        dtypes = {p.dtype for p in model.parameters() if p.requires_grad}
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        reduces = pmesh.COLLECTIVES["all_reduce"]
+        losses, ms = [], []
+        for _ in range(P_STEPS):
+            t1 = time.perf_counter()
+            losses.append(trainer.training_batch(batch)["loss"])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+        out = {"loss": [float(v) for v in losses], "params": {k: p.detach().clone() for k, p in
+                                                             model.named_parameters()},
+               "ms": ms, "launches": {k: v for k, v in kernels.launch_counts().items() if v},
+               "all_reduces": pmesh.COLLECTIVES["all_reduce"] - reduces, "dtypes": len(dtypes)}
+        del trainer, model
+        torch.cuda.empty_cache()
+        return out
+
+    runs = {"plain": train(None)}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = pmesh.make_mesh()
+        if not (mesh.distributed and mesh.size == 1 and mesh.device.type == dev.type):
+            raise AssertionError(f"P1: the mesh of a one-process NCCL group reads {mesh}")
+        runs["data_parallel"] = train(mesh)
+    finally:
+        dist.destroy_process_group()
+    runs["plain_2"] = train(None)
+    a, b, dp = runs["plain"], runs["plain_2"], runs["data_parallel"]
+    want = {k: v * P_STEPS for k, v in PER_STEP["train_bf16_psf1d"].items()}
+    params = {}
+    for k in a["params"]:
+        spread, err = max_abs(b["params"][k], a["params"][k]), max_abs(dp["params"][k], a["params"][k])
+        params[k] = (err, spread)
+    bad = {k: v for k, v in params.items() if v[0] > 2 * v[1]}
+    loss_spread = max(abs(u - v) for u, v in zip(a["loss"], b["loss"]))
+    loss_err = max(abs(u - v) for u, v in zip(dp["loss"], a["loss"]))
+    rec = {"p1": "train_bf16_psf1d", "batch": TRAIN_BATCH, "steps": P_STEPS, "world_size": 1, "backend": "nccl",
+           **{f"ms_per_step_{name}": r["ms"] for name, r in runs.items()},
+           "loss": {name: r["loss"] for name, r in runs.items()}, "loss_err": loss_err, "loss_spread": loss_spread,
+           "param_max_err": max(e for e, _ in params.values()), "param_max_spread": max(s for _, s in params.values()),
+           "params_outside_twice_the_spread": bad, "all_reduces": {name: r["all_reduces"] for name, r in runs.items()},
+           "launches_per_step": {name: {k: v / P_STEPS for k, v in r["launches"].items()} for name, r in runs.items()},
+           "card": card}
+    emit(rec)
+    for name, r in runs.items():
+        if r["launches"] != want:
+            raise AssertionError(f"P1 {name}: launches {r['launches']} != expected {want}")
+    if dp["all_reduces"] != P_STEPS * dp["dtypes"] or a["all_reduces"] or b["all_reduces"]:
+        raise AssertionError(f"P1: all-reduces {rec['all_reduces']}, expected {P_STEPS * dp['dtypes']} in the group")
+    if bad or loss_err > 2 * loss_spread or not all(np.isfinite(dp["loss"])):
+        raise AssertionError(f"P1: the group's step differs from the plain steps beyond their spread: {rec}")
+    for k, v in dp["launches"].items():
+        p_counts[k] += v
+    del runs, a, b, dp, batch, y, sens, mask
+    torch.cuda.empty_cache()
+    parts["P1"] = time.perf_counter() - t0
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_p_"))
+    cache_before = os.environ.get("MRIDC_TPU_CACHE_DIR")
+    try:
+        # P2. a registered name and a cached URL
+        t0 = time.perf_counter()
+        os.environ["MRIDC_TPU_CACHE_DIR"] = str(tmp / "cache")
+        cached = cache_path(P_URL, P_URL.rsplit("/", 1)[-1])
+        cached.parent.mkdir(parents=True)
+        shutil.copyfile(archive, cached)
+        pretrained.register_pretrained_model(pretrained.PretrainedModelInfo(P_PRETRAINED, "phase L1's CIRIM",
+                                                                            str(archive)))
+        _, want_state = load_archive(archive)
+        restored = {}
+        for via in (P_PRETRAINED, P_URL):
+            model, got, _ = pretrained.from_pretrained(via, device=dev)
+            same = sorted(got) == sorted(want_state) and all(torch.equal(got[k], want_state[k]) for k in got) and \
+                all(torch.equal(v.cpu(), want_state[k]) for k, v in model.state_dict().items())
+            if not same:
+                raise AssertionError(f"P2: from_pretrained({via!r}) does not give the archive's weights bit for bit")
+            restored[via] = model
+        yb, sb, mb = (t(a) for a in bench_data(2, COILS, H, W, seed=4))
+        with torch.inference_mode():
+            outs = [restored[v](yb, sb, mb).prediction.float() for v in (P_PRETRAINED, P_URL, P_PRETRAINED)]
+        fwd_err, fwd_spread = max_abs(outs[1], outs[0]), max_abs(outs[2], outs[0])
+        del restored, outs
+
+        # cli run: mode test from the registered name, on a phantom volume
+        vols = {"phantom/1d/p": {f: (*v[:3], None) for f, v in d_volumes("p", 1, 2, COILS, H, W, seed=29).items()}}
+        mask_args = [f"model.test_ds.mask_args.{k}={v}"
+                     for k, v in (("type", '"equispaced1d"'), ("accelerations", "[4]"), ("center_fractions", "[0.08]"))]
+        run_cfg = apply_overrides(LAUNCH_CFG, ['mode="test"', "pretrained=true", f'checkpoint="{P_PRETRAINED}"',
+                                               'model.test_ds.data_path="phantom/1d/p"', 'model.dc_mode="full"',
+                                               f'exp_manager.exp_dir="{tmp / "run"}"', *mask_args])
+        save_config(run_cfg, tmp / "p_test.json")
+        ran, written = {}, {}
+        real_run = launch_mod.run_from_config
+
+        def recording(cfg, device=None):
+            ran["out"] = real_run(cfg, device)
+            return ran["out"]
+
+        def source(root, transform, **_):
+            return PhantomSource(vols[root], transform)
+
+        with mock.patch.object(factory, "ReconstructionMRIDataset", source), \
+                mock.patch.object(launch_mod, "run_from_config", recording), h5_writes_captured(written):
+            cli.main(["run", "-c", str(tmp / "p_test.json")])
+            trainer = ran["out"][0]
+            cli_same = all(torch.equal(v.detach().cpu(), want_state[k]) for k, v in trainer.model.state_dict().items())
+            ref_model, _, _ = pretrained.from_pretrained(P_PRETRAINED, override_config={"dc_mode": "full"}, device=dev)
+            loader = factory.build_dataloader(run_cfg["model"]["test_ds"], run_cfg["model"], shuffle=False, device=dev)
+            refs = [Trainer(ref_model, device=dev).test(loader)[0] for _ in range(2)]
+        fname = sorted(refs[0])[0]
+        got_rec = torch.from_numpy(written[(fname, "reconstruction")])
+        cli_err = max_abs(got_rec, torch.from_numpy(refs[0][fname]))
+        cli_spread = max_abs(torch.from_numpy(refs[1][fname]), torch.from_numpy(refs[0][fname]))
+        rec = {"p2": "pretrained", "name": P_PRETRAINED, "url": P_URL, "cached_at": str(cached.relative_to(tmp)),
+               "weights_bit_for_bit": True, "forward_err": fwd_err, "forward_spread": fwd_spread,
+               "cli_weights_bit_for_bit": cli_same, "cli_test_shape": list(got_rec.shape), "cli_test_err": cli_err,
+               "cli_test_spread": cli_spread, "cli_test_metrics": ran["out"][1], "card": card}
+        emit(rec)
+        if fwd_err > fwd_spread or not cli_same or cli_err > cli_spread or not bool(torch.isfinite(got_rec).all()):
+            raise AssertionError(f"P2: {rec}")
+        del trainer, ref_model, loader, ran
+        torch.cuda.empty_cache()
+        parts["P2"] = time.perf_counter() - t0
+
+        # P3. export at B=8: the hand kernels inside the program
+        t0 = time.perf_counter()
+        y, sens, mask = (t(a) for a in bench_data(BATCH, COILS, H, W))
+        for name, (kind, over, table) in P_EXPORT.items():
+            model = p_export_model(name, dev)
+            per_forward = (PER_FORWARD if kind == "cirim" else VN_PER_FORWARD)[table]
+            with torch.inference_mode():
+                eager = [model(y, sens, mask).prediction.float() for _ in range(2)]
+            path, export_s = p_export(name, str(tmp / f"{name}.pt2"))
+            path = Path(path)
+            t1 = time.perf_counter()
+            loaded = load_exported(path)
+            load_s = time.perf_counter() - t1
+            ops = {str(n.target).split(".")[1] for n in loaded.program.graph.nodes
+                   if str(n.target).startswith("mridc_tpu_torch.")}
+            run_s = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                t1 = time.perf_counter()
+                got = loaded(y, sens, mask).prediction.float()
+                torch.cuda.synchronize()
+                run_s.append(time.perf_counter() - t1)
+                launches = {k: v for k, v in kernels.launch_counts().items() if v}
+            for k, v in launches.items():
+                p_counts[k] += v
+            err, spread = max_abs(got, eager[0]), max_abs(eager[1], eager[0])
+            rec = {"p3": name, "batch": BATCH, "export_s": export_s, "load_s": load_s, "run_s": run_s,
+                   "file_mib": path.stat().st_size / 2**20, "ops": sorted(ops), "launches_per_forward": launches,
+                   "max_abs_err_vs_eager": err, "eager_spread": spread, "card": card}
+            emit(rec)
+            if launches != per_forward:
+                raise AssertionError(f"P3 {name}: the program launches {launches} != {per_forward}")
+            if ops != P_OPS[name]:
+                raise AssertionError(f"P3 {name}: the graph holds the ops {sorted(ops)}, expected {P_OPS[name]}")
+            if err > spread or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"P3 {name}: the program's output is {err} from the eager forward's "
+                                     f"(spread {spread})")
+            del model, loaded, eager, got
+            torch.cuda.empty_cache()
+        parts["P3"] = time.perf_counter() - t0
+    finally:
+        if cache_before is None:
+            os.environ.pop("MRIDC_TPU_CACHE_DIR", None)
+        else:
+            os.environ["MRIDC_TPU_CACHE_DIR"] = cache_before
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r in rows:
+        r["p_launches"] = p_counts.get(r["name"], 0)
+    emit({"phase": "P", "seconds": time.perf_counter() - t_p, "parts_s": parts, "card": card})
+
+
+def p_only() -> int:
+    """``--phase P``: the card, the kernel build and phase P alone, with an
+    archive of ``LAUNCH_CFG``'s model at weights drawn from a seed in place
+    of L1's. Prints no contract line."""
+    import tempfile
+
+    import torch
+
+    from mridc_tpu_torch import kernels
+    from mridc_tpu_torch.models import build_model
+    from mridc_tpu_torch.train.checkpoints import save_archive
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda})
+    emit({"phase": "build", "per_library_s": kernels.build()})
+    rows = [{"name": k} for k in kernels.launch_counts()]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_p_archive_"))
+    try:
+        model = build_model(LAUNCH_CFG["model"], device="cpu", generator=torch.Generator().manual_seed(7))
+        save_archive(tmp / "cirim.mridc", LAUNCH_CFG["model"], model.state_dict())
+        p_phase(torch.device(DEVICE), card, rows, tmp / "cirim.mridc")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"p_launches": {r["name"]: r["p_launches"] for r in rows}})
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -5049,6 +5422,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     import mridc_tpu_torch  # noqa: F401  (raises outside a checkout of the repository)
+
+    if sys.argv[1:] == ["--phase", "P"]:
+        return p_only()
 
     t_start = time.perf_counter()
     # the poisson2d masks of D1-D3, drawn beside phases 2-V4, and of S, beside
@@ -5853,7 +6229,7 @@ def run(t_start, masks, s_masks) -> int:
     d2_recs = data_phases(dev, card, rows, state, state_small, small, {r["run"]: r for r in train_recs}, masks)
 
     # L. the launch path: training from the config file at full width
-    launch_phase(dev, card, rows, masks, d2_recs)
+    archive = launch_phase(dev, card, rows, masks, d2_recs)
 
     # Z, Z8. the zoo: ZF, ProximalGradient, UNet and ResNet serving and training,
     # beside the draws of S's masks
@@ -5888,6 +6264,13 @@ def run(t_start, masks, s_masks) -> int:
     # their config files
     j_phase(dev, card, rows)
     j_launch_phase(dev, card, rows, masks)
+
+    # P. data parallelism over NCCL, pretrained models from L1's archive, and
+    # export with the hand kernels
+    try:
+        p_phase(dev, card, rows, archive)
+    finally:
+        shutil.rmtree(archive.parent, ignore_errors=True)
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})

@@ -8,6 +8,14 @@ wrapper is a ``torch.autograd.Function``: on the card its backward launches
 the backward kernel, on the CPU it runs the backward kernel's plain version.
 An input whose gradient a backward does not compute raises when autograd asks
 for it (:func:`refuse_grads`), never gets None or zeros.
+
+While ``torch.export`` traces a model (``torch.compiler.is_exporting()``), the forward
+kernels a serving forward reaches are called as ``torch.library`` custom ops
+of the ``mridc_tpu_torch`` namespace, which the tracer records (it cannot
+follow a ctypes launch): each op launches its kernel on CUDA tensors and runs
+its plain version on CPU tensors when the exported program runs, and its
+fake implementation gives the tracer the output's shape, dtype and layout.
+Outside an export the wrappers launch directly, as before.
 """
 
 from __future__ import annotations
@@ -16,10 +24,16 @@ from typing import Dict, Mapping, Optional, Sequence
 
 import torch
 
-__all__ = ["device_of", "check_operand", "refuse_grads", "dense", "GRAD_COPIES"]
+__all__ = ["device_of", "check_operand", "refuse_grads", "dense", "GRAD_COPIES", "plain_route"]
 
 # layout copies the backward wrappers made of incoming gradients, by wrapper
 GRAD_COPIES: Dict[str, int] = {}
+
+
+def plain_route(t: torch.Tensor) -> bool:
+    """True where a wrapper runs its plain version in place of its stages:
+    CPU tensors outside an export."""
+    return t.device.type == "cpu" and not torch.compiler.is_exporting()
 
 
 def device_of(name: str, *tensors: Optional[torch.Tensor]) -> torch.device:
@@ -45,6 +59,8 @@ def dense(name: str, g: torch.Tensor, channels_last: bool = False) -> torch.Tens
     """``g`` contiguous (or channels_last) and 16-byte aligned, as a kernel
     reads it; a copy, when one is needed, is counted in :data:`GRAD_COPIES`."""
     fmt = torch.channels_last if channels_last else torch.contiguous_format
+    if torch.compiler.is_exporting():  # a traced tensor has no address: the op checks it when it runs
+        return g.contiguous(memory_format=fmt)
     if g.is_contiguous(memory_format=fmt) and g.data_ptr() % 16 == 0:
         return g
     GRAD_COPIES[name] = GRAD_COPIES.get(name, 0) + 1

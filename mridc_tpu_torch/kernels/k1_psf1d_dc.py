@@ -19,6 +19,10 @@ The gradient with respect to the operator is not ported.
 :func:`psf1d_normal` is the normal operator A alone (VarNet's psf1d q-term,
 ``mridc_tpu/models/recon/vn.py:63-77``): channels 2:4 of the same kernels with
 z0 = 0 and sigma = 1.
+
+While a model is exported, the forward launch is the custom op
+``mridc_tpu_torch::k1_psf1d_dc`` (``kernels/common.py``): the kernel on CUDA
+tensors, :func:`psf1d_dc_plain` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -171,11 +175,30 @@ def psf1d_dc_sens_bwd(g, eta, sens, mats, sigma: float = 1.0):
     return d_eta, d_sens
 
 
+@torch.library.custom_op("mridc_tpu_torch::k1_psf1d_dc", mutates_args=())
+def psf1d_dc_op(eta: torch.Tensor, sens: torch.Tensor, mats: torch.Tensor, z0: torch.Tensor,
+                sigma: float) -> torch.Tensor:
+    """The forward launch as a custom op: the plain version (CPU)."""
+    return psf1d_dc_plain(eta, sens, mats, z0, sigma)
+
+
+@psf1d_dc_op.register_kernel("cuda")
+def _(eta, sens, mats, z0, sigma):
+    return _forward_kernel(eta, sens, mats, z0, sigma, eta.device)
+
+
+@psf1d_dc_op.register_fake
+def _(eta, sens, mats, z0, sigma):
+    return sens.new_empty((*eta.shape[:3], 4))
+
+
 class _Psf1dDC(torch.autograd.Function):
     @staticmethod
     def forward(ctx, eta, sens, mats, z0, sigma):
         ctx.save_for_backward(sens, mats, eta if ctx.needs_input_grad[1] else None)
         ctx.sigma = sigma
+        if torch.compiler.is_exporting():
+            return psf1d_dc_op(eta, sens, mats, z0, float(sigma))
         if eta.device.type == "cpu":
             return psf1d_dc_plain(eta, sens, mats, z0, sigma)
         return _forward_kernel(eta, sens, mats, z0, sigma, eta.device)

@@ -77,6 +77,12 @@ kernel; :func:`full_dc`, :func:`sens_expand` and :func:`sens_reduce` take the
 JAX-identical ``nn/dc.py`` functions on the CPU and the stages on the card.
 They are differentiable in ``eta``, the image, the k-space and the maps on
 both; the gradients with respect to y and the mask are not ported.
+
+While a model is exported, the forward stages are the custom ops
+``mridc_tpu_torch::k2_expand``, ``k2_residual``, ``k2_load``, ``k2_reduce``
+and ``k2_mask`` (``kernels/common.py``; residual and mask work in place on
+the FFT's output, as their kernels do), and the Functions take the stages on
+CPU tensors too, so that an exported program holds the card's chain.
 """
 
 from __future__ import annotations
@@ -86,7 +92,7 @@ from typing import Optional, Sequence
 import torch
 
 from mridc_tpu_torch.kernels.binding import launch
-from mridc_tpu_torch.kernels.common import check_operand, dense, device_of, refuse_grads
+from mridc_tpu_torch.kernels.common import check_operand, dense, device_of, plain_route, refuse_grads
 from mridc_tpu_torch.nn import dc
 from mridc_tpu_torch.ops.cplx import cmul, cmul_conj
 from mridc_tpu_torch.ops.fft import _norm, fft2_rv, ifft2_rv
@@ -328,6 +334,8 @@ def expand(eta, sens, centered: bool) -> torch.Tensor:
     """Stage (a): complex64 [B, C, H, W] = ifftshift(s * eta); ``eta`` may be
     channels 2:4 of a contiguous [B, H, W, 4] (the backward's g)."""
     dev = device_of("full_dc.expand", eta, sens)
+    if torch.compiler.is_exporting():
+        return expand_op(eta, sens, centered)
     if dev.type == "cpu":
         return expand_plain(eta, sens, centered)
     b, c, h, w = _coil_dims("full_dc.expand", sens)
@@ -343,6 +351,9 @@ def residual(k, y, mask, centered: bool) -> torch.Tensor:
     """Stage (b): m * (k - y) on the forward FFT's output; on the card it
     overwrites ``k`` and returns it."""
     dev = device_of("full_dc.residual", k, y, mask)
+    if torch.compiler.is_exporting():
+        residual_op(k, y, mask, centered)
+        return k
     if dev.type == "cpu":
         return residual_plain(k, y, mask, centered)
     b, c, h, w = k.shape
@@ -358,6 +369,9 @@ def apply_mask(k, mask, centered: bool) -> torch.Tensor:
     """Backward stage (mask): m * k on the forward FFT's output; on the card
     it overwrites ``k`` and returns it."""
     dev = device_of("full_dc.mask", k, mask)
+    if torch.compiler.is_exporting():
+        apply_mask_op(k, mask, centered)
+        return k
     if dev.type == "cpu":
         return apply_mask_plain(k, mask, centered)
     b, c, h, w = k.shape
@@ -371,6 +385,8 @@ def load(y, mask: Optional[torch.Tensor], centered: bool, fftshift: bool = False
     """Stage (load): complex64 [B, C, H, W] = ifftshift(m * y), m optional;
     with ``fftshift`` the fftshift (the FFT's output back to centered order)."""
     dev = device_of("full_dc.load", y, mask)
+    if torch.compiler.is_exporting():
+        return load_op(y, mask, centered, fftshift)
     if dev.type == "cpu":
         return load_plain(y, mask, centered, fftshift)
     b, c, h, w = _coil_dims("full_dc.load", y)
@@ -385,6 +401,8 @@ def load(y, mask: Optional[torch.Tensor], centered: bool, fftshift: bool = False
 def reduce(p, sens, eta: Optional[torch.Tensor], centered: bool, sigma: float = 1.0) -> torch.Tensor:
     """Stage (c): sum_c conj(s_c) fftshift(p_c) / sigma^2, as [eta, grad] or grad."""
     dev = device_of("full_dc.reduce", p, sens, eta)
+    if torch.compiler.is_exporting():
+        return reduce_op(p, sens, eta, centered, float(sigma))
     if dev.type == "cpu":
         return reduce_plain(p, sens, eta, centered, sigma)
     b, c, h, w = _coil_dims("full_dc.reduce", sens)
@@ -448,6 +466,81 @@ def sens_grad(a, b, centered: bool, scale: float = 1.0, a2=None, b2=None, sens=N
     return ds, total
 
 
+# ---- the forward stages as custom ops (taken while a model is exported) ----
+
+
+@torch.library.custom_op("mridc_tpu_torch::k2_expand", mutates_args=())
+def expand_op(eta: torch.Tensor, sens: torch.Tensor, centered: bool) -> torch.Tensor:
+    """:func:`expand` as a custom op: the plain version (CPU)."""
+    return expand_plain(eta, sens, centered)
+
+
+@torch.library.custom_op("mridc_tpu_torch::k2_residual", mutates_args=("k",))
+def residual_op(k: torch.Tensor, y: torch.Tensor, mask: torch.Tensor, centered: bool) -> None:
+    """:func:`residual` as a custom op, in place on ``k``: the plain version (CPU)."""
+    k.copy_(residual_plain(k, y, mask, centered))
+
+
+@torch.library.custom_op("mridc_tpu_torch::k2_mask", mutates_args=("k",))
+def apply_mask_op(k: torch.Tensor, mask: torch.Tensor, centered: bool) -> None:
+    """:func:`apply_mask` as a custom op, in place on ``k``: the plain version (CPU)."""
+    k.copy_(apply_mask_plain(k, mask, centered))
+
+
+@torch.library.custom_op("mridc_tpu_torch::k2_load", mutates_args=())
+def load_op(y: torch.Tensor, mask: Optional[torch.Tensor], centered: bool, fftshift: bool) -> torch.Tensor:
+    """:func:`load` as a custom op: the plain version (CPU)."""
+    return load_plain(y, mask, centered, fftshift)
+
+
+@torch.library.custom_op("mridc_tpu_torch::k2_reduce", mutates_args=())
+def reduce_op(p: torch.Tensor, sens: torch.Tensor, eta: Optional[torch.Tensor], centered: bool,
+              sigma: float) -> torch.Tensor:
+    """:func:`reduce` as a custom op: the plain version (CPU)."""
+    return reduce_plain(p, sens, eta, centered, sigma)
+
+
+# on the card each op is its stage's launch
+expand_op.register_kernel("cuda")(expand)
+load_op.register_kernel("cuda")(load)
+reduce_op.register_kernel("cuda")(reduce)
+
+
+@residual_op.register_kernel("cuda")
+def _(k, y, mask, centered):
+    residual(k, y, mask, centered)
+
+
+@apply_mask_op.register_kernel("cuda")
+def _(k, mask, centered):
+    apply_mask(k, mask, centered)
+
+
+@expand_op.register_fake
+def _(eta, sens, centered):
+    return sens.new_empty(sens.shape[:4], dtype=torch.complex64)
+
+
+@residual_op.register_fake
+def _(k, y, mask, centered):
+    return None
+
+
+@apply_mask_op.register_fake
+def _(k, mask, centered):
+    return None
+
+
+@load_op.register_fake
+def _(y, mask, centered, fftshift):
+    return y.new_empty(y.shape[:4], dtype=torch.complex64)
+
+
+@reduce_op.register_fake
+def _(p, sens, eta, centered, sigma):
+    return sens.new_empty((sens.shape[0], *sens.shape[2:4], 2 if eta is None else 4), dtype=torch.float32)
+
+
 def _check_layout(name, spatial_dims, coil_dim):
     if tuple(spatial_dims) not in ((-2, -1), (2, 3)) or coil_dim != 1:
         raise ValueError(f"{name}: the kernels take [B, C, H, W, 2] with coils on axis 1")
@@ -502,7 +595,7 @@ class _FullDC(torch.autograd.Function):
         else:
             ctx.save_for_backward(sens, mask)
         ctx.args = (sigma, fft_centered, fft_normalization)
-        if eta.device.type == "cpu":
+        if plain_route(eta):
             return full_dc_plain(eta, y, sens, mask, sigma, fft_centered, fft_normalization, spatial_dims, coil_dim)
         return _full_dc_kernels(eta, y, sens, mask, sigma, fft_centered, fft_normalization)
 
@@ -604,7 +697,7 @@ class _SensExpand(torch.autograd.Function):
     def forward(ctx, image, sens, mask, fft_centered, fft_normalization, fft_order):
         ctx.save_for_backward(sens, mask, image if ctx.needs_input_grad[1] else None)
         ctx.args = (fft_centered, fft_normalization, fft_order)
-        if image.device.type == "cpu":
+        if plain_route(image):
             return sens_expand_plain(image, sens, fft_centered, fft_normalization, fft_order, mask=mask)
         k = torch.fft.fft2(expand(image, sens, fft_centered), norm=_norm(fft_normalization))
         if mask is not None:
@@ -626,7 +719,7 @@ class _SensReduce(torch.autograd.Function):
     def forward(ctx, kspace, sens, mask, fft_centered, fft_normalization, fft_order):
         ctx.save_for_backward(sens, mask, kspace if ctx.needs_input_grad[1] else None)
         ctx.args = (fft_centered, fft_normalization, fft_order)
-        if kspace.device.type == "cpu":
+        if plain_route(kspace):
             return sens_reduce_plain(kspace, sens, mask, fft_centered, fft_normalization, fft_order=fft_order)
         p = torch.fft.ifft2(_kspace_in("sens_reduce", kspace, mask, fft_centered, fft_order),
                             norm=_norm(fft_normalization))
@@ -690,7 +783,7 @@ class _Reorder(torch.autograd.Function):
 
 
 def _reorder(kspace, fftshift: bool) -> torch.Tensor:
-    if kspace.device.type == "cpu":
+    if plain_route(kspace):
         return _reorder_plain(kspace, True, fftshift)
     return torch.view_as_real(load(dense("reorder", kspace), None, True, fftshift))
 
@@ -725,7 +818,7 @@ def _normal_op_apply(x, sens, mask, mu, fft_centered, fft_normalization) -> torc
     """The operator on ``x``: the plain version for CPU tensors, the stages
     around cuFFT on the card (expand, mask, reduce; mu x added by one
     ``addcmul``)."""
-    if x.device.type == "cpu":
+    if plain_route(x):
         return normal_op_plain(x, sens, mask, mu, fft_centered, fft_normalization)
     norm = _norm(fft_normalization)
     k = torch.fft.fft2(expand(dense("normal_op", x), sens, fft_centered), norm=norm)

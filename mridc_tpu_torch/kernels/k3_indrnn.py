@@ -24,7 +24,9 @@ split exact:
   dW[:, chunk] = g'^T x[chunk]; db, du and dh come from the first chunk.
 
 Every launch is counted (``kernels/binding.py``). On the CPU each launch of the
-plan runs the plain version, so the tests see the card's splits.
+plan runs the plain version, so the tests see the card's splits. While a model
+is exported, each forward launch is the custom op
+``mridc_tpu_torch::k3_indrnn`` (``kernels/common.py``).
 """
 
 from __future__ import annotations
@@ -233,6 +235,22 @@ def _forward_kernel(x, h, weight, bias, hh) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op("mridc_tpu_torch::k3_indrnn", mutates_args=())
+def indrnn_op(x: torch.Tensor, h: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+              hh: torch.Tensor) -> torch.Tensor:
+    """One forward launch as a custom op: the plain version (CPU), laid out
+    channels_last as the kernel writes it."""
+    return indrnn_plain(x, h, weight, bias, hh).contiguous(memory_format=torch.channels_last)
+
+
+indrnn_op.register_kernel("cuda")(_forward_kernel)  # on the card: the launch
+
+
+@indrnn_op.register_fake
+def _(x, h, weight, bias, hh):
+    return torch.empty_like(h, memory_format=torch.channels_last)
+
+
 def _channels(t: torch.Tensor, a: int, b: int) -> torch.Tensor:
     """Channels [a, b) of a [B, C, H, W] activation, dense channels_last (a
     copy unless they are all of them)."""
@@ -248,7 +266,10 @@ def _forward(x, h, weight, bias, hh) -> torch.Tensor:
     outs = []
     for a, b in plan(x.dtype, x.shape[1], h.shape[1]).fwd:
         args = (x, _channels(h, a, b), weight[a:b], None if bias is None else bias[a:b], hh[:, a:b])
-        outs.append(indrnn_plain(*args) if x.device.type == "cpu" else _forward_kernel(*args))
+        if torch.compiler.is_exporting():
+            outs.append(indrnn_op(*args))
+        else:
+            outs.append(indrnn_plain(*args) if x.device.type == "cpu" else _forward_kernel(*args))
     return outs[0] if len(outs) == 1 else torch.cat(outs, 1).contiguous(memory_format=torch.channels_last)
 
 

@@ -20,7 +20,8 @@ AHEAD-format volumes through ``qMRIDataset`` and ``QBatchLoader`` (the
 model config's ``TEs``; ``fft_centered`` true and ``fft_normalization``
 "ortho" where the model config omits them, as the JAX package does) and
 trains with ``QuantitativeTrainer``. ``pretrained: true`` takes a ``.mridc``
-archive path, of the reference torch format or ``mridc_tpu``'s.
+archive path (of the reference torch format or ``mridc_tpu``'s), a URL or a
+registered pretrained name as ``checkpoint``.
 """
 
 from __future__ import annotations
@@ -164,15 +165,15 @@ def _auto_dc_mode(model_cfg: dict) -> dict:
 
 def _pretrained_state(ckpt):
     """The weights of a ``pretrained: true`` checkpoint: a ``.mridc`` archive
-    path. Registered names and URLs are ``models/pretrained.py``'s (M13)."""
+    path, a URL or a registered pretrained name (``models/pretrained.py``)."""
     if ckpt in (None, "", "None", "null"):
-        raise ValueError("pretrained: true requires checkpoint: <path of a .mridc archive>")
-    if not Path(str(ckpt)).is_file():
-        raise NotImplementedError(f"checkpoint {ckpt!r} is not a file: registered pretrained names and URLs "
-                                  "(models/pretrained.py) are not ported to mridc_tpu_torch yet: ROADMAP.md M13")
+        raise ValueError("pretrained: true requires checkpoint: <path | url | registered name>")
+    from mridc_tpu_torch.models.pretrained import resolve_pretrained
     from mridc_tpu_torch.train.checkpoints import load_archive
 
-    _, state = load_archive(str(ckpt))
+    # the name or URL resolves as from_pretrained resolves it; the weights go
+    # into the launcher's own model, so none is built here
+    _, state = load_archive(resolve_pretrained(str(ckpt)))
     logger.info(f"Loaded pretrained weights from {ckpt}")
     return state
 

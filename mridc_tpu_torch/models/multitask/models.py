@@ -56,14 +56,16 @@ from mridc_tpu_torch.nn.seg_blocks import AttentionGate, AttentionUnet, LambdaUn
 from mridc_tpu_torch.nn.unet import Unet
 from mridc_tpu_torch.ops.cplx import cabs, ccombine
 from mridc_tpu_torch.ops.fft import fft2_rv, ifft2_rv
+from mridc_tpu_torch.parallel.mesh import joined_amax
 
 __all__ = ["MTLRS", "IDSLR", "IDSLRUNet", "SegNet", "RecSegUNet", "SERANet", "SERANetDC"]
 
 
 def _norm_by_max(s: torch.Tensor) -> torch.Tensor:
-    """``s / max(s)`` by the SIGNED maximum of the whole tensor, 1 where |max|
-    < 1e-12."""
-    m = torch.amax(s)
+    """``s / max(s)`` by the SIGNED maximum of the whole tensor (of the
+    processes' joined batch across processes: ``parallel/mesh.py``), 1 where
+    |max| < 1e-12."""
+    m = joined_amax(s)
     return s / torch.where(torch.abs(m) < 1e-12, torch.ones_like(m), m)
 
 

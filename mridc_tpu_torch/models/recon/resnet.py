@@ -26,6 +26,7 @@ from torch import nn
 from mridc_tpu_torch.kernels.k2_full_dc import normal_op
 from mridc_tpu_torch.models.base import BaseReconModel, ModelOutput, drawn, expand_mask
 from mridc_tpu_torch.nn.layers import Conv, fan_avg_truncated_normal_
+from mridc_tpu_torch.parallel.mesh import all_reduce_sum
 
 __all__ = ["ResidualNetwork", "conjugate_gradient", "ResNet", "ProximalGradient", "cdot", "cdiv", "cscale"]
 
@@ -76,8 +77,9 @@ def _c(x: torch.Tensor) -> torch.Tensor:
 
 
 def cdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """<a, b> = sum over every axis of conj(a) b, as an (re, im) pair."""
-    return torch.view_as_real(torch.vdot(_c(a).reshape(-1), _c(b).reshape(-1)))
+    """<a, b> = sum over every axis of conj(a) b, as an (re, im) pair; over
+    the processes' joined batch across processes (``parallel/mesh.py``)."""
+    return all_reduce_sum(torch.view_as_real(torch.vdot(_c(a).reshape(-1), _c(b).reshape(-1))))
 
 
 def cdiv(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:

@@ -29,6 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mridc_tpu_torch.parallel.mesh import all_reduce_sum, distributed_world, joins_processes
+
 __all__ = ["Conv", "ConvTranspose", "Conv3d", "ConvTranspose3d", "Dense", "ConvNonlinear", "InstanceNorm",
            "BatchNorm", "as_torch_dtype", "activation", "conv2d", "cudnn_float32", "prelu", "replicate_pad",
            "fan_in_truncated_normal_", "fan_avg_truncated_normal_", "nearest_resize", "bilinear_resize"]
@@ -336,7 +338,14 @@ class BatchNorm(nn.Module):
     package's ``batch_stats`` collection). Train mode normalises with the
     batch's biased statistics and updates running = (1 - m) running + m batch
     with the unbiased batch variance (``F.batch_norm``'s own update); eval
-    mode normalises with the running ones."""
+    mode normalises with the running ones.
+
+    Across processes (a process group of more than one), train mode takes the
+    statistics of the batch the processes hold together, as the JAX package's
+    step over the mesh's global batch does: the per-channel sums are summed
+    over the processes, differentiably (``parallel/mesh.py``
+    ``all_reduce_sum``), and every process updates the same running
+    statistics. ``torch.nn.SyncBatchNorm`` takes CUDA tensors only."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1, live: bool = False):
         super().__init__()
@@ -365,7 +374,9 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         xf = x.float()
-        if self.live:
+        if train and joins_processes():
+            out = self._joined_batch_norm(xf)
+        elif self.live:
             out = F.batch_norm(xf, self.running_mean, self.running_var, self.weight, self.bias, train, self.momentum,
                                self.eps)
         elif train:
@@ -375,6 +386,25 @@ class BatchNorm(nn.Module):
         if out.requires_grad and out.device.type == "cpu":
             out.register_hook(_relaid_like(xf))
         return out.to(x.dtype)
+
+
+    def _joined_batch_norm(self, xf: torch.Tensor) -> torch.Tensor:
+        """Train mode over the processes' joined batch (equal shards): the
+        biased mean and variance from sums over every process, two passes."""
+        world = distributed_world()
+        dims = [0] + list(range(2, xf.ndim))
+        shape = [1, -1] + [1] * (xf.ndim - 2)
+        n = xf.numel() // xf.shape[1] * world
+        mean = all_reduce_sum(xf.sum(dims)) / n
+        centered = xf - mean.reshape(shape)
+        var = all_reduce_sum((centered * centered).sum(dims)) / n
+        if self.live:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(mean.detach(), alpha=m)
+                self.running_var.mul_(1 - m).add_(var.detach() * (n / max(n - 1, 1)), alpha=m)
+        return centered * torch.rsqrt(var + self.eps).reshape(shape) * self.weight.reshape(shape) + \
+            self.bias.reshape(shape)
 
 
 def _relaid_like(x: torch.Tensor):

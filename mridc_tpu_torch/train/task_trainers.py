@@ -138,6 +138,12 @@ def seg_loss_cfg_from_model_cfg(model_cfg: Dict) -> Dict:
     )
 
 
+def _logits_joined(trainer: Trainer, logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Segmentation logits joined over the processes along their batch axis
+    (axis 1 under a leading stack axis: one more axis than the target)."""
+    return trainer._joined(logits, 1 if logits.ndim == target.ndim + 1 else 0)
+
+
 def _tie_safe_onehot(logits: np.ndarray) -> np.ndarray:
     """One-hot of the argmax: exactly one class per pixel, ties included."""
     return np.eye(logits.shape[-1], dtype=np.float32)[logits.argmax(-1)]
@@ -191,7 +197,8 @@ class SegmentationTrainer(Trainer):
             self.init_state(batch)
         image, fold = self._image(batch)
         logits = self._unfold(self.model(image, train=True), fold)
-        loss = segmentation_loss_fn(self._tensor(batch["segmentation"]), logits, **self.seg_loss_cfg)
+        target = self._tensor(batch["segmentation"])
+        loss = segmentation_loss_fn(self._joined(target), _logits_joined(self, logits, target), **self.seg_loss_cfg)
         return {"loss": loss.detach(), "grad_norm": self._apply_loss(loss)}
 
     def predict_batch(self, batch: Dict, use_ema: bool = False) -> np.ndarray:
@@ -287,9 +294,10 @@ class MultitaskTrainer(Trainer):
         if self.state is None:
             self.init_state(batch)
         out, seg_logits = self.model(*self._model_inputs(batch), train=True)
-        recon = process_reconstruction_loss(out, self._tensor(batch["target"]), self.loss_type,
-                                            self.loss_regularization_factor)
-        seg = segmentation_loss_fn(self._tensor(batch["segmentation"]), seg_logits, **self.seg_loss_cfg)
+        recon = process_reconstruction_loss(self._joined_output(out), self._joined(self._tensor(batch["target"])),
+                                            self.loss_type, self.loss_regularization_factor)
+        target = self._tensor(batch["segmentation"])
+        seg = segmentation_loss_fn(self._joined(target), _logits_joined(self, seg_logits, target), **self.seg_loss_cfg)
         loss = self.reconstruction_loss_weight * recon + self.segmentation_loss_weight * seg
         return {"loss": loss.detach(), "recon_loss": recon.detach(), "seg_loss": seg.detach(),
                 "grad_norm": self._apply_loss(loss)}
@@ -490,15 +498,16 @@ class QuantitativeTrainer(Trainer):
         """One training step: ``{"loss", "recon_loss", "grad_norm"}``."""
         if self.state is None:
             self.init_state(batch)
-        out = self.model(*self._inputs(batch), train=True)
-        mask_brain = self._tensor(batch["mask_brain"]) if "mask_brain" in batch else None
-        total, _ = quantitative_loss_fn(self._tensor(batch["maps_target"]), self._unnormalized_preds(out),
-                                        mask_brain, self.loss_regularization_factors, self.loss_type)
+        out = self._joined_output(self.model(*self._inputs(batch), train=True))
+        mask_brain = self._joined(self._tensor(batch["mask_brain"])) if "mask_brain" in batch else None
+        total, _ = quantitative_loss_fn(self._joined(self._tensor(batch["maps_target"])),
+                                        self._unnormalized_preds(out), mask_brain, self.loss_regularization_factors,
+                                        self.loss_type)
         lossrecon = torch.zeros((), device=self.device)
         if getattr(self.model, "use_reconstruction_module", False) and "target" in batch \
                 and out.recon_intermediates is not None:
-            lossrecon = quantitative_recon_loss_fn(self._tensor(batch["target"]), out.recon_intermediates,
-                                                   self.loss_type)
+            lossrecon = quantitative_recon_loss_fn(self._joined(self._tensor(batch["target"])),
+                                                   out.recon_intermediates, self.loss_type)
         loss = total + lossrecon
         return {"loss": loss.detach(), "recon_loss": lossrecon.detach(), "grad_norm": self._apply_loss(loss)}
 

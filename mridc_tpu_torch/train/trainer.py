@@ -55,6 +55,16 @@ traces steps [``profile_start_step`` (3), + ``profile_steps`` (5)) with
 :meth:`Trainer.load_state_dict` carry the model, optimizer, plateau
 scheduler, step, epoch, accumulation and EMA state (the step checkpoints).
 
+Across processes (``torch.distributed``, one process a card) the trainer
+takes one step over the batch the processes hold together, as the JAX
+trainer's step over the mesh's global batch: each process reads its shard,
+the model's outputs and the batch's targets are gathered along their batch
+axes before the loss (every batch-coupled reduction of the loss sees the
+joined batch), and the gradients are summed over the processes once a
+micro-step, after the backward and before accumulation, clipping, the
+optimizer and the EMA (``parallel/mesh.py``). Every process starts from
+process 0's weights. Process 0 alone writes checkpoints and the archive.
+
 The trainer runs on the CUDA device unless it is given ``device="cpu"``.
 """
 
@@ -71,7 +81,9 @@ import torch
 
 from mridc_tpu_torch.metrics.reconstruction import METRIC_FUNCS, ReconstructionMetrics, ssim
 from mridc_tpu_torch.models.base import ModelOutput
-from mridc_tpu_torch.parallel.multihost import process_info, reduce_mean_stats
+from mridc_tpu_torch.parallel.mesh import (Mesh, all_reduce_gradients, broadcast_module, gather, joins_processes,
+                                           make_mesh)
+from mridc_tpu_torch.parallel.multihost import all_sum_scalars, reduce_mean_stats
 from mridc_tpu_torch.train.losses import process_reconstruction_loss
 from mridc_tpu_torch.train.optim import get_optimizer, parse_optimizer_args
 from mridc_tpu_torch.train.schedulers import ReduceLROnPlateau, prepare_lr_schedule
@@ -132,6 +144,19 @@ def _host_mag(x) -> np.ndarray:
     return np.abs(x)
 
 
+def _group_mesh(mesh: Optional[Mesh]) -> Mesh:
+    """The mesh of the process group that stands (``make_mesh()``), which a
+    given ``mesh`` must equal: the trainer joins its step over the same
+    processes as the models' batch-coupled reductions
+    (``parallel/mesh.py:joins_processes``)."""
+    group = make_mesh()
+    if mesh is not None and (mesh.size != group.size or mesh.distributed != group.distributed):
+        raise ValueError(f"a trainer's mesh describes the process group that stands ({dict(group.shape)}, "
+                         f"distributed={group.distributed}); got {dict(mesh.shape)}, distributed={mesh.distributed}: "
+                         "build it with parallel.mesh.make_mesh()")
+    return group if mesh is None else mesh
+
+
 def _global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     """optax.global_norm: the l2 norm of all the gradients together."""
     return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
@@ -162,6 +187,7 @@ class Trainer:
         trainer_cfg: Optional[Dict] = None,
         loss_type: str = "l1",
         val_loss_type: Optional[str] = None,
+        mesh: Optional[Mesh] = None,
         use_ema: bool = False,
         ema_decay: float = 0.999,
         loss_regularization_factor: float = 1.0,
@@ -184,6 +210,8 @@ class Trainer:
         # reference models carry a separate val_loss_fn (usually = train's);
         # the monitored val_loss and plateau scheduling follow it
         self.val_loss_type = (val_loss_type or loss_type).lower()
+        # the default process group's data axis (one member without a group)
+        self.mesh = _group_mesh(mesh)
         self.use_ema = use_ema
         self.ema_decay = ema_decay
         self.loss_regularization_factor = loss_regularization_factor
@@ -212,6 +240,7 @@ class Trainer:
         del sample_batch
         if self.schedule is None:
             self.setup_optimization()
+        broadcast_module(self.model)  # every process starts from process 0's weights
         params = [p for p in self.model.parameters() if p.requires_grad]
         opt = None
         if params:  # a model without parameters (ZF) trains nothing: optax's empty tree
@@ -299,6 +328,27 @@ class Trainer:
             init_pred = init_pred.reshape((-1,) + tuple(init_pred.shape[2:]))
         return y, sens, mask, init_pred
 
+    @staticmethod
+    def _joined(x: Optional[torch.Tensor], axis: int = 0) -> Optional[torch.Tensor]:
+        """``x`` joined over the mesh's processes along its batch ``axis``
+        (``x`` itself at one process)."""
+        return gather(x, axis)
+
+    def _joined_output(self, out: ModelOutput) -> ModelOutput:
+        """A model output joined over the processes: the prediction along
+        axis 0, the stacks along the batch axis after their leading stack
+        axes ([C, T, B, ...] on axis 2, a quantitative model's per-echo
+        [E, C, T, B, ...] on axis 3)."""
+        if not joins_processes():
+            return out
+        nd = out.prediction.ndim
+
+        def stack(t):
+            return None if t is None else self._joined(t, t.ndim - nd)
+
+        return ModelOutput(prediction=self._joined(out.prediction), intermediates=stack(out.intermediates),
+                           recon_intermediates=stack(out.recon_intermediates))
+
     # ------------------------------------------------------------------ steps
 
     def training_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
@@ -322,13 +372,18 @@ class Trainer:
         fn = str(getattr(self.model, "fft_normalization", "backward"))
 
         def loss_of(out, tgt, kspace_loss):
+            # over the processes' joined batch (the maps and the loss mask only where the k-space loss reads them)
             return process_reconstruction_loss(
-                out, tgt, self.loss_type, self.loss_regularization_factor, loss_mask, sensitivity_maps=sens,
+                self._joined_output(out), self._joined(tgt), self.loss_type, self.loss_regularization_factor,
+                self._joined(loss_mask) if kspace_loss else loss_mask,
+                sensitivity_maps=self._joined(sens) if kspace_loss else sens,
                 kspace_loss=kspace_loss, fft_centered=fc, fft_normalization=fn)
 
         out = self.model(y, sens, mask, init_pred, train=True)
         supervised = not n2r or self.ssdu or any(bool(a.get("n2r_supervised", False))
                                                  for a in (batch.get("attrs") or []))
+        if n2r and joins_processes():  # any slice of the joined batch, as the JAX step reads its global batch
+            supervised = all_sum_scalars({"supervised": float(supervised)})["supervised"] > 0
         if supervised:
             loss = loss_of(out, target, self.kspace_reconstruction_loss or (self.ssdu and n2r))
         else:
@@ -339,9 +394,9 @@ class Trainer:
         return {"loss": loss.detach(), "grad_norm": self._apply_loss(loss)}
 
     def _apply_loss(self, loss: torch.Tensor) -> torch.Tensor:
-        """The step's tail on its loss: the backward, the gradients' global
-        norm (returned), accumulation, clipping and the optimizer, the EMA and
-        the step count."""
+        """The step's tail on its loss: the backward, the gradients' sum over
+        the processes, the gradients' global norm (returned), accumulation,
+        clipping and the optimizer, the EMA and the step count."""
         st = self.state
         opt = st.optimizer
         if opt is None:  # no parameters: the loss, and the norm of no gradients
@@ -356,6 +411,10 @@ class Trainer:
                 # the optimizer's rule then runs on it (weight decay moves it)
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            # the joined batch's gradient: each process holds the part that
+            # flows through its own rows (parallel/mesh.py); nothing runs
+            # without a process group
+            all_reduce_gradients(params)
             grad_norm = _global_norm([p.grad for p in params])
             if self.accumulate > 1:
                 # optax.MultiSteps: a running mean of the micro-steps' gradients
@@ -422,18 +481,9 @@ class Trainer:
         ``val_loader``) under ``trainer_cfg``'s knobs; returns one dict of
         epoch metrics per epoch (``train_loss`` and the validation metrics).
 
-        Refuses to train across processes (world size > 1), before any step:
-        the port reduces no gradient across processes yet (M13 in
-        ``ROADMAP.md``), so each process would train a replica of its own
-        on its shard while rank 0 alone saved checkpoints (F8). ``validate``
-        and ``test`` run across processes."""
-        count = process_info()[1]
-        if count > 1:
-            raise RuntimeError(
-                f"Trainer.fit: training at world size {count} is refused until M13 (data-parallel gradient "
-                "reduction) lands: the port reduces no gradient across processes, so each would train its own "
-                "replica and rank 0 alone would checkpoint (F8). Train in one process; validate and test run "
-                "across processes.")
+        Across processes each loader yields its process's shard and every
+        step is one step over the joined batch (module docstring); the
+        validation metrics are reduced over the processes."""
         max_epochs = max_epochs or self.trainer_cfg.get("max_epochs", 1)
         ms = self.trainer_cfg.get("max_steps")
         # max_steps counts optimizer steps (PTL); the loop counts micro-steps

@@ -1,9 +1,9 @@
 """Port parity: the command line. ``python -m mridc_tpu_torch run -c
 projects/reconstruction/conf/base_cirim_train.yaml mode=test ...`` in a
 process of its own writes the reconstructions ``mridc_tpu``'s launcher writes
-from the same archive (rtol 2e-3 / atol 2e-4); the commands that are not
-ported raise, naming their ROADMAP.md item. The fixture volumes, the archive
-and the overrides are ``test_torch_port_launch.py``'s.
+from the same archive (rtol 2e-3 / atol 2e-4); ``sweep`` runs its jobs and
+``app`` serves its page. The fixture volumes, the archive and the overrides
+are ``test_torch_port_launch.py``'s.
 """
 
 import os
@@ -39,7 +39,47 @@ def test_test_mode_writes_the_jax_reconstructions(setup, tmp_path):
 
 
 @pytest.mark.parametrize("command", ["sweep", "app"])
-def test_unported_commands_raise_naming_m13(command):
-    args = ["sweep", "-c", str(YAML)] if command == "sweep" else ["app"]
-    with pytest.raises(NotImplementedError, match="M13"):
-        cli.main(args)
+def test_unported_commands_raise_naming_m13(command, monkeypatch, tmp_path):
+    """``sweep`` expands ``--set`` into two jobs of the port's launcher on the
+    config and runs them (each as a dry interpreter run in place of the
+    training) and exits 0 when both do; ``app`` serves the run-builder's page
+    from a process of its own. (The name is the one the test had while both
+    commands raised.)"""
+    if command == "sweep":
+        from mridc_tpu_torch.utils import sweep
+
+        seen, real = [], sweep.subprocess.Popen
+
+        def popen(cmd, env):
+            seen.append(cmd)
+            return real([sys.executable, "-c", "pass"])
+
+        monkeypatch.setattr(sweep.subprocess, "Popen", popen)
+        with pytest.raises(SystemExit) as done:
+            cli.main(["sweep", "-c", str(YAML), "--set", "trainer.max_epochs=1,2"])
+        assert done.value.code == 0
+        assert seen == [[sys.executable, "-m", "mridc_tpu_torch.launch", "--config-path", str(YAML.parent),
+                         "--config-name", YAML.name, f"trainer.max_epochs={n}"] for n in (1, 2)]
+        return
+    import socket
+    import time
+    import urllib.request
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"}
+    proc = subprocess.Popen([sys.executable, "-m", "mridc_tpu_torch", "app", "--port", str(port)], cwd=tmp_path,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    try:
+        deadline, page = time.time() + 120, None
+        while page is None and time.time() < deadline and proc.poll() is None:
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/", timeout=5) as r:
+                    page = r.read()
+            except OSError:
+                time.sleep(0.2)
+        assert page is not None and b"mridc_tpu_torch run builder" in page, proc.poll()
+    finally:
+        proc.kill()
+        proc.wait(timeout=30)

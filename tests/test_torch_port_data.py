@@ -529,29 +529,40 @@ def _fit_batch(seed):
             "target": np.abs(rng.standard_normal((1, 8, 8))).astype(np.float32)}
 
 
-def _fit_trainer():
+def _fit_trainer(exp_dir=None):
     from mridc_tpu_torch.models import build_model
+    from mridc_tpu_torch.train.exp_manager import ExpManager
     from mridc_tpu_torch.train.trainer import Trainer
 
     torch.manual_seed(0)
-    return Trainer(build_model({"model_name": "UNet", "channels": 4, "pooling_layers": 1}, device="cpu"),
-                   trainer_cfg={"max_steps": 2}, device="cpu")
+    exp = None if exp_dir is None else ExpManager(exp_dir=exp_dir, name="fit", version="run", save_top_k=1,
+                                                  model_config=_FIT_MODEL, map_location="cpu")
+    return Trainer(build_model(_FIT_MODEL, device="cpu"), optim_cfg={"name": "sgd", "lr": 0.1},
+                   trainer_cfg={"max_steps": 2}, device="cpu", exp_manager=exp)
 
 
-def _gloo_fit_worker(rank, world, port, out):
+_FIT_MODEL = {"model_name": "UNet", "channels": 4, "pooling_layers": 1}
+
+
+def _joined_fit_batches():
+    """Two steps' batches of each of two processes, and the same rows joined
+    (process 0's first, as the gather orders them)."""
+    shards = [[_fit_batch(10 + 2 * step + rank) for step in range(2)] for rank in range(2)]
+    joined = [{k: np.concatenate([shards[0][step][k], shards[1][step][k]]) for k in shards[0][step]}
+              for step in range(2)]
+    return shards, joined
+
+
+def _gloo_fit_worker(rank, world, port, out, exp_dir):
     import torch.distributed as dist
 
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
     res = {}
     try:
-        trainer = _fit_trainer()
-        before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
-        try:
-            trainer.fit([_fit_batch(10 + rank)] * 2, max_epochs=1)
-        except RuntimeError as exc:
-            res["refused"] = str(exc)
-        res["no_step"] = trainer.state is None and all(
-            torch.equal(v, before[k]) for k, v in trainer.model.state_dict().items())
+        trainer = _fit_trainer(exp_dir)
+        res["history"] = trainer.fit(_joined_fit_batches()[0][rank], max_epochs=1)
+        res["step"] = trainer.state.step
+        res["state"] = {k: v.numpy().copy() for k, v in trainer.model.state_dict().items()}
         res["val"] = trainer.validate([_fit_batch(20 + rank)])
     except Exception as exc:  # reported to the test, which would otherwise wait for the queue
         res["error"] = repr(exc)
@@ -560,37 +571,53 @@ def _gloo_fit_worker(rank, world, port, out):
         dist.destroy_process_group()
 
 
-def test_two_process_fit_refuses_and_validate_reduces():
-    """At world size 2 ``Trainer.fit`` refuses on both ranks, naming M13 and
-    F8, before any step (no optimizer state, the weights as built);
-    ``validate`` still runs on each rank's shard and returns the
-    metrics of both shards together, as one process validating both batches
-    gives them."""
+def test_two_process_fit_refuses_and_validate_reduces(tmp_path):
+    """Two gloo processes fit two SGD steps on their shards of each batch:
+    their weights, their training loss and process 0's ``.mridc`` archive
+    equal one process's fit on the joined batches (loss rtol 1e-5, weights
+    rtol 1e-4 / atol 1e-6), and both processes hold the same weights.
+    ``validate`` still runs on each rank's shard and returns the metrics of
+    both shards together, as one process holding the fitted weights gives them
+    for both batches (rel 1e-12, as before ``fit`` ran across processes).
+    (The name is the one the test had while ``fit`` refused at world size 2.)"""
     import socket
 
     import torch.multiprocessing as mp
+
+    from mridc_tpu_torch.train.checkpoints import load_archive
 
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
-    procs = [ctx.Process(target=_gloo_fit_worker, args=(r, 2, port, out)) for r in range(2)]
+    procs = [ctx.Process(target=_gloo_fit_worker, args=(r, 2, port, out, str(tmp_path / "two"))) for r in range(2)]
     for p in procs:
         p.start()
     res = dict(out.get(timeout=240) for _ in procs)
     for p in procs:
         p.join(timeout=60)
     assert not any(p.is_alive() for p in procs) and all(p.exitcode == 0 for p in procs)
-    want = _fit_trainer().validate([_fit_batch(20), _fit_batch(21)])
+    one = _fit_trainer(str(tmp_path / "one"))
+    history = one.fit(_joined_fit_batches()[1], max_epochs=1)
+    want_state = {k: v.numpy() for k, v in one.model.state_dict().items()}
+    _, archived = load_archive(tmp_path / "two" / "fit" / "run" / "fit.mridc")
+    fitted = _fit_trainer()
+    fitted.model.load_state_dict({k: torch.from_numpy(v) for k, v in res[0]["state"].items()})
+    want = fitted.validate([_fit_batch(20), _fit_batch(21)])
     for rank in range(2):
         r = res[rank]
         assert "error" not in r, r["error"]
-        assert "M13" in r["refused"] and "F8" in r["refused"], r["refused"]
-        assert r["no_step"]
+        assert r["step"] == 2
+        np.testing.assert_allclose(r["history"][0]["train_loss"], history[0]["train_loss"], rtol=1e-5)
+        for k, v in want_state.items():
+            np.testing.assert_allclose(r["state"][k], v, rtol=1e-4, atol=1e-6, err_msg=k)
+            np.testing.assert_array_equal(r["state"][k], res[0]["state"][k], err_msg=k)
         assert sorted(r["val"]) == sorted(want)
         for k, v in want.items():
             assert r["val"][k] == pytest.approx(v, rel=1e-12, abs=1e-12), k
+    for k, v in want_state.items():
+        np.testing.assert_array_equal(archived[k].numpy(), res[0]["state"][k], err_msg=k)
 
 
 # ---- host metrics ----

@@ -144,9 +144,33 @@ def test_unported_tasks_raise_naming_their_item(name, item, tmp_path, monkeypatc
     assert not any(item in v for v in PENDING_MODELS.values())
 
 
-def test_pretrained_name_or_url_raises_naming_m13(tmp_path):
-    with pytest.raises(NotImplementedError, match="M13"):
-        launch._pretrained_state("cirim_knee_registered_name")
+def test_pretrained_name_or_url_raises_naming_m13(setup, tmp_path, monkeypatch):
+    """``pretrained: true`` takes a registered pretrained name, its alias and a
+    URL cached under the JAX package's key as it takes the archive's path:
+    the same weights bit for bit. An unknown name raises
+    ``FileNotFoundError``. (The name is the one the test had while names and
+    URLs raised.)"""
+    from mridc_tpu_torch.models import pretrained
+    from mridc_tpu_torch.train.checkpoints import load_archive
+    from mridc_tpu_torch.utils.cloud import cache_path
+
+    archive = next(o for o in setup[1] if o.startswith("checkpoint=")).split("=", 1)[1]
+    monkeypatch.setattr(pretrained, "_PRETRAINED", {})
+    monkeypatch.setenv("MRIDC_TPU_CACHE_DIR", str(tmp_path / "cache"))
+    url = "https://models.example.org/cirim/cirim_small.mridc"
+    cached = cache_path(url, "cirim_small.mridc")
+    cached.parent.mkdir(parents=True)
+    cached.write_bytes(Path(archive).read_bytes())
+    pretrained.register_pretrained_model(pretrained.PretrainedModelInfo(
+        "cirim_small", "CIRIM, 1 cascade", archive, aliases=("cirim_tiny",)))
+    _, want = load_archive(archive)
+    for ckpt in ("cirim_small", "cirim_tiny", url, archive):
+        got = launch._pretrained_state(ckpt)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (ckpt, k)
+    with pytest.raises(FileNotFoundError, match="cirim_small"):
+        launch._pretrained_state("cirim_knee_unregistered")
 
 
 def test_without_cpu_accelerator_and_without_a_card_it_raises(monkeypatch):
