@@ -51,7 +51,9 @@ Phases (any failure raises; no phase catches its own):
      steps each, launch counters zeroed before and read after; the first-step
      gradients of the three agree on the same B=8 slices (the bf16 ones also
      with the loss's normalising maxima held); 8b. one traced step per run, by
-     layer;
+     layer and by ATen op, and beside it the same step as the port ran it
+     before K4 (``pre_k4``: the slice-copy pad, the conv with its bias and
+     ``F.relu``; ms per step and its trace);
   9. each backward kernel against its plain version on the operands of one of
      its calls in a training step, then its time beside its bound and its
      plain version's time; K1-bf16's forward is also checked and timed at the
@@ -59,6 +61,18 @@ Phases (any failure raises; no phase catches its own):
      the training operands; K3-bwd's launch setup in each dtype (route, tile,
      stages, blocks, blocks per SM, shared memory) beside its library's
      registers and spills;
+  9k. K4 (``csrc/conv_epilogue.cu``): the edge pad, its backward, the
+     bias-and-activation epilogue and its backward in both dtypes on the
+     main path's operands (the first launch of each dtype, pad and width of
+     phase 5's extra forward, at B=8; the backwards' from phase 8's capture
+     step: bf16 at B=24, float32 at 8), and on cases the path does not reach
+     (a contiguous tensor, an odd size, leaky relu, a bias without an
+     activation), against their plain versions (``K4_*`` limits), each
+     timed beside its plain version, its bound and the one PyTorch call that
+     computes the same function where there is one (the pad's
+     ``F.pad(mode="replicate")``, its backward's
+     ``aten.replication_pad2d_backward``); ``python3 chip_smoke.py --phase
+     K4`` runs the build and this check alone on drawn operands;
   V1. E2EVN/VarNet: a small VarNet (2 cascades, 8 channels, 2 pools, 4
      coils, 64x64 and 37x45) on the card against the CPU, both dc_modes, f32
      and bf16, centered ortho and uncentered backward FFTs: the forward, then
@@ -158,8 +172,8 @@ Phases (any failure raises; no phase catches its own):
      set them (``Q_CFGS``) on phantom echoes (15 coils, 320x320, the YAMLs'
      4 TEs): serving (``Q_SERVE``: qCIRIM f32 and bf16 and qVN at B=8,
      qCIRIM with the reconstruction module at B=2; ms, slices/s, launches
-     per forward against ``Q_PER_FORWARD``, the prediction against K2's and
-     K3's plain twins on the card); training through ``QuantitativeTrainer``
+     per forward against ``Q_PER_FORWARD``, the prediction against K2's, K3's
+     and K4's plain twins on the card); training through ``QuantitativeTrainer``
      (``Q_TRAIN``: qCIRIM at B=1 and B=4, qVN at B=1, qCIRIM with the module
      at B=1; first-step loss and gradients against the plain twins, ms,
      slices/s, peak memory, launches per step against ``Q_PER_STEP``);
@@ -196,8 +210,8 @@ Phases (any failure raises; no phase catches its own):
      and library ms (``j_kernels``); J2 the flagship CIRIM with a sens net
      (``j_cirim_cfg``: phase 5's weights, sens_chans 8, sens_pools 4) and J3
      JointICNet at base_jointicnet_train.yaml's widths: serving at B=8 in f32
-     full, f32 psf1d and bf16 psf1d (JointICNet f32) against K1's, K2's and
-     K3's plain twins (``j_twins``), launches per forward against
+     full, f32 psf1d and bf16 psf1d (JointICNet f32) against K1's, K2's, K3's
+     and K4's plain twins (``j_twins``), launches per forward against
      ``J_PER_FORWARD``; training (``J_TRAIN``: the CIRIM at B=8 in three
      routes, JointICNet at 1) with the first float32 step's loss and
      gradients against the twins at batch 1, the sens net's gradient finite
@@ -277,11 +291,16 @@ MAIN_GAIN = 0.3
 
 # launches per flagship forward (5 cascades x 8 steps): K1 once and K3 twice
 # per step; K2's reduce and load once for the SENSE init and once per cascade
-# for the psf1d data term z0, or (full) expand/residual/reduce once per step
+# for the psf1d data term z0, or (full) expand/residual/reduce once per step;
+# K4's pad three times a step (the three ConvNonlinear layers') and its
+# epilogue twice (the two with a bias and relu; the final conv has neither)
 PER_FORWARD = {
-    "bf16_psf1d": {"k1_psf1d_dc_bf16": 40, "k3_indrnn_bf16": 80, "k2_load": 6, "k2_reduce": 6},
-    "f32_psf1d": {"k1_psf1d_dc_f32": 40, "k3_indrnn_f32": 80, "k2_load": 6, "k2_reduce": 6},
-    "f32_full": {"k2_expand": 40, "k2_residual": 40, "k2_reduce": 41, "k2_load": 1, "k3_indrnn_f32": 80},
+    "bf16_psf1d": {"k1_psf1d_dc_bf16": 40, "k3_indrnn_bf16": 80, "k2_load": 6, "k2_reduce": 6,
+                   "k4_edge_pad_bf16": 120, "k4_bias_act_bf16": 80},
+    "f32_psf1d": {"k1_psf1d_dc_f32": 40, "k3_indrnn_f32": 80, "k2_load": 6, "k2_reduce": 6, "k4_edge_pad_f32": 120,
+                  "k4_bias_act_f32": 80},
+    "f32_full": {"k2_expand": 40, "k2_residual": 40, "k2_reduce": 41, "k2_load": 1, "k3_indrnn_f32": 80,
+                 "k4_edge_pad_f32": 120, "k4_bias_act_f32": 80},
 }
 
 # launches per training step of the flagship (N = 5 cascades x T = 8 steps,
@@ -299,13 +318,27 @@ PER_FORWARD = {
 #   - sens_reduce (K2 load + reduce): the SENSE init once, and the psf1d data
 #     term z0 per cascade in the forward and in its recompute, 1 + 2N = 11.
 # train_f32_full's k2_expand counts the forward's 80 and the backward's 35.
+# K4 runs where the cells run: its pad three times and its epilogue twice a
+# step's stack, 3N(3T - 1) = 345 and 230; backward, the epilogue's of every
+# step, 2NT = 80, and the pad's but that of each cascade's first step's first
+# layer, whose input (the DC output of an estimate without a gradient) takes
+# none, 3NT - N = 115.
+_K4_STEP = {"edge_pad": 345, "bias_act": 230, "edge_pad_bwd": 115, "bias_act_bwd": 80}
+
+
+def k4_rows(dtype: str, **counts) -> dict:
+    """K4's launches by entry point: ``counts`` {edge_pad, bias_act,
+    edge_pad_bwd, bias_act_bwd: launches} in ``dtype`` ("f32" or "bf16")."""
+    return {f"k4_{k}_{dtype}": v for k, v in counts.items() if v}
+
+
 PER_STEP = {
     "train_bf16_psf1d": {"k1_psf1d_dc_bf16": 80, "k1_psf1d_dc_bwd_bf16": 35, "k3_indrnn_bf16": 230,
-                         "k3_indrnn_bwd_bf16": 80, "k2_load": 11, "k2_reduce": 11},
+                         "k3_indrnn_bwd_bf16": 80, "k2_load": 11, "k2_reduce": 11, **k4_rows("bf16", **_K4_STEP)},
     "train_f32_psf1d": {"k1_psf1d_dc_f32": 80, "k1_psf1d_dc_bwd_f32": 35, "k3_indrnn_f32": 230,
-                        "k3_indrnn_bwd_f32": 80, "k2_load": 11, "k2_reduce": 11},
+                        "k3_indrnn_bwd_f32": 80, "k2_load": 11, "k2_reduce": 11, **k4_rows("f32", **_K4_STEP)},
     "train_f32_full": {"k2_expand": 115, "k2_residual": 80, "k2_mask": 35, "k2_reduce": 81, "k2_reduce_acc": 35,
-                       "k2_load": 1, "k3_indrnn_f32": 230, "k3_indrnn_bwd_f32": 80},
+                       "k2_load": 1, "k3_indrnn_f32": 230, "k3_indrnn_bwd_f32": 80, **k4_rows("f32", **_K4_STEP)},
 }
 TRAIN_BATCH, TRAIN_F32_BATCH, TRAIN_WARMUP, TRAIN_ITERS = 24, 8, 1, 1
 # projects/reconstruction/conf/base_cirim_train.yaml's optim block
@@ -553,19 +586,23 @@ ZOO3_SOURCES = {
 # FFT, mask, inverse FFT, reduce), centered or not (the shifts are the
 # stages' indices)
 _FISTA_60 = {"k2_load": 1, "k2_reduce": 61, "k2_expand": 60, "k2_mask": 60}
+# RVN's edge pads (K4): the initializer's 4 convs, and per step its 4 layers'
+# and the output conv's, 4 + 8 x 5 = 44
 ZOO3_PER_FORWARD = {
-    "rvn": {"k2_reduce": 10, "k2_expand": 8},
+    "rvn": {"k2_reduce": 10, "k2_expand": 8, "k4_edge_pad_f32": 44},
     "multidomainnet": {"k2_reduce": 1},
     "cs": _FISTA_60, "cs_tv": _FISTA_60, "pics": _FISTA_60, "cs_unsup": _FISTA_60,
 }
 # launches per training step: the forward's, and the adjoint of every call
 # whose input takes a gradient: RVN's expansions (8 reductions back) and its
 # reductions of steps 1-7 and of the prediction (8 expansions back); the
-# initializer's reduction and step 0's read y, which takes none. The
-# standardization's input is y's; the final coil combination is plain. CS has
-# no parameters: its step is the forward and the loss
+# initializer's reduction and step 0's read y, which takes none (so neither
+# do the pads of the initializer's first conv and of step 0's first layer:
+# 44 - 2 pads back). The standardization's input is y's; the final coil
+# combination is plain. CS has no parameters: its step is the forward and the
+# loss
 ZOO3_PER_STEP = {
-    "train_rvn": {"k2_reduce": 18, "k2_expand": 16},
+    "train_rvn": {"k2_reduce": 18, "k2_expand": 16, "k4_edge_pad_f32": 44, "k4_edge_pad_bwd_f32": 42},
     "train_multidomainnet": {"k2_reduce": 1},
     "train_cs": _FISTA_60,
 }
@@ -683,11 +720,13 @@ Q_SERVE = {
 # residual, inverse FFT, reduce) and K3 twice; then y = F(S pred) (expand,
 # FFT) and the qRIM part's
 Q_PER_FORWARD = {
-    "qcirim_f32": {"k2_load": 1, "k2_reduce": 6, "k2_expand": 5, "k2_mask": 5, "k3_indrnn_f32": 80},
-    "qcirim_bf16": {"k2_load": 1, "k2_reduce": 6, "k2_expand": 5, "k2_mask": 5, "k3_indrnn_bf16": 80},
+    "qcirim_f32": {"k2_load": 1, "k2_reduce": 6, "k2_expand": 5, "k2_mask": 5, "k3_indrnn_f32": 80,
+                   **k4_rows("f32", edge_pad=120, bias_act=80)},
+    "qcirim_bf16": {"k2_load": 1, "k2_reduce": 6, "k2_expand": 5, "k2_mask": 5, "k3_indrnn_bf16": 80,
+                    **k4_rows("bf16", edge_pad=120, bias_act=80)},
     "qvn": {"k2_expand": 8, "k2_mask": 8},
     "qcirim_recon": {"k2_load": 1, "k2_reduce": 170, "k2_expand": 166, "k2_residual": 160, "k2_mask": 5,
-                     "k3_indrnn_f32": 400},
+                     "k3_indrnn_f32": 400, **k4_rows("f32", edge_pad=600, bias_act=400)},
 }
 # launches per training step (remat_mode "step": each step's conv/RNN stack
 # again in the backward, so K3's forward twice a cell): the forward's, and the
@@ -700,13 +739,19 @@ Q_PER_FORWARD = {
 # FFT, mask, inverse FFT, reduce_acc) at steps 1-7 of each cascade (a
 # cascade's first estimate is the SENSE init or the previous one's, detached);
 # y = F(S pred)'s adjoint (a reduce), x0's (expand, FFT, mask), and all 5
-# cascades' normal operators (the maps are fitted from pred)
+# cascades' normal operators (the maps are fitted from pred). K4 runs where
+# K3 runs, its pad 3 and its epilogue 2 times a step's stack; backward, the
+# pad of every step but the first layer's where the step's input takes no
+# gradient: qCIRIM's first step (the maps' initial estimate), and with the
+# module the first step of each echo's 5 reconstruction cascades (20)
 Q_PER_STEP = {
     "train_qcirim": {"k2_load": 1, "k2_reduce": 10, "k2_expand": 9, "k2_mask": 9, "k3_indrnn_f32": 160,
-                     "k3_indrnn_bwd_f32": 80},
+                     "k3_indrnn_bwd_f32": 80,
+                     **k4_rows("f32", edge_pad=240, bias_act=160, edge_pad_bwd=119, bias_act_bwd=80)},
     "train_qvn": {"k2_expand": 8, "k2_mask": 8, "k2_load": 7, "k2_reduce": 7},
     "train_qcirim_recon": {"k2_load": 1, "k2_reduce": 176, "k2_expand": 312, "k2_residual": 160, "k2_mask": 151,
-                           "k2_reduce_acc": 140, "k3_indrnn_f32": 800, "k3_indrnn_bwd_f32": 400},
+                           "k2_reduce_acc": 140, "k3_indrnn_f32": 800, "k3_indrnn_bwd_f32": 400,
+                           **k4_rows("f32", edge_pad=1200, bias_act=800, edge_pad_bwd=580, bias_act_bwd=400)},
 }
 # training runs: (config, overrides, batch); B=4 is the batch of the JAX
 # package's own qCIRIM step measurement
@@ -848,25 +893,32 @@ M_SERVE = {
 # launches per forward (uncentered backward FFTs). MTLRS (5 blocks x 8 steps,
 # 2 cells) as CIRIM's: the SENSE init of block 0 (a reduce: no load for an
 # uncentered FFT and no mask), then per step the full DC (expand, residual,
-# reduce) or K1 with a masked z0 per block (load and reduce), and K3 twice.
-# RecSegUNet's zero-filled image and SERANet's initial estimate are the SENSE
-# init (a reduce); IDSLR, IDSLRUNet and SegNet launch none
-_M_FULL = {"k2_expand": 40, "k2_residual": 40, "k2_reduce": 41, "k3_indrnn_f32": 80}
+# reduce) or K1 with a masked z0 per block (load and reduce), K3 twice and
+# K4's pad three times and its epilogue twice. RecSegUNet's zero-filled image
+# and SERANet's initial estimate are the SENSE init (a reduce); SegNet's final
+# ConvNonlinear (relu, no bias) a K4 pad and epilogue; IDSLR and IDSLRUNet
+# launch none
+_M_FULL = {"k2_expand": 40, "k2_residual": 40, "k2_reduce": 41, "k3_indrnn_f32": 80,
+           **k4_rows("f32", edge_pad=120, bias_act=80)}
 M_PER_FORWARD = {
     "mtlrs_f32_full": _M_FULL,
-    "mtlrs_bf16_psf1d": {"k1_psf1d_dc_bf16": 40, "k3_indrnn_bf16": 80, "k2_load": 5, "k2_reduce": 6},
-    "jrs": _M_FULL, "idslr": {}, "idslr_unet": {}, "segnet": {},
+    "mtlrs_bf16_psf1d": {"k1_psf1d_dc_bf16": 40, "k3_indrnn_bf16": 80, "k2_load": 5, "k2_reduce": 6,
+                         **k4_rows("bf16", edge_pad=120, bias_act=80)},
+    "jrs": _M_FULL, "idslr": {}, "idslr_unet": {}, "segnet": k4_rows("f32", edge_pad=1, bias_act=1),
     "recseg_unet": {"k2_reduce": 1}, "seranet": {"k2_reduce": 1},
 }
 # launches per training step (the RIM step's conv/RNN stack rematerialised,
 # so K3's forward twice a cell): the forward's, the full DC's backward
 # (expand, mask, reduce_acc) at every step whose estimate takes a gradient
 # (all but block 0's first: the SENSE init reads y; a block's first estimate
-# is the previous block's, with its gradient), K3's backward once a cell
+# is the previous block's, with its gradient), K3's backward once a cell, and
+# K4 where K3 runs (its pad's backward at every step but block 0's first)
 M_PER_STEP = {
     "train_mtlrs": {"k2_expand": 79, "k2_residual": 40, "k2_reduce": 41, "k2_mask": 39, "k2_reduce_acc": 39,
-                    "k3_indrnn_f32": 160, "k3_indrnn_bwd_f32": 80},
-    "train_idslr": {}, "train_segnet": {}, "train_recseg_unet": {"k2_reduce": 1}, "train_seranet": {"k2_reduce": 1},
+                    "k3_indrnn_f32": 160, "k3_indrnn_bwd_f32": 80,
+                    **k4_rows("f32", edge_pad=240, bias_act=160, edge_pad_bwd=119, bias_act_bwd=80)},
+    "train_idslr": {}, "train_segnet": k4_rows("f32", edge_pad=1, bias_act=1, edge_pad_bwd=1, bias_act_bwd=1),
+    "train_recseg_unet": {"k2_reduce": 1}, "train_seranet": {"k2_reduce": 1},
 }
 # training runs: (config, batch, launch table); SegNet trains on its stack
 M_TRAIN = {
@@ -945,13 +997,17 @@ J_PER_FORWARD = {
 # JointICNet: the forward's; the SENSE init's and update C's sens_expand
 # sens_grad alone (uncentered, no mask), the full DC's maps chain, and the
 # masked sens_reduce's load and sens_grad, per iteration
+_J_K4 = {**_K4_STEP, "edge_pad_bwd": 120}  # every step's DC output takes the maps' gradient
 J_PER_STEP = {
     "train_j_cirim_f32_full": {"k2_expand": 160, "k2_residual": 120, "k2_mask": 40, "k2_reduce": 81,
-                               "k2_sens_grad": 41, "k2_load": 2, "k3_indrnn_f32": 230, "k3_indrnn_bwd_f32": 80},
+                               "k2_sens_grad": 41, "k2_load": 2, "k3_indrnn_f32": 230, "k3_indrnn_bwd_f32": 80,
+                               **k4_rows("f32", **_J_K4)},
     "train_j_cirim_f32_psf1d": {"k1_psf1d_dc_f32": 80, "k1_psf1d_sens_f32": 40, "k3_indrnn_f32": 230,
-                                "k3_indrnn_bwd_f32": 80, "k2_load": 17, "k2_reduce": 11, "k2_sens_grad": 6},
+                                "k3_indrnn_bwd_f32": 80, "k2_load": 17, "k2_reduce": 11, "k2_sens_grad": 6,
+                                **k4_rows("f32", **_J_K4)},
     "train_j_cirim_bf16_psf1d": {"k1_psf1d_dc_bf16": 80, "k1_psf1d_sens_bf16": 40, "k3_indrnn_bf16": 230,
-                                 "k3_indrnn_bwd_bf16": 80, "k2_load": 17, "k2_reduce": 11, "k2_sens_grad": 6},
+                                 "k3_indrnn_bwd_bf16": 80, "k2_load": 17, "k2_reduce": 11, "k2_sens_grad": 6,
+                                 **k4_rows("bf16", **_J_K4)},
     "train_j_jointicnet": {"k2_reduce": 5, "k2_expand": 8, "k2_residual": 4, "k2_load": 4, "k2_mask": 2,
                            "k2_sens_grad": 7},
 }
@@ -978,7 +1034,8 @@ J_LAUNCH_PER_STEP = {
     "launch_j_jointicnet": {"k2_reduce": 5, "k2_expand": 8, "k2_residual": 4, "k2_load": 10, "k2_mask": 2,
                             "k2_sens_grad": 7},
     "launch_j_cirim_sens": {"k2_expand": 160, "k2_residual": 120, "k2_mask": 40, "k2_reduce": 80,
-                            "k2_sens_grad": 40, "k3_indrnn_f32": 230, "k3_indrnn_bwd_f32": 80},
+                            "k2_sens_grad": 40, "k3_indrnn_f32": 230, "k3_indrnn_bwd_f32": 80,
+                            **k4_rows("f32", **_J_K4)},
 }
 J_STEPS = 2  # the config-file runs: J_STEPS steps at batch 1, 1 validation batch
 
@@ -997,8 +1054,9 @@ P_EXPORT = {
     "export_vn_bf16_psf1d": ("vn", {}, "vn_bf16_psf1d"),
 }
 P_OPS = {  # the custom ops each exported graph must hold
-    "export_bf16_psf1d": {"k1_psf1d_dc", "k3_indrnn", "k2_load", "k2_reduce"},
-    "export_f32_full": {"k2_expand", "k2_residual", "k2_load", "k2_reduce", "k3_indrnn"},
+    "export_bf16_psf1d": {"k1_psf1d_dc", "k3_indrnn", "k2_load", "k2_reduce", "k4_edge_pad", "k4_bias_act"},
+    "export_f32_full": {"k2_expand", "k2_residual", "k2_load", "k2_reduce", "k3_indrnn", "k4_edge_pad",
+                        "k4_bias_act"},
     "export_vn_bf16_psf1d": {"k1_psf1d_dc", "k2_load", "k2_reduce"},
 }
 
@@ -1353,6 +1411,14 @@ def kernel_category(name: str) -> str:
         return "K1 maps gradient"
     if "psf1d_dc" in n:
         return "K1 psf1d_dc backward" if "<true" in n else "K1 psf1d_dc"
+    if "edge_pad_bwd_kernel" in n:
+        return "K4 edge pad backward"
+    if "edge_pad_kernel" in n:
+        return "K4 edge pad"
+    if "bias_act_bwd_kernel" in n or "bias_grad_sum_kernel" in n:
+        return "K4 bias and activation backward"
+    if "bias_act_kernel" in n:
+        return "K4 bias and activation"
     if "indrnn_bwd" in n or "reduce_partials" in n:
         return "K3 indrnn backward"
     if "indrnn" in n:
@@ -3280,9 +3346,50 @@ def plain_k3():
 
 
 @contextlib.contextmanager
+def plain_k4():
+    """While active, K4's launches (the edge pad, the bias-and-activation
+    epilogue and their backwards) are their plain versions whatever device
+    the tensors lie on; they launch nothing, so they count nothing."""
+    from mridc_tpu_torch.kernels import k4_conv_epilogue as k4
+
+    plain = {"_edge_pad_kernel": k4.edge_pad_plain, "edge_pad_bwd": k4.edge_pad_bwd_plain,
+             "_bias_act_kernel": k4.bias_act_plain, "bias_act_bwd": k4.bias_act_bwd_plain}
+    saved = {n: getattr(k4, n) for n in plain}
+    for n, fn in plain.items():
+        setattr(k4, n, fn)
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(k4, n, fn)
+
+
+@contextlib.contextmanager
+def pre_k4():
+    """While active, ``ConvNonlinear`` runs as the port ran it before K4: the
+    edge pad as five slice copies under autograd, the conv with its bias
+    (cuDNN, then ATen's add) and ``F.relu``: phase 8b's reading of the
+    elementwise layer before K4, beside the one after, in one run."""
+    from mridc_tpu_torch.kernels import k4_conv_epilogue as k4
+    from mridc_tpu_torch.nn import layers
+
+    def forward(self, x):
+        if self.pad:
+            x = k4.edge_pad_plain(x, self.pad)
+        return layers.activation(self.conv_layer(x), self.nonlinear)
+
+    saved = layers.ConvNonlinear.forward
+    layers.ConvNonlinear.forward = forward
+    try:
+        yield
+    finally:
+        layers.ConvNonlinear.forward = saved
+
+
+@contextlib.contextmanager
 def plain_twins():
-    """K2's and K3's plain twins together."""
-    with plain_k2(), plain_k3():
+    """K2's, K3's and K4's plain twins together."""
+    with plain_k2(), plain_k3(), plain_k4():
         yield
 
 
@@ -3421,8 +3528,8 @@ def q_inputs(batch):
 def q_serve(run, model, batch, per_forward, card, bf16, **extra):
     """Serving: ``WARMUP`` and ``ITERS`` timed forwards, the launch counters
     zeroed before and read after (against ``per_forward``), the prediction
-    finite and [B, H, W, 4], and held against the same forward on K2's and
-    K3's plain twins on the card (F32; bf16: Z2's bf16 limits). Returns (ms
+    finite and [B, H, W, 4], and held against the same forward on K2's, K3's
+    and K4's plain twins on the card (F32; bf16: Z2's bf16 limits). Returns (ms
     per forward, the launches)."""
     import torch
 
@@ -3453,7 +3560,7 @@ def q_serve(run, model, batch, per_forward, card, bf16, **extra):
         raise AssertionError(f"{run}: prediction not finite or of shape {tuple(pred.shape)}")
     with torch.inference_mode(), plain_twins():
         plain = model(*inputs).prediction
-    note = "the same forward with K2's and K3's plain twins on the card"
+    note = "the same forward with K2's, K3's and K4's plain twins on the card"
     if not bf16:
         check(f"q[{run}]", pred, plain, *F32, note=note)
     else:
@@ -4342,7 +4449,7 @@ def m_serve(run, model, batch, per_forward, card, bf16, **extra):
     """Serving: ``WARMUP`` and ``ITERS`` timed forwards, the launch counters
     zeroed before and read after (against ``per_forward``), the prediction
     [B, H, W, 2] and the segmentation [B, H, W, 2] finite, and both held
-    against the same forward on K2's and K3's plain twins on the card (F32;
+    against the same forward on K2's, K3's and K4's plain twins on the card (F32;
     bf16: phase Q's bf16 limits). Returns (ms per forward, the launches)."""
     import torch
 
@@ -4376,7 +4483,7 @@ def m_serve(run, model, batch, per_forward, card, bf16, **extra):
             raise AssertionError(f"{run}: {name} not finite or of shape {tuple(x.shape)}")
     with torch.inference_mode(), plain_twins():
         plain_out, plain_seg = model(*inputs)
-    note = "the same forward with K2's and K3's plain twins on the card"
+    note = "the same forward with K2's, K3's and K4's plain twins on the card"
     for name, got, want_t in (("prediction", pred, plain_out.prediction), ("segmentation", seg, plain_seg)):
         if not bf16:
             check(f"m[{run}].{name}", got, want_t, *F32, note=note)
@@ -4450,7 +4557,7 @@ def m_phase(dev, card, rows) -> None:
     forward (:func:`m_card_vs_cpu`). Training through ``MultitaskTrainer``
     under the YAMLs' Adam and InverseSquareRootAnnealing (``M_TRAIN``: every
     model at batch 1, MTLRS also at 4; SegNet on its stack): the first
-    step's loss and gradients at batch 1 against K2's and K3's plain twins
+    step's loss and gradients at batch 1 against K2's, K3's and K4's plain twins
     (:func:`first_step_check`), 2 warm-up and 3 timed steps
     (:func:`timed_steps`, ``M_PER_STEP``), MTLRS's B=1 step traced."""
     import torch
@@ -4729,8 +4836,8 @@ def plain_k1():
 
 @contextlib.contextmanager
 def j_twins():
-    """K1's, K2's and K3's plain twins together."""
-    with plain_k1(), plain_k2(), plain_k3():
+    """K1's, K2's, K3's and K4's plain twins together."""
+    with plain_k1(), plain_k2(), plain_k3(), plain_k4():
         yield
 
 
@@ -4877,7 +4984,7 @@ def j_phase(dev, card, rows) -> None:
     flagship CIRIM with a sens net (``j_cirim_cfg``; phase 5's CIRIM
     weights, the estimator's from ``ZOO_SEED``) and J3 JointICNet at its
     YAML's widths (``J_ICNET_CFG``), on ``bench_data``: serving at B=8
-    (``J_SERVE``; :func:`serve_and_check` against K1's, K2's and K3's plain
+    (``J_SERVE``; :func:`serve_and_check` against K1's, K2's, K3's and K4's plain
     twins, launches per forward against ``J_PER_FORWARD``), training through
     ``Trainer`` under the YAMLs' Adam and InverseSquareRootAnnealing
     (``J_TRAIN``: the CIRIM at B=8, JointICNet at 1): the first step's loss
@@ -5384,6 +5491,207 @@ def p_phase(dev, card, rows, archive) -> None:
         r["p_launches"] = p_counts.get(r["name"], 0)
     emit({"phase": "P", "seconds": time.perf_counter() - t_p, "parts_s": parts, "card": card})
 
+# K4 (csrc/conv_epilogue.cu): what each entry point stands for, its limits
+# against its plain version (rtol, atol as a share of the largest magnitude):
+# the forwards copy or round once as their plain versions do, and the pad's
+# float32 backward sums in the plain fold's order, so all are held exactly;
+# the pad's bf16 backward within 1e-2 x max, the epilogue's db (float32 block
+# partials against the float64 sum of the same g_y) at F32
+K4_SOURCE = "mridc_tpu_torch/csrc/conv_epilogue.cu"
+K4_REPLACES = {
+    "edge_pad": "mridc_tpu/nn/layers.py:279 (ConvNonlinear's jnp.pad mode edge; models/recon/rvn.py:53,74,97)",
+    "edge_pad_bwd": "mridc_tpu/nn/layers.py:279 (ConvNonlinear's jnp.pad mode edge, backward)",
+    "bias_act": "mridc_tpu/nn/layers.py:280-296 (ConvNonlinear's conv bias and nn.relu / nn.leaky_relu)",
+    "bias_act_bwd": "mridc_tpu/nn/layers.py:280-296 (ConvNonlinear's conv bias and activation, backward)",
+}
+K4_PAD_BF16_BWD = (0.0, 1e-2)
+K4_MAIN = {"pad": (2, FILTERS), "act": (1, FILTERS)}  # each row's case: the dilated 3x3 conv's pad, relu
+
+
+def capturing(store, module, fname, key):
+    """Wrap ``module.fname`` so that each call's operands (detached) are kept
+    in ``store`` under ``key(*args)``, the first call of each key; returns
+    the function that undoes it."""
+    import torch
+
+    orig = getattr(module, fname)
+
+    def wrapped(*args, **kw):
+        store.setdefault(key(*args), tuple(a.detach() if torch.is_tensor(a) else a for a in args))
+        return orig(*args, **kw)
+
+    setattr(module, fname, wrapped)
+    return lambda: setattr(module, fname, orig)
+
+
+def k4_capture(store):
+    """Capture the operands of K4's forward launches (``("pad", dtype, pad,
+    C)``, ``("act", dtype, act, C)``) and backward launches (``"pad_bwd"``,
+    ``"act_bwd"``) into ``store``; returns the undo functions."""
+    from mridc_tpu_torch.kernels import k4_conv_epilogue as k4
+
+    return [capturing(store, k4, "_edge_pad_kernel", lambda x, pad: ("pad", x.dtype, pad, x.shape[1])),
+            capturing(store, k4, "_bias_act_kernel", lambda y, b, act: ("act", y.dtype, act, y.shape[1])),
+            capturing(store, k4, "edge_pad_bwd", lambda g, pad: ("pad_bwd", g.dtype, pad, g.shape[1])),
+            capturing(store, k4, "bias_act_bwd", lambda g, out, act, db: ("act_bwd", g.dtype, act, g.shape[1]))]
+
+
+def k4_extra_operands(dev, seed=11):
+    """Cases the main path does not reach, drawn from ``seed`` at B=2,
+    320x320: the pad of a contiguous tensor (C = 1 to the kernel) and of an
+    odd size, the epilogue with leaky relu, and with a bias and no activation
+    (its backward writes no g_y), in both dtypes; exact zeros in the
+    pre-activation and the output pin the ties."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cl = lambda t: t.contiguous(memory_format=torch.channels_last)  # noqa: E731
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(dt)  # noqa: E731
+        out[("pad", dt, 1, "contiguous")] = (rnd(2, FILTERS, H, W), 1)
+        out[("pad_bwd", dt, 1, "contiguous")] = (rnd(2, FILTERS, H + 2, W + 2), 1)
+        out[("pad", dt, 2, "odd")] = (cl(rnd(2, 6, 37, 45)), 2)
+        out[("pad_bwd", dt, 2, "odd")] = (cl(rnd(2, 6, 41, 49)), 2)
+        y = cl(rnd(2, FILTERS, H, W))
+        y[:, :, :16, :16] = 0
+        bias = rnd(FILTERS)
+        bias[:8] = 0
+        for act in (0, 2):
+            out[("act", dt, act, "extra")] = (y, bias, act)
+            outv = torch.nn.functional.leaky_relu(y + bias.reshape(1, -1, 1, 1), 0.01) if act else None
+            out[("act_bwd", dt, act, "extra")] = (cl(rnd(2, FILTERS, H, W)), outv, act, True)
+    return out
+
+
+def k4_main_operands(dev, seed=12):
+    """``--phase K4``: operands at the main path's shapes drawn from ``seed``
+    in place of captured ones: the three pads of a RIM step (5x5 pad 2 on the
+    4-channel DC output, dilated 3x3 pad 2 and 3x3 pad 1 on 64 channels) at
+    B=8 and their backwards at the training batches (bf16 24, float32 8),
+    and the relu epilogue on 64 channels likewise."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cl = lambda t: t.contiguous(memory_format=torch.channels_last)  # noqa: E731
+    out = {}
+    for dt, bt in ((torch.float32, TRAIN_F32_BATCH), (torch.bfloat16, TRAIN_BATCH)):
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(dt)  # noqa: E731
+        for c, pad in ((4, 2), (FILTERS, 2), (FILTERS, 1)):
+            out[("pad", dt, pad, c)] = (cl(rnd(BATCH, c, H, W)), pad)
+            out[("pad_bwd", dt, pad, c)] = (cl(rnd(bt, c, H + 2 * pad, W + 2 * pad)), pad)
+        y = cl(rnd(BATCH, FILTERS, H, W))
+        y[:, :, :16, :16] = 0
+        bias = rnd(FILTERS)
+        bias[:8] = 0
+        out[("act", dt, 1, FILTERS)] = (y, bias, 1)
+        yt = cl(rnd(bt, FILTERS, H, W))
+        yt[:, :, :16, :16] = 0
+        out[("act_bwd", dt, 1, FILTERS)] = (cl(rnd(bt, FILTERS, H, W)), torch.relu(yt), 1, True)
+    return out
+
+
+def k4_kernels(card, rows, ops, fwd_counts, train_counts) -> None:
+    """K4's entry points against their plain versions on ``ops`` (captured
+    from the main path's forward at B=8 and a training step, or drawn; keyed
+    as :func:`k4_capture` keys them, and :func:`k4_extra_operands`' cases):
+    each checked (``K4_*`` limits), timed beside its plain version, its bound
+    and, where one PyTorch call computes the same function, that call (the
+    pad: ``F.pad(x, (p,) * 4, mode="replicate")``; its backward:
+    ``aten.replication_pad2d_backward``); a line each, and a row in the
+    kernels line for each entry point's ``K4_MAIN`` case (launches: the
+    forward's from ``fwd_counts``, the backward's from ``train_counts``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mridc_tpu_torch.kernels import k4_conv_epilogue as k4
+
+    errors, main = {}, {}
+    for key in sorted(ops, key=str):
+        kind, dt, a, c = key
+        args = ops[key]
+        es = args[0].element_size()
+        lib, lib_note = None, None
+        if kind == "pad":
+            x, pad = args
+            sym, entry = k4.PAD_SYMBOLS[dt], "edge_pad"
+            got = k4._edge_pad_kernel(x, pad)
+            errs = [check(f"{sym}[{c}/p{pad}/b{x.shape[0]}]", got, k4.edge_pad_plain(x, pad), *EXACT)]
+            fn, plain = (lambda: k4._edge_pad_kernel(x, pad)), (lambda: k4.edge_pad_plain(x, pad))
+            lib = lambda: F.pad(x, (pad,) * 4, mode="replicate")  # noqa: E731
+            nbytes, flops = es * (x.numel() + got.numel()), {"float32": 0}
+            shape = tuple(x.shape)
+        elif kind == "pad_bwd":
+            g, pad = args
+            sym, entry = k4.PAD_BWD_SYMBOLS[dt], "edge_pad_bwd"
+            got = k4.edge_pad_bwd(g, pad)
+            tol = EXACT if dt == torch.float32 else K4_PAD_BF16_BWD
+            errs = [check(f"{sym}[{c}/p{pad}/b{g.shape[0]}]", got, k4.edge_pad_bwd_plain(g, pad), *tol)]
+            fn, plain = (lambda: k4.edge_pad_bwd(g, pad)), (lambda: k4.edge_pad_bwd_plain(g, pad))
+            like = torch.empty_like(got)
+            lib = lambda: torch.ops.aten.replication_pad2d_backward(g, like, [pad] * 4)  # noqa: E731
+            # every padded entry is one add into the pixel it came from
+            nbytes, flops = es * (g.numel() + got.numel()), {"float32": g.numel() - got.numel()}
+            shape = tuple(g.shape)
+        elif kind == "act":
+            y, bias, act = args
+            sym, entry = k4.ACT_SYMBOLS[dt], "bias_act"
+            got = k4._bias_act_kernel(y, bias, act)
+            errs = [check(f"{sym}[{c}/{k4.ACTS[act]}/b{y.shape[0]}]", got, k4.bias_act_plain(y, bias, act), *EXACT)]
+            fn, plain = (lambda: k4._bias_act_kernel(y, bias, act)), (lambda: k4.bias_act_plain(y, bias, act))
+            lib_note = "no one PyTorch call adds a per-channel bias and applies the activation"
+            nbytes, flops = es * (2 * y.numel() + y.shape[1]), {"float32": 2 * y.numel()}
+            shape = tuple(y.shape)
+        else:
+            g, out, act, want_db = args
+            sym, entry = k4.ACT_BWD_SYMBOLS[dt], "bias_act_bwd"
+            gy, db = k4.bias_act_bwd(g, out, act, True)
+            want_gy, _ = k4.bias_act_bwd_plain(g, out, act, False)
+            tag = f"{c}/{k4.ACTS[act]}/b{g.shape[0]}"
+            errs = [check(f"{sym}[g_y/{tag}]", gy, want_gy, *EXACT),
+                    check(f"{sym}[db/{tag}]", db, want_gy.double().sum((0, 2, 3)), *F32)]
+            fn = lambda: k4.bias_act_bwd(g, out, act, True)  # noqa: E731
+            plain = lambda: k4.bias_act_bwd_plain(g, out, act, True)  # noqa: E731
+            lib_note = "no one PyTorch call gives the masked gradient and its sum over pixels"
+            nbytes = es * (3 if act else 1) * g.numel() + 4 * g.shape[1]
+            flops, shape = {"float32": 2 * g.numel()}, tuple(g.shape)
+        errors.setdefault(sym, []).extend(errs)
+        ms, plain_ms = time_ms(fn), time_ms(plain)
+        library_ms = None if lib is None else time_ms(lib)
+        bound_ms, by = bound(nbytes, flops)
+        emit({"kernel": sym, "case": f"{kind}/{a}/{c}", "shape": shape, "dtype": str(dt), "ms": ms,
+              "plain_ms": plain_ms, "library_ms": library_ms, **({"library_note": lib_note} if lib_note else {}),
+              "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes, "max_abs_err": max(errs), "card": card})
+        if (a, c) == K4_MAIN[kind.split("_")[0]]:
+            main[sym] = {"name": sym, "route": "cuda", "source": K4_SOURCE, "replaces": K4_REPLACES[entry],
+                         "launches": (train_counts if kind.endswith("_bwd") else fwd_counts).get(sym, 0),
+                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+                         "library_ms": library_ms}
+    for sym in sorted(main):
+        rows.append({**main[sym], "max_abs_err": max(errors[sym])})
+
+
+def k4_only() -> int:
+    """``--phase K4``: the card, the kernel build and K4's checks and times on
+    drawn operands at the main path's shapes (:func:`k4_main_operands`, and
+    :func:`k4_extra_operands`). Prints no contract line."""
+    import torch
+
+    from mridc_tpu_torch import kernels
+    from mridc_tpu_torch.kernels import binding
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda})
+    emit({"phase": "build", "per_library_s": kernels.build(["conv_epilogue"]),
+          "ptxas": ptxas_by_kernel((binding.BUILD_DIR / "conv_epilogue.log").read_text())})
+    dev = torch.device(DEVICE)
+    rows = []
+    with torch.inference_mode():
+        k4_kernels(card, rows, {**k4_main_operands(dev), **k4_extra_operands(dev)}, {}, {})
+    emit({"k4_rows": rows})
+    return 0
+
 
 def p_only() -> int:
     """``--phase P``: the card, the kernel build and phase P alone, with an
@@ -5425,6 +5733,8 @@ def main() -> int:
 
     if sys.argv[1:] == ["--phase", "P"]:
         return p_only()
+    if sys.argv[1:] == ["--phase", "K4"]:
+        return k4_only()
 
     t_start = time.perf_counter()
     # the poisson2d masks of D1-D3, drawn beside phases 2-V4, and of S, beside
@@ -5851,14 +6161,18 @@ def run(t_start, masks, s_masks) -> int:
         raise AssertionError(f"flagship predictions disagree: {rec}")
 
     # the operands of one K3 call of the main path (cascade 0, first cell, last
-    # step), from one more forward of each psf1d run after the counters were read
-    k3_args = {}
+    # step) and of the first K4 launch of each kind, dtype and width, from one
+    # more forward of each psf1d run after the counters were read
+    k3_args, k4_ops = {}, {}
+    undo_k4 = k4_capture(k4_ops)
     for name in ("bf16_psf1d", "f32_psf1d"):
         cell = next(m for m in models[name].modules() if isinstance(m, IndRNNCell))
         hook = cell.register_forward_hook(lambda mod, inp, out: k3_args.__setitem__(out.dtype, mod.kernel_args(*inp)))
         with torch.inference_mode():
             models[name](y, sens, mask)
         hook.remove()
+    for undo in undo_k4:
+        undo()
 
     # 5b. where a forward's device time goes (one traced forward per run,
     # after the counters were read)
@@ -6075,16 +6389,6 @@ def run(t_start, masks, s_masks) -> int:
 
     captured: dict = {}  # one backward call's operands per kernel (phase 9)
 
-    def capturing(module, fname, key):
-        orig = getattr(module, fname)
-
-        def wrapped(*args, **kw):
-            captured.setdefault(key(*args), tuple(a.detach() if torch.is_tensor(a) else a for a in args))
-            return orig(*args, **kw)
-
-        setattr(module, fname, wrapped)
-        return lambda: setattr(module, fname, orig)
-
     train_counts, train_recs = {k: 0 for k in binding.LAUNCHES}, []
     for name, (cfg, b) in train_runs.items():
         yb, sb, mb = (y, sens, mask) if b == BATCH else (t(a) for a in bench_data(b, COILS, H, W))
@@ -6126,12 +6430,25 @@ def run(t_start, masks, s_masks) -> int:
         for k, v in delta.items():
             train_counts[k] += v
 
-        # 8b. where a training step's device time goes (one traced step)
-        emit({"trace": name, **trace_call(lambda: trainer.training_batch(batch), rec["ms_per_step"]), "card": card})
+        # 8b. where a training step's device time goes (one traced step), and
+        # the same step as the port ran it before K4 (``pre_k4``: one step to
+        # warm, one timed, one traced), so that the elementwise layer before
+        # and after reads off one run
+        emit({"trace": name, "route": "k4",
+              **trace_call(lambda: trainer.training_batch(batch), rec["ms_per_step"]), "card": card})
+        with pre_k4():
+            trainer.training_batch(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.training_batch(batch)
+            torch.cuda.synchronize()
+            pre_ms = (time.perf_counter() - t0) * 1e3
+            emit({"trace": name, "route": "pre_k4", "ms_per_step": pre_ms,
+                  **trace_call(lambda: trainer.training_batch(batch), pre_ms), "card": card})
         # operands of one call of each backward kernel, from one more step
-        restore = [capturing(k1mod, "psf1d_dc_bwd", lambda g, s_, *a: K1_BWD[s_.dtype]),
-                   capturing(k3mod, "indrnn_bwd", lambda g, x, *a: K3_BWD[x.dtype]),
-                   capturing(k2, "full_dc_bwd", lambda *a: "k2_bwd")]
+        restore = [capturing(captured, k1mod, "psf1d_dc_bwd", lambda g, s_, *a: K1_BWD[s_.dtype]),
+                   capturing(captured, k3mod, "indrnn_bwd", lambda g, x, *a: K3_BWD[x.dtype]),
+                   capturing(captured, k2, "full_dc_bwd", lambda *a: "k2_bwd"), *k4_capture(k4_ops)]
         trainer.training_batch(batch)
         for undo in restore:
             undo()
@@ -6210,6 +6527,14 @@ def run(t_start, masks, s_masks) -> int:
             flops = {PRODUCTS[dname]: 4 * p * fi * fo, "float32": 5 * p * fo}
             row(sym, "mridc_tpu_torch/csrc/indrnn_bwd.cu", "mridc_tpu/nn/rnn_cells.py:88 (IndRNNCell.__call__, "
                 "backward)", k3mod.indrnn_bwd, k3mod.indrnn_bwd_plain, args, nbytes, flops, None, train_counts, "step")
+
+        # 9k. K4's entry points on the main path's operands (the forwards' at
+        # B=8, the backwards' from a training step of each dtype) and on the
+        # cases it does not reach, against their plain versions, then their
+        # times beside their bounds
+        t_k4 = time.perf_counter()
+        k4_kernels(card, rows, {**k4_ops, **k4_extra_operands(dev)}, main_counts, train_counts)
+        emit({"phase": "9k", "seconds": time.perf_counter() - t_k4})
         for r in rows:
             r["train_launches"] = train_counts.get(r["name"], 0)
         missing = [k for k in set().union(*PER_STEP.values()) if train_counts[k] == 0]
@@ -6220,6 +6545,7 @@ def run(t_start, masks, s_masks) -> int:
     # V3's peak memory is the VarNet step's own)
     t_vn = time.perf_counter()
     captured.clear()
+    k4_ops.clear()
     del k3_args, eta, mats, z0, y, sens, mask, target8, g, sk, mk, x, hprev, out, wt, hh, args
     torch.cuda.empty_cache()
     varnet_phases(dev, card, rows)

@@ -78,6 +78,20 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
         "k3_indrnn_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I),
         "k3_indrnn_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I),
     },
+    "conv_epilogue": {
+        # x, out, N, H, W, C, pad
+        "k4_edge_pad_f32": (_P, _P, _I, _I, _I, _I, _I),
+        "k4_edge_pad_bf16": (_P, _P, _I, _I, _I, _I, _I),
+        # g, dx, N, H, W (dx's), C, pad
+        "k4_edge_pad_bwd_f32": (_P, _P, _I, _I, _I, _I, _I),
+        "k4_edge_pad_bwd_bf16": (_P, _P, _I, _I, _I, _I, _I),
+        # y, bias (or null), out, P, C, act
+        "k4_bias_act_f32": (_P, _P, _P, _I, _I, _I),
+        "k4_bias_act_bf16": (_P, _P, _P, _I, _I, _I),
+        # g, out (or null), g_y (or null), partials (or null), db (or null), P, C, act, blocks
+        "k4_bias_act_bwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I),
+        "k4_bias_act_bwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I),
+    },
 }
 
 # library -> {launch-setup query: argtypes}; a query launches nothing, takes no

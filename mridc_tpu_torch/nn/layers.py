@@ -181,9 +181,11 @@ class Conv(nn.Conv2d):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, with_bias: bool = True) -> torch.Tensor:
+        """The conv; ``with_bias=False`` leaves the bias out (``ConvNonlinear``
+        adds it in K4's epilogue)."""
         dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
-        bias = None if self.bias is None else self.bias.to(dt)
+        bias = None if self.bias is None or not with_bias else self.bias.to(dt)
         x = x.to(dt)
         if any(lo != hi for lo, hi in self.pads):
             (th, bh), (lw, rw) = self.pads
@@ -424,19 +426,14 @@ def _relaid_like(x: torch.Tensor):
 
 def replicate_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
     """Edge padding of the last two axes, equal to ``F.pad(x, (pad,) * 4,
-    mode="replicate")`` but written into a tensor of x's own memory format:
-    one strided copy of the interior plus four thin copies of the halo, where
-    F.pad's replication kernel is several times slower on a channels_last
-    tensor on the card."""
-    b, c, h, w = x.shape
-    fmt = torch.channels_last if x.is_contiguous(memory_format=torch.channels_last) else torch.contiguous_format
-    out = torch.empty((b, c, h + 2 * pad, w + 2 * pad), dtype=x.dtype, device=x.device, memory_format=fmt)
-    out[:, :, pad : pad + h, pad : pad + w] = x
-    out[:, :, :pad, pad : pad + w] = x[:, :, :1]
-    out[:, :, pad + h :, pad : pad + w] = x[:, :, -1:]
-    out[:, :, :, :pad] = out[:, :, :, pad : pad + 1]  # the corners come with the rows above
-    out[:, :, :, pad + w :] = out[:, :, :, pad + w - 1 : pad + w]
-    return out
+    mode="replicate")``, in x's memory format: K4's pad
+    (``kernels/k4_conv_epilogue.py``). The kernel takes a channels_last or a
+    contiguous tensor; any other layout is handed to it channels_last."""
+    from mridc_tpu_torch.kernels.k4_conv_epilogue import edge_pad  # kernels import this module
+
+    if x.device.type == "cuda" and not (x.is_contiguous(memory_format=torch.channels_last) or x.is_contiguous()):
+        x = x.contiguous(memory_format=torch.channels_last)
+    return edge_pad(x, pad)
 
 
 class ConvNonlinear(nn.Module):
@@ -468,9 +465,21 @@ class ConvNonlinear(nn.Module):
             nn.init.zeros_(self.conv_layer.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The pad, the conv without its bias, then the bias and the
+        activation in K4's epilogue (neither: the conv alone). The epilogue
+        takes a channels_last conv output on the card, which a channels_last
+        input gives; another is handed to it channels_last."""
+        from mridc_tpu_torch.kernels.k4_conv_epilogue import act_code, bias_act  # kernels import this module
+
         if self.pad:
             x = replicate_pad(x, self.pad)
-        return activation(self.conv_layer(x), self.nonlinear)
+        conv = self.conv_layer
+        if conv.bias is None and act_code(self.nonlinear) == 0:
+            return conv(x)
+        y = conv(x, with_bias=False)
+        if y.device.type == "cuda":
+            y = y.contiguous(memory_format=torch.channels_last)
+        return bias_act(y, None if conv.bias is None else conv.bias.to(y.dtype), self.nonlinear)
 
 
 def nearest_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:

@@ -46,6 +46,16 @@ from test_torch_port_cirim import _jax_forward, _jax_params  # noqa: E402
 # ---- tests/test_utils_aux.py ----
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the cases are small, and parallel test workers
+    would otherwise contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_named_timer():
     t = NamedTimer()
     t.start("a")

@@ -25,6 +25,16 @@ RTOL, ATOL = 1e-5, 1e-6
 B, H, W = 2, 11, 13
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the cases are small, and parallel test workers
+    would otherwise contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got, want):
     want = np.asarray(want)
     scale = max(1.0, float(np.abs(want).max()))

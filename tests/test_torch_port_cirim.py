@@ -29,6 +29,16 @@ RTOL, ATOL = 2e-3, 2e-4
 B, C, CASCADES, T, F = 2, 3, 2, 3, 8
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the cases are small, and parallel test workers
+    would otherwise contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg(**kw):
     cfg = {
         "model_name": "CIRIM",

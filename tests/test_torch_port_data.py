@@ -43,6 +43,16 @@ ROOT = Path(__file__).resolve().parent.parent
 YAML = ROOT / "projects/reconstruction/conf/base_cirim_train.yaml"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the cases are small, and parallel test workers
+    would otherwise contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def dataset_dir(tmp_path_factory):
     root = tmp_path_factory.mktemp("port_data")

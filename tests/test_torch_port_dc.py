@@ -21,6 +21,16 @@ RTOL, ATOL = 1e-5, 1e-6
 B, C = 2, 3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the cases are small, and parallel test workers
+    would otherwise contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got, want, rtol=RTOL):
     want = np.asarray(want)
     got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)

@@ -24,6 +24,7 @@ import torch
 from mridc_tpu_torch.kernels import k1_psf1d_dc as k1
 from mridc_tpu_torch.kernels import k2_full_dc as k2
 from mridc_tpu_torch.kernels import k3_indrnn as k3
+from mridc_tpu_torch.kernels import k4_conv_epilogue as k4
 from mridc_tpu_torch.models import build_model
 from mridc_tpu_torch.utils.export import export_model, load_exported, verify_runtime
 from mridc_tpu_torch.utils.params import cirim_params_from_jax
@@ -34,11 +35,21 @@ from test_torch_port_cirim import _jax_forward, _jax_params  # noqa: E402
 
 B, C, H, W = 2, 3, 16, 20
 OPS = {  # the kernels each forward launches on the card, as ops
-    ("CIRIM", "full"): {"k2_expand", "k2_residual", "k2_load", "k2_reduce", "k3_indrnn"},
-    ("CIRIM", "psf1d"): {"k1_psf1d_dc", "k2_load", "k2_reduce", "k3_indrnn"},
+    ("CIRIM", "full"): {"k2_expand", "k2_residual", "k2_load", "k2_reduce", "k3_indrnn", "k4_edge_pad", "k4_bias_act"},
+    ("CIRIM", "psf1d"): {"k1_psf1d_dc", "k2_load", "k2_reduce", "k3_indrnn", "k4_edge_pad", "k4_bias_act"},
     ("VN", "full"): {"k2_expand", "k2_load", "k2_reduce"},
     ("VN", "psf1d"): {"k1_psf1d_dc", "k2_load", "k2_reduce"},
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the cases are small, and parallel test workers
+    would otherwise contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _data(seed=0):
@@ -139,6 +150,10 @@ def _op_cases(dtype):
         (k1.psf1d_dc_op, (*cast(eta, sens, mats, z0), 0.7), k1.psf1d_dc_plain(*cast(eta, sens, mats, z0), 0.7)),
         (k3.indrnn_op, (*cast(x, h, wt, bias, hh),), k3.indrnn_plain(*cast(x, h, wt, bias, hh))),
         (k3.indrnn_op, (*cast(x, h, wt), None, *cast(hh)), k3.indrnn_plain(*cast(x, h, wt), None, *cast(hh))),
+        *[(k4.edge_pad_op, (*cast(v), 2), k4.edge_pad_plain(*cast(v), 2)) for v in (x, x.contiguous())],
+        *[(k4.bias_act_op, (*cast(h), b, act), k4.bias_act_plain(*cast(h), b, act))
+          for b in (*cast(bias), None) for act in (1, 2)],
+        (k4.bias_act_op, (*cast(h, bias), 0), k4.bias_act_plain(*cast(h, bias), 0)),
     ]
     if dtype == torch.float32:
         cases += [

@@ -38,6 +38,16 @@ PLATEAU = {"name": "adam", "lr": 1e-3, "betas": [0.9, 0.98], "weight_decay": 0.0
            "sched": {"name": "ReduceLROnPlateau", "factor": 0.5, "patience": 0, "threshold": 0.5}}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the cases are small, and parallel test workers
+    would otherwise contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def dataset_dir(tmp_path_factory):
     root = tmp_path_factory.mktemp("port_fit")
@@ -243,6 +253,7 @@ def test_chip_smoke_data_per_step_counts_hold_on_the_cpu_path(monkeypatch):
     from mridc_tpu_torch.kernels import k1_psf1d_dc as k1
     from mridc_tpu_torch.kernels import k2_full_dc as k2
     from mridc_tpu_torch.kernels import k3_indrnn as k3
+    from mridc_tpu_torch.kernels import k4_conv_epilogue as k4
 
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
     import chip_smoke
@@ -266,6 +277,11 @@ def test_chip_smoke_data_per_step_counts_hold_on_the_cpu_path(monkeypatch):
     count(k2, "sens_reduce_plain", lambda *a: ["k2_load", "k2_reduce"])
     count(k3, "indrnn_plain", lambda x, *a: [k3.SYMBOLS[x.dtype]])
     count(k3, "indrnn_bwd_plain", lambda g, x, *a: [k3.BWD_SYMBOLS[x.dtype]])
+    count(k4, "edge_pad_plain", lambda x, *a, **kw: [k4.PAD_SYMBOLS[x.dtype]])
+    count(k4, "edge_pad_bwd_plain", lambda g, *a, **kw: [k4.PAD_BWD_SYMBOLS[g.dtype]])
+    count(k4, "bias_act_plain", lambda y, *a, **kw: [k4.ACT_SYMBOLS[y.dtype]])
+    count(k4, "bias_act_bwd_plain",
+          lambda g, out, act, want_db: [k4.ACT_BWD_SYMBOLS[g.dtype]] if act or want_db else [])
 
     for name, (ds, over, _, p8) in chip_smoke.D2_RUNS.items():  # p8: phase 8's run
         cfg = chip_smoke.flagship_cfg(fft_centered=ds["fft_centered"], fft_normalization=ds["fft_normalization"],

@@ -37,6 +37,7 @@ from mridc_tpu_torch import cli
 from mridc_tpu_torch.kernels import k1_psf1d_dc as k1
 from mridc_tpu_torch.kernels import k2_full_dc as k2
 from mridc_tpu_torch.kernels import k3_indrnn as k3
+from mridc_tpu_torch.kernels import k4_conv_epilogue as k4
 from mridc_tpu_torch.models import build_model
 from mridc_tpu_torch.train import checkpoints
 from mridc_tpu_torch.train.losses import process_reconstruction_loss
@@ -359,6 +360,11 @@ def _counting(monkeypatch):
     count(k1, "psf1d_dc_sens_bwd_plain", lambda g, e, s, *a, **kw: [k1.SENS_SYMBOLS[s.dtype]])
     count(k3, "indrnn_plain", lambda x, *a, **kw: [k3.SYMBOLS[x.dtype]])
     count(k3, "indrnn_bwd_plain", lambda g, x, *a, **kw: [k3.BWD_SYMBOLS[x.dtype]])
+    count(k4, "edge_pad_plain", lambda x, *a, **kw: [k4.PAD_SYMBOLS[x.dtype]])
+    count(k4, "edge_pad_bwd_plain", lambda g, *a, **kw: [k4.PAD_BWD_SYMBOLS[g.dtype]])
+    count(k4, "bias_act_plain", lambda y, *a, **kw: [k4.ACT_SYMBOLS[y.dtype]])
+    count(k4, "bias_act_bwd_plain",
+          lambda g, out, act, want_db: [k4.ACT_BWD_SYMBOLS[g.dtype]] if act or want_db else [])
     count(k2, "full_dc_plain", lambda *a, **kw: ["k2_expand", "k2_residual", "k2_reduce"])
     count(k2, "full_dc_bwd_plain", lambda *a, **kw: ["k2_expand", "k2_mask", "k2_reduce_acc"])
     count(k2, "full_dc_bwd_sens_plain",

@@ -61,6 +61,16 @@ KSTEP = 16  # the MMA's depth
 BF = torch.bfloat16
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the cases are small, and parallel test workers
+    would otherwise contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _operands(b, c, h, w, seed, rounded=True):
     """eta, sens (unit RSS), mats (Gauss form, centered ortho), z0 and an
     upstream g [B, H, W, 4], all rounded to bf16 (float32 tensors holding bf16

@@ -31,6 +31,16 @@ jdc = importlib.import_module("mridc_tpu.nn.dc")
 RTOL, ATOL = 2e-3, 2e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the cases are small, and parallel test workers
+    would otherwise contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _off_by_one_pixel(x: torch.Tensor) -> torch.Tensor:
     """A contiguous copy of ``x`` starting 8 bytes past a 16-byte boundary."""
     buf = torch.empty(x.numel() + 4, dtype=x.dtype)

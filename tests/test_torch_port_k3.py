@@ -38,6 +38,16 @@ jcells = importlib.import_module("mridc_tpu.nn.rnn_cells")
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the cases are small, and parallel test workers
+    would otherwise contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _nhwc(shape, seed):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
 

@@ -38,6 +38,16 @@ SMALL = ["model.num_cascades=1", "model.time_steps=2", "model.conv_filters=[8,8,
          "trainer.accelerator=cpu"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the cases are small, and parallel test workers
+    would otherwise contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got, want, what=""):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL * max(1.0, float(np.abs(want).max())),

@@ -36,6 +36,16 @@ RTOL, ATOL = 1e-5, 1e-6
 NORMS = ["backward", "ortho", "forward", "none", None]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the cases are small, and parallel test workers
+    would otherwise contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cx(shape, seed):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)

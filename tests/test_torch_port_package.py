@@ -26,6 +26,16 @@ ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "mridc_tpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the cases are small, and parallel test workers
+    would otherwise contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _sources():
     files = sorted(Path(mridc_tpu_torch.__file__).parent.rglob("*.py"))
     return files + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("torch_*.py"))

@@ -51,6 +51,16 @@ CCNN_LIVE = {"model_name": "CascadeNet", "num_cascades": 2, "hidden_channels": 8
              "train_batch_stats": True, "fft_centered": False, "fft_normalization": "backward"}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the cases are small, and parallel test workers
+    would otherwise contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def pool():
     """Two spawned processes in one gloo group; ``run(case, [kwargs of rank

@@ -30,6 +30,7 @@ from mridc_tpu.train import checkpoints as jckpt
 from mridc_tpu.train import task_trainers as jtt
 from mridc_tpu_torch.kernels import k2_full_dc as k2
 from mridc_tpu_torch.kernels import k3_indrnn as k3
+from mridc_tpu_torch.kernels import k4_conv_epilogue as k4
 from mridc_tpu_torch.models import build_model
 from mridc_tpu_torch.models.quantitative import signal_model as tsm
 from mridc_tpu_torch.train import checkpoints
@@ -599,6 +600,11 @@ def _counting(monkeypatch):
     count(k2, "full_dc_bwd_plain", lambda *a, **kw: ["k2_expand", "k2_mask", "k2_reduce_acc"])
     count(k3, "indrnn_plain", lambda x, *a, **kw: [f"k3_indrnn_{dt(x)}"])
     count(k3, "indrnn_bwd_plain", lambda g, x, *a, **kw: [f"k3_indrnn_bwd_{dt(x)}"])
+    count(k4, "edge_pad_plain", lambda x, *a, **kw: [k4.PAD_SYMBOLS[x.dtype]])
+    count(k4, "edge_pad_bwd_plain", lambda g, *a, **kw: [k4.PAD_BWD_SYMBOLS[g.dtype]])
+    count(k4, "bias_act_plain", lambda y, *a, **kw: [k4.ACT_SYMBOLS[y.dtype]])
+    count(k4, "bias_act_bwd_plain",
+          lambda g, out, act, want_db: [k4.ACT_BWD_SYMBOLS[g.dtype]] if act or want_db else [])
     return counts
 
 

@@ -40,6 +40,16 @@ RTOL, ATOL = 2e-3, 2e-4
 B, C, H, W = 2, 3, 16, 20
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the cases are small, and parallel test workers
+    would otherwise contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got, want, rtol=RTOL, atol=ATOL):
     got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     want = np.asarray(want)
@@ -261,6 +271,7 @@ def test_chip_smoke_per_step_counts_hold_on_the_cpu_path(monkeypatch):
     from mridc_tpu_torch.kernels import k1_psf1d_dc as k1
     from mridc_tpu_torch.kernels import k2_full_dc as k2
     from mridc_tpu_torch.kernels import k3_indrnn as k3
+    from mridc_tpu_torch.kernels import k4_conv_epilogue as k4
 
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
     import chip_smoke
@@ -284,6 +295,11 @@ def test_chip_smoke_per_step_counts_hold_on_the_cpu_path(monkeypatch):
     count(k2, "sens_reduce_plain", lambda *a: ["k2_load", "k2_reduce"])
     count(k3, "indrnn_plain", lambda x, *a: [k3.SYMBOLS[x.dtype]])
     count(k3, "indrnn_bwd_plain", lambda g, x, *a: [k3.BWD_SYMBOLS[x.dtype]])
+    count(k4, "edge_pad_plain", lambda x, *a, **kw: [k4.PAD_SYMBOLS[x.dtype]])
+    count(k4, "edge_pad_bwd_plain", lambda g, *a, **kw: [k4.PAD_BWD_SYMBOLS[g.dtype]])
+    count(k4, "bias_act_plain", lambda y, *a, **kw: [k4.ACT_SYMBOLS[y.dtype]])
+    count(k4, "bias_act_bwd_plain",
+          lambda g, out, act, want_db: [k4.ACT_BWD_SYMBOLS[g.dtype]] if act or want_db else [])
 
     y, sens, mask, target = _data(9, 12, 12)
     cfgs = {

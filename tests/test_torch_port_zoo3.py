@@ -35,6 +35,7 @@ from mridc_tpu.train.losses import process_reconstruction_loss as jloss
 from mridc_tpu.train.trainer import Trainer as JTrainer
 from mridc_tpu_torch import launch
 from mridc_tpu_torch.kernels import k2_full_dc as k2
+from mridc_tpu_torch.kernels import k4_conv_epilogue as k4
 from mridc_tpu_torch.models import PENDING_MODELS, available_models, build_model
 from mridc_tpu_torch.models.recon import rvn as trvn
 from mridc_tpu_torch.nn import cs_solvers as tcs
@@ -453,6 +454,19 @@ def test_chip_smoke_zoo3_counts_hold_on_the_cpu_path(monkeypatch):
           ["k2_expand", *(["k2_mask"] if m is not None else []), *load(c, fft_order)])
     count("normal_op_plain", lambda *a, **kw: ["k2_expand", "k2_mask", "k2_reduce"])
     count("reduce_plain", lambda *a, **kw: ["k2_reduce"])
+
+    def count_k4(name, symbols):  # RVN's edge pads
+        orig = getattr(k4, name)
+
+        def wrapped(*a, **kw):
+            for sym in symbols(*a, **kw):
+                counts[sym] = counts.get(sym, 0) + 1
+            return orig(*a, **kw)
+
+        monkeypatch.setattr(k4, name, wrapped)
+
+    count_k4("edge_pad_plain", lambda x, *a: [k4.PAD_SYMBOLS[x.dtype]])
+    count_k4("edge_pad_bwd_plain", lambda g, *a: [k4.PAD_BWD_SYMBOLS[g.dtype]])
     y, sens, mask, target = _data(b=1, c=3, h=16, w=16, seed=21)
     batch = {"masked_kspace": y, "sensitivity_maps": sens, "mask": mask, "target": target}
     cut = {"recurrent_hidden_channels": 4, "initializer_channels": [4, 4, 8, 8], "num_filters": 4}

@@ -9,6 +9,7 @@ run configs match ``mridc_tpu.launch`` on fixture volumes (rtol 2e-3 / atol
 import jax
 import numpy as np
 import pytest
+import torch
 
 from mridc_tpu import launch as jlaunch
 from mridc_tpu.models import build_model as jax_build_model
@@ -22,6 +23,16 @@ import test_torch_port_launch as tl
 import test_torch_port_zoo2 as z2
 from fixtures import create_dataset
 from test_torch_port_zoo3 import ATOL, ROOT, RTOL, YAMLS, _close
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the cases are small, and parallel test workers
+    would otherwise contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("path", YAMLS)
